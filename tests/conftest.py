@@ -13,6 +13,10 @@ def pytest_configure(config):
         "markers",
         "requires_accel: needs a real TPU/GPU device; skipped on CPU-only "
         "hosts (interpret-mode equivalents still run everywhere)")
+    config.addinivalue_line(
+        "markers",
+        "requires_cuda: needs a CUDA card (the PyTorch port's kernels); "
+        "skips inside the test where torch sees none")
 
 
 def _accel_present() -> bool:
