@@ -9,12 +9,14 @@ import importlib
 
 ARCHS = [
     "qwen2_0_5b",
+    "mixtral_8x7b",
 ]
 
 # CLI ids (dashes) -> module names
 ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 ALIASES.update({
     "qwen2-0.5b": "qwen2_0_5b",
+    "mixtral-8x7b": "mixtral_8x7b",
 })
 
 

@@ -34,3 +34,9 @@ def flash_reference(q, k, v, *, causal: bool = True, window: int = 0,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bksd->bkgqd", probs, v.float())
     return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def moe_gemm_reference(x, w) -> torch.Tensor:
+    """x: [E,C,d]; w: [E,d,F] -> [E,C,F] — per-expert matmul in f32, the
+    result in x's dtype."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)

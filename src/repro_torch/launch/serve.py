@@ -2,11 +2,19 @@
 
 A request queue feeds a fixed-width decode batch; finished slots are
 immediately refilled from the queue (continuous batching).  Each slot
-carries its own position clock, and every decode step runs the model's
-attention through the Hopper flash-attention kernel on the card.
+carries its own position clock.  On the card every decode step runs the
+model's attention through the Hopper flash-attention kernel (mixtral's
+sliding-window layers against ring-buffer caches) and, for an MoE model,
+each layer's expert FFN through the Hopper grouped-GEMM kernel, three
+launches per layer; the rest is plain PyTorch.
 
   python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --requests 8 --slots 4 --gen 16
+  python -m repro_torch.launch.serve --arch mixtral-8x7b --smoke \\
+      --device cpu --requests 6 --slots 2 --gen 8 --max-len 32
+
+The full mixtral-8x7b (46.7 B parameters) does not fit one card;
+``chip_smoke.py`` serves it at full width with its depth cut to 4 layers.
 
 ``--capture PATH`` additionally records the executed per-request/slot
 operator stream as a DTR log: every admission, decode step, and retirement
@@ -29,6 +37,7 @@ from .. import configs
 from ..core.graph import Log
 from ..models import model as M
 from ..models.config import ModelConfig
+from ..models.params import tree_items
 from ..trace.capture import WorkloadTrace, step_model_from_config
 from .steps import make_serve_step
 
@@ -94,8 +103,7 @@ def serve_loop(cfg: ModelConfig, params, args) -> ServeResult:
     serve = make_serve_step(cfg)
     # The cache is updated in place, step after step (JAX donates it).
     cache = M.init_cache(cfg, args.slots, args.max_len, device)
-    leaves = [c["attn"][n] for c in cache["groups"].values()
-              for n in ("k", "v")]
+    leaves = [leaf for _, leaf in tree_items(cache)]
 
     # True continuous batching: each slot carries its own position clock,
     # so a finished slot is refilled on the very next global step while its
@@ -110,7 +118,8 @@ def serve_loop(cfg: ModelConfig, params, args) -> ServeResult:
         slots[i] = {"rid": rid, "prompt": prompt, "i": 0, "out": []}
         pos[i] = 0
         # Zero slot i's rows of every [layers, slots, ...] cache leaf.
-        # Attention caches are position-masked, so this is hygiene.
+        # Attention caches (dense or ring) are position-masked, so this is
+        # hygiene.
         for leaf in leaves:
             leaf[:, i].zero_()
 

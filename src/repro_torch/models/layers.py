@@ -1,12 +1,14 @@
-"""Transformer building blocks: the dense-attention pieces of
-``repro.models.layers`` in PyTorch.
+"""Transformer building blocks: the dense and sliding-window attention
+pieces of ``repro.models.layers`` in PyTorch (qwen2, mixtral).
 
 Every block ships a ``*_defs(cfg)`` returning a ParamInfo tree and a
 ``*_apply(cfg, params, ...)`` function on tensors.  Attention supports
-GQA/MQA, RoPE, a causal mask, QKV bias, and single-token decode against a
-KV cache with per-slot position clocks.  It goes through
-``kernels.ops.attention``: the Hopper kernel for CUDA tensors, its plain
-version for CPU tensors.
+GQA/MQA, RoPE, a causal mask with an optional sliding window, QKV bias, and
+single-token decode with per-slot position clocks, against a dense KV cache
+or, for a windowed layer (mixtral's ``attn_local``), a ring-buffer cache of
+the window's length.  It goes through ``kernels.ops.attention``: the Hopper
+kernel for CUDA tensors, its plain version for CPU tensors.  Embeddings are
+tied (the token table unembeds) or untied (an ``unembed`` leaf).
 """
 from __future__ import annotations
 
@@ -106,15 +108,18 @@ def _qkv(cfg: ModelConfig, p, x):
     return q, k, v
 
 
-def attention_apply(cfg: ModelConfig, p, x, *, positions,
+def attention_apply(cfg: ModelConfig, p, x, *, positions, window: int = 0,
                     cache: Optional[dict] = None):
-    """Causal self-attention.
+    """Causal self-attention; ``window`` > 0 limits each query to the last
+    ``window`` positions.
 
-    Train (cache None): full-sequence causal attention.
+    Train (cache None): full-sequence causal (+window) attention.
     Decode (cache dict with k [B,L,KV,D], v, pos [B]): x is [B,1,D]; each
     slot writes its new key/value at its own position and attends over the
-    positions up to it.  The cache is updated in place (JAX returns a new
-    one and donates the old); the returned dict holds the same tensors.
+    positions up to it.  With a window the cache is a ring of length
+    L <= window: slot b writes row pos[b] mod L.  The cache is updated in
+    place (JAX returns a new one and donates the old); the returned dict
+    holds the same tensors.
     """
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, p, x)
@@ -123,7 +128,7 @@ def attention_apply(cfg: ModelConfig, p, x, *, positions,
 
     new_cache = None
     if cache is None:
-        out = ops.attention(q, k, v)
+        out = ops.attention(q, k, v, window=window)
     else:
         pos = cache["pos"]
         if pos.dim() != 1 or s != 1:
@@ -132,15 +137,28 @@ def attention_apply(cfg: ModelConfig, p, x, *, positions,
         k_all, v_all = cache["k"], cache["v"]
         length = k_all.shape[1]
         rows = torch.arange(b, device=pos.device)
-        # JAX drops a scatter whose index is out of range (an idle slot whose
-        # clock ran to max_len); a torch index would raise.  Write such rows
-        # back unchanged instead.
-        keep = (pos < length)[:, None, None]
-        at = pos.clamp(max=length - 1)
-        k_all[rows, at] = torch.where(keep, k[:, 0], k_all[rows, at])
-        v_all[rows, at] = torch.where(keep, v[:, 0], v_all[rows, at])
-        # Slot b sees cache positions <= pos[b] (all of them once pos runs
-        # past the end): the JAX package's decode_mask.
+        if window > 0:
+            if length > window:
+                raise ValueError(f"a windowed cache is a ring of at most "
+                                 f"window={window} rows, got {length}")
+            # Ring buffer: row j holds absolute position
+            # pos - ((pos - j) mod L), so every write lands in range.
+            at = torch.remainder(pos, length)
+            k_all[rows, at] = k[:, 0]
+            v_all[rows, at] = v[:, 0]
+        else:
+            # JAX drops a scatter whose index is out of range (an idle slot
+            # whose clock ran to max_len); a torch index would raise.  Write
+            # such rows back unchanged instead.
+            keep = (pos < length)[:, None, None]
+            at = pos.clamp(max=length - 1)
+            k_all[rows, at] = torch.where(keep, k[:, 0], k_all[rows, at])
+            v_all[rows, at] = torch.where(keep, v[:, 0], v_all[rows, at])
+        # Slot b sees cache rows < min(pos[b] + 1, L): the JAX package's
+        # decode_mask, and for a ring its ``abs_pos >= 0`` (rows 0..pos
+        # until the ring wraps, then all of them, which lie inside the
+        # window).  Softmax does not depend on the order of the keys, so
+        # the ring needs no window inside the kernel.
         kv_len = (pos + 1).clamp(max=length).to(torch.int32)
         out = ops.attention(q, k_all, v_all, kv_len=kv_len)
         new_cache = {"k": k_all, "v": v_all, "pos": pos + 1}
@@ -151,13 +169,16 @@ def attention_apply(cfg: ModelConfig, p, x, *, positions,
     return y, new_cache
 
 
-def attn_cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    """KV-cache ParamInfo tree for one attention layer."""
+def attn_cache_defs(cfg: ModelConfig, batch: int, max_len: int,
+                    window: int = 0) -> dict:
+    """KV-cache ParamInfo tree for one attention layer; a windowed layer
+    keeps a ring of ``min(max_len, window)`` rows."""
+    s = min(max_len, window) if window > 0 else max_len
     kv, hd = cfg.n_kv_heads, cfg.head_dim
     return {
-        "k": ParamInfo((batch, max_len, kv, hd), cfg.dtype,
+        "k": ParamInfo((batch, s, kv, hd), cfg.dtype,
                        ("batch", "kv_seq", "kv_heads", None)),
-        "v": ParamInfo((batch, max_len, kv, hd), cfg.dtype,
+        "v": ParamInfo((batch, s, kv, hd), cfg.dtype,
                        ("batch", "kv_seq", "kv_heads", None)),
     }
 
@@ -166,8 +187,9 @@ def attn_cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
 # Gated MLP (SwiGLU)
 # ---------------------------------------------------------------------------
 
-def mlp_defs(cfg: ModelConfig) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
+    d = cfg.d_model
+    f = d_ff or cfg.d_ff
     return {
         "wi": ParamInfo((d, f), cfg.param_dtype, (None, "mlp"), fsdp_dim=0),
         "wg": ParamInfo((d, f), cfg.param_dtype, (None, "mlp"), fsdp_dim=0),
@@ -187,10 +209,15 @@ def mlp_apply(cfg: ModelConfig, p, x):
 # ---------------------------------------------------------------------------
 
 def embed_defs(cfg: ModelConfig) -> dict:
-    """Tied embeddings: the token table is also the unembedding."""
-    return {"tokens": ParamInfo((cfg.vocab, cfg.d_model), cfg.param_dtype,
+    """The token table; untied models add an ``unembed`` [d, vocab]."""
+    defs = {"tokens": ParamInfo((cfg.vocab, cfg.d_model), cfg.param_dtype,
                                 ("vocab", None), fsdp_dim=1,
                                 init_scale=1.0)}
+    if not cfg.tie_embeddings:
+        defs["unembed"] = ParamInfo((cfg.d_model, cfg.vocab),
+                                    cfg.param_dtype, (None, "vocab"),
+                                    fsdp_dim=0)
+    return defs
 
 
 def embed_apply(cfg: ModelConfig, p, tokens):
@@ -198,4 +225,7 @@ def embed_apply(cfg: ModelConfig, p, tokens):
 
 
 def unembed_apply(cfg: ModelConfig, p, x):
-    return x @ p["tokens"].to(adtype(cfg)).T
+    dt = adtype(cfg)
+    if cfg.tie_embeddings:
+        return x @ p["tokens"].to(dt).T
+    return x @ p["unembed"].to(dt)

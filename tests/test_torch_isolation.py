@@ -44,7 +44,8 @@ def _without_imports(text: str) -> list:
 
 
 @pytest.mark.parametrize("rel", ["core/graph.py", "models/config.py",
-                                 "configs/qwen2_0_5b.py"])
+                                 "configs/qwen2_0_5b.py",
+                                 "configs/mixtral_8x7b.py"])
 def test_copies_equal_originals_apart_from_imports(rel):
     assert _without_imports((PORT / rel).read_text()) == \
         _without_imports((REF / rel).read_text())
@@ -54,5 +55,7 @@ def test_registry_holds_ported_architectures_only():
     from repro_torch import configs
     assert configs.get("qwen2-0.5b").n_layers == 24
     assert configs.get_smoke("qwen2_0_5b").dtype == "float32"
+    assert configs.get("mixtral-8x7b").n_experts == 8
+    assert configs.get_smoke("mixtral_8x7b").window == 8
     with pytest.raises(KeyError, match="not yet ported"):
         configs.get("llama3.2-1b")

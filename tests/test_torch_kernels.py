@@ -152,3 +152,18 @@ def test_ops_attention_matches_jax_adapter():
     expect = jops.attention(*map(jnp.asarray, (q, k, v)), use_kernel=False)
     assert out.shape == (b, s, h, d)
     np.testing.assert_allclose(_f32(out), _f32(expect), **TOL["float32"])
+
+
+@pytest.mark.parametrize("window", [8, 33])
+def test_ops_attention_window_matches_jax_adapter(window):
+    rng = np.random.default_rng(4)
+    b, s, h, kv, d = 2, 40, 4, 2, 32
+    q = rng.standard_normal((b, s, h, d), dtype=np.float32)
+    k = rng.standard_normal((b, s, kv, d), dtype=np.float32)
+    v = rng.standard_normal((b, s, kv, d), dtype=np.float32)
+    out = ops.attention(*map(torch.from_numpy, (q, k, v)), window=window)
+    expect = jops.attention(*map(jnp.asarray, (q, k, v)), window=window,
+                            use_kernel=False)
+    np.testing.assert_allclose(_f32(out), _f32(expect), **TOL["float32"])
+    unwindowed = ops.attention(*map(torch.from_numpy, (q, k, v)))
+    assert not torch.allclose(out, unwindowed)

@@ -235,5 +235,14 @@ def test_prepare_params_casts_once(cfg, params):
 
 
 def test_unsupported_configs_raise():
-    with pytest.raises(NotImplementedError, match="moe"):
-        M.param_defs(configs.get_smoke(ARCH).replace(moe=True))
+    """What stays unported: MLA, shared experts, mixed block patterns and
+    codebook embeddings."""
+    base = configs.get_smoke(ARCH)
+    for change, match in [
+            (dict(mla=True), "mla"),
+            (dict(moe=True, n_experts=4, top_k=2, n_shared_experts=1),
+             "shared experts"),
+            (dict(pattern=("attn_local", "attn"), n_layers=4), "pattern"),
+            (dict(n_codebooks=4), "n_codebooks")]:
+        with pytest.raises(NotImplementedError, match=match):
+            M.param_defs(base.replace(**change))

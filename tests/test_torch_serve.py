@@ -32,6 +32,9 @@ TRACES = Path(__file__).resolve().parent / "traces"
 ARCH = "qwen2-0.5b"
 FLAGS = ["--arch", ARCH, "--smoke", "--requests", "6", "--slots", "2",
          "--gen", "8"]
+MIXTRAL = "mixtral-8x7b"
+MIXTRAL_FLAGS = ["--arch", MIXTRAL, "--smoke", "--requests", "6",
+                 "--slots", "2", "--gen", "8", "--max-len", "32"]
 
 
 class _RecordingJit:
@@ -93,6 +96,57 @@ def test_serve_tokens_match_jax(monkeypatch, capsys):
     assert all(len(t) == 8 for t in res.completed.values())
 
 
+@pytest.fixture(scope="module")
+def jax_mixtral_serve(tmp_path_factory):
+    """The JAX serve of the smoke mixtral, run once: every step's next
+    tokens and the ``--capture`` log."""
+    steps = []
+    log = tmp_path_factory.mktemp("jax") / "serve.log"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jserve, "jax", _RecordingJit(steps))
+        jserve.main(MIXTRAL_FLAGS + ["--capture", str(log)])
+    return steps, log.read_bytes()
+
+
+@pytest.fixture(scope="module")
+def port_mixtral_serve(tmp_path_factory):
+    """The port's serve of the same, on the JAX parameters carried across:
+    every step's next tokens, the result and the ``--capture`` log."""
+    steps = []
+    log = tmp_path_factory.mktemp("port") / "serve.log"
+    cfg = configs.get_smoke(MIXTRAL)
+    jparams = JM.init_params(jconfigs.get_smoke(MIXTRAL),
+                             jax.random.PRNGKey(0))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(serve, "make_serve_step",
+                   _recording(make_serve_step, steps))
+        res = serve.serve_loop(cfg, params, serve.parse_args(
+            MIXTRAL_FLAGS + ["--capture", str(log)]))
+    return steps, res, log.read_bytes()
+
+
+def test_mixtral_serve_tokens_match_jax(jax_mixtral_serve,
+                                        port_mixtral_serve):
+    """Sliding-window ring caches and MoE layers: the same next token in
+    every slot at every step (51 steps, past the ring's wrap)."""
+    jax_steps, _ = jax_mixtral_serve
+    port_steps, res, _ = port_mixtral_serve
+    assert len(res.completed) == 6 and res.steps == len(jax_steps) == 51
+    assert len(port_steps) == len(jax_steps)
+    for mine, theirs in zip(port_steps, jax_steps):
+        np.testing.assert_array_equal(mine, theirs)
+    assert all(len(t) == 8 for t in res.completed.values())
+
+
+def test_mixtral_capture_matches_jax_byte_for_byte(jax_mixtral_serve,
+                                                   port_mixtral_serve):
+    _, theirs = jax_mixtral_serve
+    _, res, mine = port_mixtral_serve
+    assert mine == theirs
+    assert Log.loads(mine.decode()).op_count() == res.log.op_count() == 93
+
+
 def test_serve_step_matches_jax():
     cfg = configs.get_smoke(ARCH)
     jcfg = jconfigs.get_smoke(ARCH)
@@ -127,6 +181,15 @@ def test_golden_serve_traces_recapture(name, slots, requests):
     log = capture.capture_serve_trace(model, slots=slots, requests=requests,
                                       gen=8, seed=0, name=name)
     assert log.dumps() + "\n" == (TRACES / f"{name}.log").read_text()
+
+
+@pytest.mark.parametrize("smoke", [True, False])
+def test_mixtral_step_model_matches_jax(smoke):
+    """The router leaf is f32 whatever param_dtype is; the ring caches are
+    window-long."""
+    mine = capture.step_model_from_config(MIXTRAL, smoke=smoke)
+    theirs = jcapture.step_model_from_config(MIXTRAL, smoke=smoke)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
 
 
 @pytest.mark.parametrize("smoke", [True, False])
