@@ -12,7 +12,10 @@ Phases; any failure exits non-zero before the last line is printed:
    serve path's decode shape with mixed ``kv_len``, and one prefill-sized
    shape.  The MoE grouped GEMM: the JAX package's kernel-test sweep and
    ragged shapes in f32 and bf16, mixtral's decode shapes and a prefill
-   shape.
+   shape.  The RWKV6 forward and backward kernels: rwkv6-1.6b's train shape
+   ``[128,1024,64]``, the smoke head dim 32, a ragged S and both ends of the
+   model's clipped decay, in f32 and bf16; the backward against autograd
+   through the plain version, all five gradients.
 3. Each serve path at full width, with seeded random weights, 8 requests
    over 4 slots, 16 tokens each, ``--capture``: qwen2-0.5b (24 layers),
    then mixtral-8x7b with its depth cut to 4 layers (the 32-layer model
@@ -29,10 +32,20 @@ Phases; any failure exits non-zero before the last line is printed:
    full-width decode step, wall and device-busy time, through the kernels
    and the plain versions.
 
+6. rwkv6-1.6b training (after the serve models free their tensors): the
+   smoke config trains 3 steps (gradient accumulation 2) on the card and on
+   the CPU from the same weights and batches; at full width with depth cut
+   to 2 layers, one step's loss and gradients through the kernels against
+   the plain path, in f32 and bf16; then the full 24-layer model trains 4
+   steps at batch 4 x 1024 (bf16 activations, f32 parameters, AdamW) with
+   remat none and 1 with remat full, counting each step's kernel launches.
+   Times of both WKV kernels, their plain versions and one full-width train
+   step (wall, device busy, tokens/s, the card's idle share).
+
 The qwen2 phases run first and free their tensors before mixtral's 36 GB
-(f32 weights and their bf16 copy) arrive.  Then one JSON line per kernel
-table, the card line, and ``{"ok": true, "device": {...}}`` as the last
-line.
+(f32 weights and their bf16 copy) arrive; rwkv6 comes last.  Then one JSON
+line per kernel table, the card line, and ``{"ok": true, "device": {...}}``
+as the last line.
 """
 from __future__ import annotations
 
@@ -83,6 +96,32 @@ GEMM_SWEEP = [  # (e, c, d, f): tests/test_kernels.py's sweep, then ragged
 GEMM_DECODE = {"wi": (8, 32, 4096, 14336), "wo": (8, 32, 14336, 4096)}
 # One 2048-token request: capacity ceil(2048 * 2 / 8 * 1.25) = 640.
 GEMM_PREFILL = (8, 640, 4096, 14336)
+RWKV_ARCH = "rwkv6-1.6b"
+# rwkv6-1.6b's train shape, batch 4 x 32 heads over 1024 steps of 64.
+WKV_TRAIN = (128, 1024, 64)
+# (bh, s, d, log-decay): None draws -exp(U[-4, 1.2]) (the JAX kernel test's
+# range); a number holds every step there.  -e^4 and -e^-8 are the two ends
+# of the model's clipped decay.
+WKV_SHAPES = [WKV_TRAIN + (None,), (8, 32, 32, None), (6, 37, 64, None),
+              (16, 256, 64, -math.exp(4.0)), (16, 256, 32, -math.exp(-8.0))]
+# Forward against plain: the JAX package's rwkv6 kernel tolerances.
+WKV_TOL = {"float32": 3e-4, "bfloat16": 4e-2}
+# Backward against autograd through the plain version, per gradient,
+# relative to its largest magnitude: f32 sums of up to S * D terms in another
+# order; in bf16 gr/gk/gv are rounded once on both sides (2^-8 of a value).
+WKV_GRAD_REL = {"float32": 1e-3, "bfloat16": 1e-2}
+# Smoke training, card against CPU, 3 AdamW steps (eps 1e-3, as the CPU
+# tests take it, so the step is Lipschitz in the gradient): losses and
+# parameters in f32.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_PARAM_TOL = 1e-5
+# Full-width rwkv6 cut to 2 layers: loss and gradients, kernel path against
+# plain path in f32, as ||d|| / ||grad|| of the worst leaf.  The two paths
+# differ by the recurrence's summation order (~1e-7 relative) and by the
+# order of atomic adds in the embedding's backward.
+TRAIN_PARITY_F32 = 1e-3
+RWKV_PARITY_LAYERS = 2
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024
 
 
 def require(cond, what) -> None:
@@ -90,10 +129,10 @@ def require(cond, what) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def card_line() -> str:
+def card_line(query="name,power.limit") -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
@@ -146,21 +185,36 @@ def event_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters):
+def device_ms(torch, fn, iters, top=0):
     """Device time of one call (kernels only, no launch gaps) from the
     profiler; None where it sees no device time.  Only the device's own
-    events count: a CPU operator's entry repeats its kernels' time."""
+    events count: a CPU operator's entry repeats its kernels' time.  With
+    ``top``, also prints the ``top`` kernels by device time per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
+    # A session that follows one of thousands of kernels (a plain scan, a
+    # train step) has come back with no device events on the H100; such a
+    # session is run again, up to three times.
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = sorted(((e.self_device_time_total, e.count, e.key)
+                          for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA),
+                         reverse=True)
+        total_us = sum(us for us, _, _ in kernels)
+        if total_us > 0:
+            break
+        print(f"  profiler saw no device time (attempt {attempt + 1}); "
+              f"profiling again")
+    for us, count, name in kernels[:top]:
+        print(f"  {us / 1e3 / iters:9.3f} ms/call {100 * us / total_us:5.1f}% "
+              f"x{count // iters} {name[:100]}")
     return total_us / 1e3 / iters if total_us > 0 else None
 
 
@@ -203,27 +257,31 @@ def gemm_bound_ms(shape, itemsize, dtype_name):
 def plain_kernels(ops, ref):
     """Route the model's kernels to their plain versions, CUDA tensors
     too."""
-    kernels = ops.flash_attention, ops.moe_gemm
+    kernels = ops.flash_attention, ops.moe_gemm, ops.rwkv6_chunk
     ops.flash_attention = ref.flash_reference
     ops.moe_gemm = ref.moe_gemm_reference
+    ops.rwkv6_chunk = ref.rwkv6_reference
     try:
         yield
     finally:
-        ops.flash_attention, ops.moe_gemm = kernels
+        ops.flash_attention, ops.moe_gemm, ops.rwkv6_chunk = kernels
+
+
+def _wrappers():
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    from repro_torch.kernels.rwkv6_chunk import rwkv6_bwd, rwkv6_fwd
+    return {"flash_attention": flash_attention, "moe_gemm": moe_gemm,
+            "rwkv6_fwd": rwkv6_fwd, "rwkv6_bwd": rwkv6_bwd}
 
 
 def reset_launches():
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.moe_gemm import moe_gemm
-    flash_attention.launches = 0
-    moe_gemm.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def read_launches() -> dict:
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.moe_gemm import moe_gemm
-    return {"flash_attention": flash_attention.launches,
-            "moe_gemm": moe_gemm.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def time_row(torch, fns, iters, bound_ms_by, what, card):
@@ -348,6 +406,274 @@ def model_phases(torch, arch, cfg, smoke_flags, card, gen) -> dict:
     return launches
 
 
+def wkv_bound_ms(shape, itemsize, backward):
+    """Least time for the WKV recurrence on [BH,S,D] inputs: bytes of r, k,
+    v (``itemsize``), f32 logw, u (and for the backward f32 g in, gr/gk/gv
+    out in r's dtype, f32 glogw, gu out) against its f32 operations over the
+    f32 rate: per step 4*D^2 forward (r.S and the state update); 12*D^2
+    backward (the state rebuilt, q = S g, the G recurrence, p = G v,
+    G^T k and the glogw reduction).  The arithmetic is f32 by definition
+    (inputs widened, f32 state), so the f32 rate is its peak."""
+    bh, s, d = shape
+    n = bh * s * d
+    if backward:
+        nbytes = (3 * n * itemsize + 2 * n * 4 + bh * d * 4     # in
+                  + 3 * n * itemsize + n * 4 + bh * d * 4)    # out
+        flops = 12 * bh * s * d * d
+    else:
+        nbytes = 3 * n * itemsize + n * 4 + bh * d * 4 + n * 4  # in, out
+        flops = 4 * bh * s * d * d
+    return bound(nbytes, flops, "float32")
+
+
+def wkv_inputs(torch, shape, logw, dtype, gen):
+    """r, k, v ~ N(0,1) in ``dtype``; f32 logw (drawn or constant), u, and
+    an output gradient g ~ N(0,1)."""
+    bh, s, d = shape
+    r, k, v = (torch.randn(bh, s, d, generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    if logw is None:
+        wl = -torch.exp(torch.rand(bh, s, d, generator=gen, device="cuda")
+                        * 5.2 - 4.0)
+    else:
+        wl = torch.full((bh, s, d), logw, device="cuda")
+    u = torch.randn(bh, d, generator=gen, device="cuda") * 0.3
+    g = torch.randn(bh, s, d, generator=gen, device="cuda")
+    return (r, k, v, wl, u), g
+
+
+def rwkv_kernel_checks(torch, gen) -> dict:
+    """Phase 2 for the WKV kernels.  Returns the bf16 train shape's forward
+    and backward max abs errors."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv6_chunk import rwkv6_bwd, rwkv6_fwd
+    print("phase 2: rwkv6_fwd / rwkv6_bwd against the plain version")
+    errs = {}
+    for dtype_name, dtype in (("float32", torch.float32),
+                              ("bfloat16", torch.bfloat16)):
+        for bh, s, d, logw in WKV_SHAPES:
+            args, g = wkv_inputs(torch, (bh, s, d), logw, dtype, gen)
+            what = f"{dtype_name} [{bh},{s},{d}] logw={logw!r}"
+            out = rwkv6_fwd(*args)
+            torch.cuda.synchronize()
+            expect = ref.rwkv6_reference(*args)
+            require(bool(torch.isfinite(out).all()), f"finite fwd, {what}")
+            fwd_err = compare(torch, lambda *a: out, lambda *a: expect, (),
+                              {}, WKV_TOL[dtype_name], f"fwd {what}")
+            grads = rwkv6_bwd(*args, g)
+            torch.cuda.synchronize()
+            expect = ref.rwkv6_backward_reference(*args, g)
+            rels, bwd_err = [], 0.0
+            for name, a, b in zip(("r", "k", "v", "w_log", "u"), grads,
+                                  expect):
+                require(a.dtype == b.dtype and a.shape == b.shape
+                        and bool(torch.isfinite(a).all()),
+                        f"finite {name} gradient, {what}")
+                err = (a.float() - b.float()).abs().max().item()
+                scale = b.float().abs().max().item()
+                rels.append(err / scale if scale > 0 else err)
+                bwd_err = max(bwd_err, err)
+            ok = max(rels) <= WKV_GRAD_REL[dtype_name]
+            print(f"  bwd {what}: max|d|/max|grad| r,k,v,w_log,u = "
+                  f"{[float(f'{x:.3g}') for x in rels]} (limit "
+                  f"{WKV_GRAD_REL[dtype_name]}) {'ok' if ok else 'FAIL'}")
+            require(ok, f"backward kernel disagrees with autograd: {what}")
+            if (bh, s, d) == WKV_TRAIN and dtype_name == "bfloat16":
+                errs = {"fwd": fwd_err, "bwd": bwd_err}
+            del args, g, out, grads, expect
+    return errs
+
+
+def _leaf_rel(torch, a, b):
+    """The worst leaf's relative distance ||a - b|| / ||b|| (Frobenius),
+    and its path."""
+    from repro_torch.models.params import tree_items
+    worst = (0.0, "")
+    for (path, x), (_, y) in zip(tree_items(a), tree_items(b)):
+        ref_norm = torch.linalg.vector_norm(y.float()).item()
+        err = torch.linalg.vector_norm(x.float() - y.float()).item()
+        worst = max(worst, (err / ref_norm if ref_norm > 0 else err, path))
+    return worst
+
+
+def rwkv_train_phases(torch, card, gen) -> dict:
+    """Phase 6: rwkv6-1.6b training; then the WKV kernels' and a train
+    step's times.  Returns the kernel-table rows' numbers."""
+    from repro_torch import configs, optim
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rwkv6_chunk import rwkv6_bwd, rwkv6_fwd
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_items, tree_map
+
+    # -- 5. the WKV kernels' device times, before any large profile -------
+    # Each kernel is one serial chain per thread, so its time follows the SM
+    # clock, printed beside it.
+    args, g = wkv_inputs(torch, WKV_TRAIN, None, torch.bfloat16, gen)
+    rows = {}
+    for name, fn, backward in (("rwkv6_fwd", lambda: rwkv6_fwd(*args), False),
+                               ("rwkv6_bwd", lambda: rwkv6_bwd(*args, g),
+                                True)):
+        rows[name] = time_row(torch, (("ms", fn),), 20,
+                              wkv_bound_ms(WKV_TRAIN, 2, backward),
+                              f"{name} {list(WKV_TRAIN)} bf16", card)
+        print(f"  SM clock, power after it: "
+              f"{card_line('clocks.sm,power.draw')}")
+    del args, g
+
+    # -- 6.1 smoke config, card against CPU --------------------------------
+    smoke = configs.get_smoke(RWKV_ARCH)
+    data = SyntheticLM(vocab=smoke.vocab, seq_len=32, batch=4, seed=0)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(device), M.init_params(
+            smoke, torch.Generator().manual_seed(0)))
+        opt = optim.adamw(lr=optim.cosine_schedule(1e-3, warmup=1, total=3),
+                          eps=1e-3)
+        state = opt.init(params)
+        step = make_train_step(smoke, opt, grad_accum=2)
+        losses = []
+        for i in range(3):
+            batch = {"tokens": torch.from_numpy(
+                data.batch_at(i)["tokens"]).to(device)}
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+        runs[device] = (losses, tree_map(lambda t: t.cpu(), params))
+    (l_cpu, p_cpu), (l_card, p_card) = runs["cpu"], runs["cuda"]
+    loss_ok = all(abs(a - b) <= TRAIN_LOSS_RTOL * abs(b)
+                  for a, b in zip(l_card, l_cpu))
+    param_err = max((a - b).abs().max().item() for (_, a), (_, b)
+                    in zip(tree_items(p_card), tree_items(p_cpu)))
+    print(f"phase 6: {RWKV_ARCH} smoke, 3 steps (grad_accum 2), card vs "
+          f"CPU: losses {l_card} vs {l_cpu} (rtol {TRAIN_LOSS_RTOL}); "
+          f"params max|d|={param_err!r} (limit {TRAIN_PARAM_TOL})")
+    require(loss_ok, "smoke train losses, card vs CPU")
+    require(param_err <= TRAIN_PARAM_TOL, "smoke train params, card vs CPU")
+
+    # -- 6.2 full width, 2 layers: kernel path against plain path ------------
+    cut = configs.get(RWKV_ARCH).replace(n_layers=RWKV_PARITY_LAYERS)
+    params = M.init_params(cut, torch.Generator("cuda").manual_seed(0))
+    batch = {"tokens": torch.from_numpy(SyntheticLM(
+        vocab=cut.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
+        seed=0).batch_at(0)["tokens"]).cuda()}
+    got = {}
+    for dtype in ("float32", "bfloat16"):
+        for plain in (False, True):
+            with plain_kernels(ops, ref) if plain else nullcontext():
+                loss, grads = loss_and_grads(cut.replace(dtype=dtype),
+                                             params, batch)
+            torch.cuda.synchronize()
+            require(math.isfinite(float(loss)), f"finite {dtype} loss")
+            got[dtype, plain] = (float(loss), grads)
+    l32, g32 = got["float32", False]
+    p32, gp32 = got["float32", True]
+    l16, g16 = got["bfloat16", False]
+    p16, gp16 = got["bfloat16", True]
+    (d32, at32), (d16, at16), (noise, at_noise) = (
+        _leaf_rel(torch, g32, gp32), _leaf_rel(torch, g16, gp16),
+        _leaf_rel(torch, gp16, gp32))
+    print(f"phase 6: {RWKV_ARCH} full width, {RWKV_PARITY_LAYERS} layers, "
+          f"batch {TRAIN_BATCH}x{TRAIN_SEQ}, kernel vs plain: f32 loss "
+          f"{l32!r} vs {p32!r}, worst leaf ||d||/||g|| {d32!r} ({at32}; "
+          f"limit {TRAIN_PARITY_F32}); bf16 loss |d|={abs(l16 - p16)!r} "
+          f"(limit: plain bf16-vs-f32 {abs(p16 - p32)!r}), worst leaf "
+          f"{d16!r} ({at16}; limit: plain bf16-vs-f32 {noise!r}, "
+          f"{at_noise})")
+    require(abs(l32 - p32) <= TRAIN_PARITY_F32 * abs(p32), "f32 loss parity")
+    require(d32 <= TRAIN_PARITY_F32, "f32 gradient parity")
+    require(abs(l16 - p16) <= abs(p16 - p32), "bf16 loss parity")
+    require(d16 <= noise, "bf16 gradient parity")
+    del params, batch, got, g32, gp32, g16, gp16, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 6.3 full width, all 24 layers: the main path --------------------------
+    cfg = configs.get(RWKV_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    runs = {}
+    for remat, steps in (("none", 4), ("full", 1)):
+        args = train.parse_args([
+            "--arch", RWKV_ARCH, "--steps", str(steps), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--remat", remat])
+        per_step = []
+
+        def on_step(i, per_step=per_step):
+            if i:
+                per_step.append(read_launches())
+            reset_launches()
+
+        torch.cuda.reset_peak_memory_stats()
+        res = train.train_loop(train.config_from_args(args), params, args,
+                               verbose=False, on_step=on_step)
+        per_step.append(read_launches())
+        runs[remat] = (res, per_step)
+        fwd_per = (2 if remat == "full" else 1) * cfg.n_layers
+        print(f"phase 6: {RWKV_ARCH} ({cfg.n_layers} layers) train, remat "
+              f"{remat}, batch {TRAIN_BATCH}x{TRAIN_SEQ}: losses "
+              f"{res.losses}, grad norms {res.grad_norms}, step ms "
+              f"{[round(t * 1e3, 1) for t in res.step_seconds]}, launches "
+              f"per step {[(c['rwkv6_fwd'], c['rwkv6_bwd']) for c in per_step]}"
+              f", peak {res.peak_bytes / 2**30:.2f} GiB [{card}]")
+        require(all(math.isfinite(x) for x in res.losses), "finite losses")
+        require(all(c["rwkv6_fwd"] == fwd_per and
+                    c["rwkv6_bwd"] == cfg.n_layers for c in per_step),
+                f"launches per step with remat {remat}")
+    first = runs["none"][0].losses[0]
+    print(f"  step-0 loss {first!r}, ln(vocab) = {math.log(cfg.vocab)!r}")
+    require(abs(first - math.log(cfg.vocab)) <= 0.5, "step-0 loss near ln V")
+    main_launches = {k: sum(c[k] for c in runs["none"][1])
+                     for k in ("rwkv6_fwd", "rwkv6_bwd")}
+
+    # -- 5. one full-width train step: wall, device busy, top kernels -------
+    opt = optim.adamw(lr=optim.cosine_schedule(3e-4, warmup=20, total=100))
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt)
+    batch = {"tokens": torch.from_numpy(SyntheticLM(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
+        seed=0).batch_at(9)["tokens"]).cuda()}
+
+    def one_step():
+        nonlocal params, state
+        params, state, m = step_fn(params, state, batch)
+        return m
+
+    print(f"phase 5: {RWKV_ARCH} full-width train step, kernels by device "
+          f"time:")
+    busy_ms = device_ms(torch, one_step, 1, top=12)
+    require(busy_ms is not None, "profiler device time, train step")
+    wall_ms = event_ms(torch, one_step, 2)
+    print(f"  SM clock, power after it: {card_line('clocks.sm,power.draw')}")
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (wall_ms / 1e3)
+    print(f"phase 5: {RWKV_ARCH} full-width train step, batch "
+          f"{TRAIN_BATCH}x{TRAIN_SEQ}, bf16, remat none: wall {wall_ms!r} ms"
+          f", device busy {busy_ms!r} ms, idle share "
+          f"{1 - busy_ms / wall_ms!r}, {tokens_per_s!r} tokens/s [{card}]")
+    del params, state, step_fn, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 5. the plain versions last: each profile holds ~10^4 kernels ------
+    args, g = wkv_inputs(torch, WKV_TRAIN, None, torch.bfloat16, gen)
+    for name, fn in (
+            ("rwkv6_fwd", lambda: ref.rwkv6_reference(*args)),
+            ("rwkv6_bwd", lambda: ref.rwkv6_backward_reference(*args, g))):
+        row = rows[name]
+        row["plain_ms"] = device_ms(torch, fn, 2)
+        row["plain_wall_ms"] = event_ms(torch, fn, 2)
+        if row["plain_ms"] is None:   # see device_ms: fall back to events
+            row["plain_ms"] = row["plain_wall_ms"]
+            print(f"  {name} plain: no profiler device time; events only")
+        row["launches"] = main_launches[name]
+        how = " (autograd through it)" if name == "rwkv6_bwd" else ""
+        print(f"phase 5: {name} plain version{how} {list(WKV_TRAIN)} bf16: "
+              f"plain_ms={row['plain_ms']!r}, plain_wall_ms="
+              f"{row['plain_wall_ms']!r} [{card}]")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -422,6 +748,9 @@ def main() -> int:
                 f"{dtype_name} {what} [{shape[0]},{shape[1]},{shape[2]}]@"
                 f"[{shape[0]},{shape[2]},{shape[3]}]")
             del x, w
+    wkv_errs = rwkv_kernel_checks(torch, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- 3-5 for qwen2, then its flash-attention times -------------------------
     qwen_launches = model_phases(
@@ -485,6 +814,12 @@ def main() -> int:
             f"[{shape[0]},{shape[2]},{shape[3]}] bf16", card)
         del x, w
 
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 6 and 5 for rwkv6 -------------------------------------------------
+    wkv = rwkv_train_phases(torch, card, gen)
+
     d = times["decode"]
     g = gemm_times["decode wi"]
     print(json.dumps({"kernels": [{
@@ -501,7 +836,19 @@ def main() -> int:
         "launches": moe_launches["moe_gemm"],
         "max_abs_err": gemm_errs["bfloat16", GEMM_DECODE["wi"]],
         "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
-        "bound_by": g["bound_by"], "library_ms": g["library_ms"]}]},
+        "bound_by": g["bound_by"], "library_ms": g["library_ms"]}] + [{
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6.cu",
+        "replaces": "src/repro/kernels/rwkv6_chunk.py:81",
+        "launches": row["launches"], "max_abs_err": wkv_errs[direction],
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": None, **extra}
+        for name, direction, row, extra in (
+            ("rwkv6_fwd", "fwd", wkv["rwkv6_fwd"], {}),
+            ("rwkv6_bwd", "bwd", wkv["rwkv6_bwd"], {"note": (
+                "no TPU counterpart: the JAX package differentiates the "
+                "model's _chunked_wkv through XLA")}))]},
         allow_nan=False))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

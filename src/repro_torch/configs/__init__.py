@@ -10,6 +10,7 @@ import importlib
 ARCHS = [
     "qwen2_0_5b",
     "mixtral_8x7b",
+    "rwkv6_1_6b",
 ]
 
 # CLI ids (dashes) -> module names
@@ -17,6 +18,7 @@ ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 ALIASES.update({
     "qwen2-0.5b": "qwen2_0_5b",
     "mixtral-8x7b": "mixtral_8x7b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
 })
 
 

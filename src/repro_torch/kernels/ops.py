@@ -1,6 +1,6 @@
 """Model-layout adapters over the kernels: causal attention (with an
-optional sliding window and per-row ``kv_len``) and the MoE expert FFN's
-grouped GEMM.
+optional sliding window and per-row ``kv_len``), the MoE expert FFN's
+grouped GEMM and the RWKV6 recurrence.
 
 A CUDA tensor goes to the hand-written kernel; a CPU tensor goes to its
 plain version (the wrapper decides by device, and nothing else does).
@@ -13,6 +13,7 @@ import torch
 
 from .flash_attention import flash_attention
 from .moe_gemm import moe_gemm
+from .rwkv6_chunk import rwkv6_chunk
 
 
 def attention(q_bshd, k_bskd, v_bskd, *, window: int = 0,
@@ -42,3 +43,22 @@ def expert_ffn(buf_becd, w_edf) -> torch.Tensor:
     x = buf_becd.transpose(0, 1).reshape(e, b * c, d).contiguous()
     y = moe_gemm(x, w_edf)
     return y.reshape(e, b, c, -1).transpose(0, 1)
+
+
+def rwkv_mix(r_bshd, k_bshd, v_bshd, wlog_bshd, u_hd) -> torch.Tensor:
+    """The RWKV6 recurrence in the model layout: r, k, v, w_log [B,S,H,D],
+    u [H,D] -> f32 [B,S,H,D].
+
+    Heads fold into the batch, ``[B,S,H,D] -> [B*H,S,D]``; ``u`` is
+    broadcast to ``[B*H,D]`` with ``expand``, so autograd sums its gradient
+    over the batch.
+    """
+    b, s, h, d = r_bshd.shape
+
+    def to_bh(x):
+        return x.transpose(1, 2).reshape(b * h, s, d).contiguous()
+
+    u = u_hd.float()[None].expand(b, h, d).reshape(b * h, d).contiguous()
+    out = rwkv6_chunk(to_bh(r_bshd), to_bh(k_bshd), to_bh(v_bshd),
+                      to_bh(wlog_bshd), u)
+    return out.reshape(b, h, s, d).transpose(1, 2)

@@ -1,14 +1,18 @@
-"""Model assembly: stacked layer groups, full-sequence forward, decode step.
+"""Model assembly: stacked layer groups, full-sequence forward and loss,
+decode step.
 
 The counterpart of ``repro.models.model`` for homogeneous stacks of
 ``attn`` (qwen2) or sliding-window ``attn_local`` (mixtral) blocks, each
-with a SwiGLU MLP or a routed MoE FFN, and tied or untied embeddings; not
-yet MLA, shared experts, mixed patterns, cross attention or codebooks.
+with a SwiGLU MLP or a routed MoE FFN, and of ``rwkv`` blocks (rwkv6:
+time-mix and channel-mix), with tied or untied embeddings; not yet MLA,
+shared experts, mixed patterns, cross attention or codebooks.
 Parameters keep the JAX tree's layout and key paths (``embed.tokens``,
 ``groups.slot0.attn.wq``, ...): each leaf of ``groups`` is stacked
 ``[n_groups, ...]``, and the JAX package's ``lax.scan`` over groups becomes
-a Python loop over that leading axis.  Decode keeps per-slot position
-clocks; a windowed layer's KV cache is a ring buffer.
+a Python loop over that leading axis.  ``remat="full"`` wraps each group in
+``torch.utils.checkpoint`` (the JAX ``nothing_saveable`` policy on the scan
+body).  Decode keeps per-slot position clocks; a windowed layer's KV cache
+is a ring buffer; rwkv has no decode yet.
 """
 from __future__ import annotations
 
@@ -16,9 +20,12 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from . import moe as MOE
+from . import rwkv as RW
 from .config import ModelConfig
 from .params import TORCH_DTYPES, ParamInfo, tree_map
 
@@ -29,7 +36,8 @@ from .params import TORCH_DTYPES, ParamInfo, tree_map
 
 def _check_supported(cfg: ModelConfig) -> None:
     unsupported = {
-        "pattern": cfg.pattern not in (("attn",), ("attn_local",)),
+        "pattern": cfg.pattern not in (("attn",), ("attn_local",),
+                                       ("rwkv",)),
         "tail": bool(cfg.tail), "mla": cfg.mla,
         "shared experts": cfg.n_shared_experts > 0,
         "n_dense_layers": cfg.n_dense_layers,
@@ -42,13 +50,23 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(bad)} not ported yet (the port runs "
             f"homogeneous attn or attn_local stacks with SwiGLU or routed "
-            f"MoE FFNs)")
+            f"MoE FFNs, and rwkv stacks)")
+
+
+_NO_RWKV_DECODE = ("rwkv decode (the recurrent state cache) is not ported "
+                   "yet: ROADMAP Queue 1 item 12")
+_REMAT_LATER = ("remat policies other than none and full (dtr, dots, "
+                "names:) are not ported yet: ROADMAP Queue 1 item 3")
 
 
 def _block_defs(cfg: ModelConfig, kind: str, moe_layer: bool) -> dict:
-    return {"norm1": L.rmsnorm_defs(cfg), "norm2": L.rmsnorm_defs(cfg),
-            "attn": L.attention_defs(cfg),
-            "ffn": MOE.moe_defs(cfg) if moe_layer else L.mlp_defs(cfg)}
+    d = {"norm1": L.rmsnorm_defs(cfg), "norm2": L.rmsnorm_defs(cfg)}
+    if kind == "rwkv":
+        d["mix"] = RW.rwkv_defs(cfg)
+    else:
+        d["attn"] = L.attention_defs(cfg)
+        d["ffn"] = MOE.moe_defs(cfg) if moe_layer else L.mlp_defs(cfg)
+    return d
 
 
 def _stack_info(info: ParamInfo, n: int) -> ParamInfo:
@@ -117,7 +135,14 @@ def prepare_params(cfg: ModelConfig, params) -> Any:
 
 def block_apply(cfg: ModelConfig, kind: str, p, x, *, positions,
                 moe_layer: bool, cache=None):
-    """Pre-norm residual attention block; returns (x, new_cache)."""
+    """Pre-norm residual block; returns (x, new_cache)."""
+    if kind == "rwkv":
+        if cache is not None:
+            raise NotImplementedError(_NO_RWKV_DECODE)
+        h = L.rmsnorm_apply(cfg, p["norm1"], x)
+        x = x + RW.rwkv_time_mix(cfg, p["mix"], h)
+        h2 = L.rmsnorm_apply(cfg, p["norm2"], x)
+        return x + RW.rwkv_channel_mix(cfg, p["mix"], h2), None
     h = L.rmsnorm_apply(cfg, p["norm1"], x)
     window = cfg.window if kind == "attn_local" else 0
     attn_cache = None if cache is None else cache.get("attn")
@@ -137,15 +162,35 @@ def _group(tree, g: int):
 
 def forward(cfg: ModelConfig, params, tokens):
     """Full-sequence forward -> logits.  tokens: [B,S] int."""
+    if cfg.remat not in ("none", "full"):
+        raise NotImplementedError(_REMAT_LATER)
     x = L.embed_apply(cfg, params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     for g in range(cfg.n_groups):
         slot_params = _group(params["groups"], g)
-        for i, kind in enumerate(cfg.pattern):
-            x, _ = block_apply(cfg, kind, slot_params[f"slot{i}"], x,
-                               positions=positions, moe_layer=cfg.moe)
+
+        def body(h, slot_params=slot_params):
+            for i, kind in enumerate(cfg.pattern):
+                h, _ = block_apply(cfg, kind, slot_params[f"slot{i}"], h,
+                                   positions=positions, moe_layer=cfg.moe)
+            return h
+
+        # remat "full": keep only each group's input; the backward runs the
+        # group's forward again.
+        x = (checkpoint(body, x, use_reentrant=False)
+             if cfg.remat == "full" else body(x))
     x = L.rmsnorm_apply(cfg, params["final_norm"], x)
     return L.unembed_apply(cfg, params["embed"], x)
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """Next-token cross entropy (f32 logits for the softmax)."""
+    tokens = batch["tokens"]
+    logits = forward(cfg, params, tokens).float()
+    inp, tgt = logits[:, :-1], tokens[:, 1:].long()
+    logp = F.log_softmax(inp, dim=-1)
+    nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+    return torch.mean(nll)
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +199,8 @@ def forward(cfg: ModelConfig, params, tokens):
 
 def _block_cache_defs(cfg: ModelConfig, kind: str, batch: int,
                       max_len: int) -> dict:
+    if kind == "rwkv":
+        raise NotImplementedError(_NO_RWKV_DECODE)
     window = cfg.window if kind == "attn_local" else 0
     return {"attn": L.attn_cache_defs(cfg, batch, max_len, window)}
 

@@ -31,12 +31,14 @@ class ParamInfo:
                              f"{self.shape}")
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
     """``fn`` over every leaf of a nested dict in sorted-key order (JAX's
-    flatten order), keeping the structure."""
+    flatten order), keeping the structure; with ``rest``, over the matching
+    leaves of trees of the same structure, as ``fn(leaf, *others)``."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
-    return fn(tree)
+        return {k: tree_map(fn, tree[k], *(t[k] for t in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
 
 
 def tree_items(tree, prefix: str = ""):

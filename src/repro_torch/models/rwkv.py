@@ -1,0 +1,108 @@
+"""RWKV6 ("Finch"): attention-free time-mix with data-dependent decay.
+
+The counterpart of ``repro.models.rwkv`` on full sequences (training and
+prefill-shaped forwards).  The WKV recurrence goes through
+``kernels.ops.rwkv_mix``: the Hopper forward and backward kernels for CUDA
+tensors, the plain serial scan for CPU tensors.  The JAX package computes
+it in chunked form (``_chunked_wkv``) with the same result.
+
+The dtype order is the reference's: projections and the decay LoRA in the
+activation dtype, the LoRA then widened; the log-decay
+``-exp(clip(w0 + lora, -8, 4))``, the bonus ``u`` and the head norm in f32.
+Sequences must be a multiple of 16 long, as the reference's chunked form
+requires.  The one-token decode branch (a recurrent state cache) is not
+ported yet: ROADMAP Queue 1 item 12.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from .config import ModelConfig
+from .layers import adtype
+from .params import ParamInfo
+
+_LORA = 64
+_CHUNK = 16
+
+
+def rwkv_defs(cfg: ModelConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    h = d // cfg.rwkv_head_dim
+    dh = cfg.rwkv_head_dim
+    pd = cfg.param_dtype
+    return {
+        # time-mix
+        "mu": ParamInfo((5, d), pd, (None, None), init_scale=0.5),
+        "w0": ParamInfo((d,), pd, (None,), init_scale=-0.6),
+        "wA": ParamInfo((d, _LORA), pd, (None, None)),
+        "wB": ParamInfo((_LORA, d), pd, (None, None)),
+        "u": ParamInfo((h, dh), pd, ("heads", None), init_scale=0.3),
+        "wr": ParamInfo((d, d), pd, (None, "heads"), fsdp_dim=0),
+        "wk": ParamInfo((d, d), pd, (None, "heads"), fsdp_dim=0),
+        "wv": ParamInfo((d, d), pd, (None, "heads"), fsdp_dim=0),
+        "wg": ParamInfo((d, d), pd, (None, "heads"), fsdp_dim=0),
+        "wout": ParamInfo((d, d), pd, ("heads", None), fsdp_dim=1),
+        "ln_x": ParamInfo((d,), pd, (None,), init_scale=0.0),
+        # channel-mix
+        "mu_c": ParamInfo((2, d), pd, (None, None), init_scale=0.5),
+        "wr_c": ParamInfo((d, d), pd, (None, None), fsdp_dim=0),
+        "wk_c": ParamInfo((d, f), pd, (None, "mlp"), fsdp_dim=0),
+        "wv_c": ParamInfo((f, d), pd, ("mlp", None), fsdp_dim=1),
+    }
+
+
+def _shift(x):
+    """x_{t-1} along the sequence, zeros at t = 0."""
+    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
+def _mix(x, xs, mu):
+    return x + (xs - x) * mu
+
+
+def _head_norm(cfg: ModelConfig, p, x):
+    """Per-head RMS norm with learned scale (GroupNorm analogue), in f32."""
+    b, s, h, d = x.shape
+    x32 = x.float()
+    y = x32 * torch.rsqrt(
+        torch.mean(torch.square(x32), dim=-1, keepdim=True) + 1e-5)
+    return y.reshape(b, s, h * d) * (1.0 + p["ln_x"].float())
+
+
+def rwkv_time_mix(cfg: ModelConfig, p, x):
+    """Time-mix over a full sequence x [B,S,d] -> [B,S,d]."""
+    dt = adtype(cfg)
+    b, s, d = x.shape
+    if s % _CHUNK:
+        raise ValueError(f"seq {s} not divisible by chunk {_CHUNK} (the "
+                         f"reference's chunked recurrence needs it)")
+    h, dh = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    xs = _shift(x)
+    mu = p["mu"].to(dt)
+    xr, xk, xv, xw, xg = (_mix(x, xs, mu[i]) for i in range(5))
+
+    r = (xr @ p["wr"].to(dt)).reshape(b, s, h, dh)
+    k = (xk @ p["wk"].to(dt)).reshape(b, s, h, dh)
+    v = (xv @ p["wv"].to(dt)).reshape(b, s, h, dh)
+    g = F.silu(xg @ p["wg"].to(dt))
+    # Data-dependent decay (Finch): w = exp(-exp(w0 + tanh(x A) B)).
+    lora = torch.tanh(xw @ p["wA"].to(dt)) @ p["wB"].to(dt)
+    logw = -torch.exp(torch.clamp(p["w0"].float() + lora.float(), -8.0, 4.0))
+    logw = logw.reshape(b, s, h, dh)
+
+    out = ops.rwkv_mix(r, k, v, logw, p["u"])
+    y = _head_norm(cfg, p, out).to(dt) * g
+    return y @ p["wout"].to(dt)
+
+
+def rwkv_channel_mix(cfg: ModelConfig, p, x):
+    """Channel-mix (squared-ReLU FFN with a sigmoid receptance gate)."""
+    dt = adtype(cfg)
+    xs = _shift(x)
+    mu = p["mu_c"].to(dt)
+    xk, xr = _mix(x, xs, mu[0]), _mix(x, xs, mu[1])
+    r = torch.sigmoid(xr @ p["wr_c"].to(dt))
+    k = torch.square(torch.relu(xk @ p["wk_c"].to(dt)))
+    return r * (k @ p["wv_c"].to(dt))

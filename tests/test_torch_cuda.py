@@ -18,7 +18,9 @@ from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.moe_gemm import moe_gemm  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.kernels.rwkv6_chunk import (  # noqa: E402
+    rwkv6_bwd, rwkv6_chunk, rwkv6_fwd)
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.params import tree_map  # noqa: E402
 
@@ -49,6 +51,23 @@ GEMM_SHAPES = [  # (e, c, d, f): tests/test_kernels.py's sweep, then ragged
     (5, 33, 48, 40),                       # C just past one 32-row tile
     (4, 16, 64, 96),                       # smoke mixtral, 2 slots
     (8, 32, 1024, 512),                    # decode-shaped: C = 4 slots x 8
+]
+# RWKV6 recurrence, kernel against plain version.  The forward: the JAX
+# package's tolerances for its own kernel (f32 3e-4, bf16 inputs 4e-2), though
+# both sides widen the same inputs and differ in summation order only.  The
+# backward: every gradient within 1e-3 of its largest magnitude (f32 sums of
+# up to S * D terms in another order; bf16 gr/gk/gv add one rounding, 2^-8
+# of their own size).
+WKV_TOL = {torch.float32: dict(rtol=3e-4, atol=3e-4),
+           torch.bfloat16: dict(rtol=4e-2, atol=4e-2)}
+WKV_GRAD_REL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
+WKV_SHAPES = [  # (bh, s, d, log-decay: None = -exp(U[-4, 1.2]) or constant)
+    (2, 128, 32, None), (1, 256, 64, None), (4, 64, 32, None),
+    (3, 37, 64, None),                     # ragged S: no chunk divides it
+    (2, 1, 32, None), (2, 9, 64, None),    # shorter than one chunk
+    (2, 100, 64, -float(np.exp(4.0))),     # steepest clipped decay
+    (2, 100, 32, -float(np.exp(-8.0))),    # flattest clipped decay
+    (8, 256, 64, None),                    # rwkv6-1.6b heads, shorter S
 ]
 
 
@@ -173,3 +192,78 @@ def test_smoke_mixtral_on_card_matches_cpu(cuda):
     assert flash_attention.launches - flash_before == \
         on_card.steps * cfg.n_layers
     assert moe_gemm.launches - moe_before == on_card.steps * 3 * cfg.n_layers
+
+
+def _wkv_inputs(bh, s, d, logw, dtype, device):
+    rng = np.random.default_rng(2)
+    r, k, v, g = (rng.standard_normal((bh, s, d), dtype=np.float32)
+                  for _ in range(4))
+    wl = (-np.exp(rng.uniform(-4.0, 1.2, (bh, s, d))) if logw is None
+          else np.full((bh, s, d), logw)).astype(np.float32)
+    u = rng.standard_normal((bh, d), dtype=np.float32) * 0.3
+
+    def t(x, dt=torch.float32):
+        return torch.from_numpy(x).to(device=device, dtype=dt)
+
+    return ([t(x, dtype) for x in (r, k, v)] + [t(wl), t(u)], t(g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,d,logw", WKV_SHAPES)
+def test_rwkv6_kernels_match_plain(cuda, bh, s, d, logw, dtype):
+    args, g = _wkv_inputs(bh, s, d, logw, dtype, cuda)
+    before = rwkv6_fwd.launches, rwkv6_bwd.launches
+    out = rwkv6_fwd(*args)
+    grads = rwkv6_bwd(*args, g)
+    torch.cuda.synchronize()
+    assert (rwkv6_fwd.launches, rwkv6_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    np.testing.assert_allclose(
+        out.cpu().numpy(), ref.rwkv6_reference(*args).cpu().numpy(),
+        **WKV_TOL[dtype])
+    expect = ref.rwkv6_backward_reference(*args, g)
+    for name, a, b in zip(("r", "k", "v", "w_log", "u"), grads, expect):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= WKV_GRAD_REL[dtype] * b.float().abs().max().item(), \
+            (name, err)
+
+
+@pytest.mark.parametrize("case", ["u_on_cpu", "r_bf16_k_f32", "logw_bf16",
+                                  "non_contiguous", "head_dim_48"])
+def test_rwkv6_rejects(cuda, case):
+    d = 48 if case == "head_dim_48" else 32
+    (r, k, v, wl, u), _ = _wkv_inputs(2, 16, d, None, torch.float32, cuda)
+    err = ValueError
+    if case == "u_on_cpu":
+        u = u.cpu()
+    elif case == "r_bf16_k_f32":
+        r, err = r.to(torch.bfloat16), TypeError
+    elif case == "logw_bf16":
+        wl, err = wl.to(torch.bfloat16), TypeError
+    elif case == "non_contiguous":
+        k = k.transpose(0, 1).contiguous().transpose(0, 1)
+    before = rwkv6_fwd.launches
+    with pytest.raises(err):
+        rwkv6_chunk(r, k, v, wl, u)
+    assert rwkv6_fwd.launches == before
+
+
+@pytest.mark.parametrize("remat,fwd_per_layer", [("none", 1), ("full", 2)])
+def test_smoke_train_step_launches(cuda, remat, fwd_per_layer):
+    """One smoke train step on the card: each rwkv layer launched the
+    forward kernel once (twice with remat "full") and the backward once."""
+    args = train.parse_args(["--smoke", "--steps", "1", "--batch", "2",
+                             "--seq", "32", "--remat", remat])
+    cfg = train.config_from_args(args)
+    params = M.init_params(cfg, torch.Generator(cuda).manual_seed(0))
+
+    def reset(step):
+        rwkv6_fwd.launches = rwkv6_bwd.launches = 0
+
+    res = train.train_loop(cfg, params, args, verbose=False, on_step=reset)
+    assert np.isfinite(res.losses[0])
+    assert (rwkv6_fwd.launches, rwkv6_bwd.launches) == \
+        (fwd_per_layer * cfg.n_layers, cfg.n_layers)

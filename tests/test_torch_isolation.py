@@ -45,7 +45,8 @@ def _without_imports(text: str) -> list:
 
 @pytest.mark.parametrize("rel", ["core/graph.py", "models/config.py",
                                  "configs/qwen2_0_5b.py",
-                                 "configs/mixtral_8x7b.py"])
+                                 "configs/mixtral_8x7b.py",
+                                 "configs/rwkv6_1_6b.py"])
 def test_copies_equal_originals_apart_from_imports(rel):
     assert _without_imports((PORT / rel).read_text()) == \
         _without_imports((REF / rel).read_text())
@@ -57,5 +58,7 @@ def test_registry_holds_ported_architectures_only():
     assert configs.get_smoke("qwen2_0_5b").dtype == "float32"
     assert configs.get("mixtral-8x7b").n_experts == 8
     assert configs.get_smoke("mixtral_8x7b").window == 8
+    assert configs.get("rwkv6-1.6b").pattern == ("rwkv",)
+    assert configs.get_smoke("rwkv6_1_6b").rwkv_head_dim == 32
     with pytest.raises(KeyError, match="not yet ported"):
         configs.get("llama3.2-1b")
