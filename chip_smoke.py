@@ -6,8 +6,12 @@
 Phases; any failure exits non-zero before the last line is printed:
 
 1. The card's name and power limit; TF32 off; every kernel under
-   ``src/repro_torch/kernels/csrc/`` built from source, all in parallel.
-2. Each kernel against its plain PyTorch version on the card.  Flash
+   ``src/repro_torch/kernels/csrc/`` built from source, all in parallel
+   (registers and spills of each kernel from ``-Xptxas -v``).
+2. Each kernel against its plain PyTorch version on the card, each line
+   naming the variant that ran: flash attention and the grouped GEMM run f32
+   on their CUDA-core (``simt``) variants and bf16 on the tensor-core
+   (``wgmma``) variants where the wrapper's plan sends it.  Flash
    attention: the JAX package's kernel-test sweep in f32 and bf16, the
    serve path's decode shape with mixed ``kv_len``, and one prefill-sized
    shape.  The MoE grouped GEMM: the JAX package's kernel-test sweep and
@@ -19,18 +23,20 @@ Phases; any failure exits non-zero before the last line is printed:
 3. Each serve path at full width, with seeded random weights, 8 requests
    over 4 slots, 16 tokens each, ``--capture``: qwen2-0.5b (24 layers),
    then mixtral-8x7b with its depth cut to 4 layers (the 32-layer model
-   does not fit one card).  Kernel launch counts are reset just before
-   each path and read just after.  Then each smoke config served on the
-   card and on the CPU gives the same tokens.
+   does not fit one card).  Kernel launch counts, in all and per variant,
+   are reset just before each path and read just after; every bf16 launch
+   of phases 3-5 must go to the ``wgmma`` variants.  Then each smoke config
+   served on the card and on the CPU gives the same tokens.
 4. Path parity, per model: one full-width decode step through the kernels
    and through the plain versions, on the same parameters, cache and tokens.
-5. Times of each kernel, its plain version and the PyTorch library call at
-   the decode and prefill shapes, beside the least time the card could take:
+5. Times of each kernel, its CUDA-core variant (the previous design, on the
+   same inputs), its plain version and the PyTorch library call at the
+   decode and prefill shapes, beside the least time the card could take:
    device time per call from the profiler (the kernels' own time, which the
    kernel table reports) and wall time per call from CUDA events around
    back-to-back calls (host dispatch included).  Then, per model, one
-   full-width decode step, wall and device-busy time, through the kernels
-   and the plain versions.
+   full-width decode step, wall and device-busy time, through the kernels,
+   through the CUDA-core variants only and through the plain versions.
 
 6. rwkv6-1.6b training (after the serve models free their tensors): the
    smoke config trains 3 steps (gradient accumulation 2) on the card and on
@@ -157,13 +163,16 @@ def gemm_inputs(torch, shape, dtype, gen):
 
 
 def compare(torch, kernel, plain, args, kw, tol, what):
+    before = dict(getattr(kernel, "variant_launches", {}))
     out = kernel(*args, **kw)
     torch.cuda.synchronize()
+    ran = [v for v, n in getattr(kernel, "variant_launches", {}).items()
+           if n != before.get(v)]
     expect = plain(*args, **kw)
     err = (out.float() - expect.float()).abs().max().item()
     ok = torch.allclose(out.float(), expect.float(), rtol=tol, atol=tol)
-    print(f"  {what}: max_abs_err={err!r} tol={tol} "
-          f"{'ok' if ok else 'FAIL'}")
+    print(f"  {what}{' [' + ran[0] + ']' if ran else ''}: "
+          f"max_abs_err={err!r} tol={tol} {'ok' if ok else 'FAIL'}")
     require(ok and math.isfinite(err),
             f"kernel disagrees with plain version: {what}")
     return err
@@ -267,6 +276,21 @@ def plain_kernels(ops, ref):
         ops.flash_attention, ops.moe_gemm, ops.rwkv6_chunk = kernels
 
 
+@contextmanager
+def simt_only():
+    """Plan every flash and grouped-GEMM call onto its CUDA-core variant
+    (the previous design), as for an unaligned input: the same kernels'
+    time before this design, on the same inputs and card."""
+    from repro_torch.kernels import flash_attention as fa, moe_gemm as mg
+    plans = fa.plan, mg.plan
+    fa.plan = lambda *a, **k: plans[0](*a, **dict(k, aligned=False))
+    mg.plan = lambda *a, **k: plans[1](*a, **dict(k, aligned=False))
+    try:
+        yield
+    finally:
+        fa.plan, mg.plan = plans
+
+
 def _wrappers():
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.moe_gemm import moe_gemm
@@ -278,19 +302,42 @@ def _wrappers():
 def reset_launches():
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "variant_launches"):
+            fn.variant_launches = dict.fromkeys(fn.variant_launches, 0)
 
 
 def read_launches() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
+def read_variants() -> dict:
+    """Launches per variant of the kernels that have several."""
+    return {name: dict(fn.variant_launches)
+            for name, fn in _wrappers().items()
+            if hasattr(fn, "variant_launches")}
+
+
+def ran_variant(counts) -> str:
+    """The variant, or variants joined by '+', that a run's counts show."""
+    return "+".join(v for v, n in counts.items() if n)
+
+
+def require_wgmma(variants, what) -> None:
+    """Every bf16 launch of a serve path went to a tensor-core variant."""
+    require(all(v["simt"] == 0 for v in variants.values()),
+            f"{what}: bf16 launches on the CUDA-core variant {variants}")
+
+
 def time_row(torch, fns, iters, bound_ms_by, what, card):
-    """Device and event time of each named call, beside the bound."""
+    """Device and event time of each named call, beside the bound.  A name
+    that starts with ``simt`` is timed with its wrappers planned onto the
+    CUDA-core variants."""
     row = {}
     for name, fn in fns:
-        row[name] = device_ms(torch, fn, iters)
-        require(row[name] is not None, f"profiler device time, {name}")
-        row[name.replace("ms", "wall_ms")] = event_ms(torch, fn, iters)
+        with simt_only() if name.startswith("simt") else nullcontext():
+            row[name] = device_ms(torch, fn, iters)
+            require(row[name] is not None, f"profiler device time, {name}")
+            row[name.replace("ms", "wall_ms")] = event_ms(torch, fn, iters)
     row["bound_ms"], row["bound_by"] = bound_ms_by
     print(f"phase 5: {what}: " + ", ".join(
         f"{k}={v!r}" for k, v in row.items()) + f" [{card}]")
@@ -299,8 +346,8 @@ def time_row(torch, fns, iters, bound_ms_by, what, card):
 
 def model_phases(torch, arch, cfg, smoke_flags, card, gen) -> dict:
     """Phases 3-5 for one model at full width: serve, decode-step parity,
-    decode-step times.  Returns the path's launch counts.  Every tensor it
-    makes is freed when it returns."""
+    decode-step times.  Returns the serve path's launch counts, in all and
+    per variant.  Every tensor it makes is freed when it returns."""
     from repro_torch import configs
     from repro_torch.core.graph import Log
     from repro_torch.kernels import ops, ref
@@ -318,6 +365,7 @@ def model_phases(torch, arch, cfg, smoke_flags, card, gen) -> dict:
         reset_launches()
         res = serve.serve_loop(cfg, params, args)
         launches = read_launches()
+        variants = read_variants()
         log = Log.loads(Path(args.capture).read_text())
     tokens = sum(len(t) for t in res.completed.values())
     print(f"phase 3: {arch} ({cfg.n_layers} layers): served "
@@ -325,8 +373,11 @@ def model_phases(torch, arch, cfg, smoke_flags, card, gen) -> dict:
           f"decode steps, {res.seconds * 1e3 / res.steps:.3f} ms/step, "
           f"{tokens / res.seconds:.1f} tokens/s, flash_attention "
           f"launches={launches['flash_attention']}, moe_gemm "
-          f"launches={launches['moe_gemm']}, captured {log.op_count()} ops, "
+          f"launches={launches['moe_gemm']}, per variant {variants}, "
+          f"captured {log.op_count()} ops, "
           f"peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    require(cfg.dtype == "bfloat16", f"{arch} serves in {cfg.dtype}")
+    require_wgmma(variants, f"phase 3, {arch} serve")
     require(len(res.completed) == 8, f"completed {sorted(res.completed)}")
     require(all(len(t) == 16 and all(0 <= x < cfg.vocab for x in t)
                 for t in res.completed.values()), f"tokens {res.completed}")
@@ -362,11 +413,21 @@ def model_phases(torch, arch, cfg, smoke_flags, card, gen) -> dict:
     def step_logits(dtype, plain):
         c = cfg.replace(dtype=dtype)
         cache = cache_in(TORCH_DTYPES[dtype])
+        reset_launches()
         with torch.inference_mode(), (plain_kernels(ops, ref) if plain
                                       else nullcontext()):
             logits, _ = M.decode_step(c, M.prepare_params(c, params), tok,
                                       cache, pos)
         torch.cuda.synchronize()
+        if not plain:
+            variants = read_variants()
+            print(f"  {arch} {dtype} decode step, launches per variant "
+                  f"{variants}")
+            want = "wgmma" if dtype == "bfloat16" else "simt"
+            require(all(v[want] == sum(v.values()) > 0 or
+                        (name == "moe_gemm" and not cfg.moe)
+                        for name, v in variants.items()),
+                    f"{dtype} decode step on the {want} variants")
         require(bool(torch.isfinite(logits).all())
                 and logits.shape == (4, 1, cfg.vocab),
                 f"finite {dtype} logits of shape [4, 1, vocab]")
@@ -390,20 +451,24 @@ def model_phases(torch, arch, cfg, smoke_flags, card, gen) -> dict:
 
     # -- 5. decode-step times ------------------------------------------------
     prepared = M.prepare_params(cfg, params)
-    for plain in (False, True):
+    for path, ctx in (("kernel", nullcontext), ("simt kernel", simt_only),
+                      ("plain", lambda: plain_kernels(ops, ref))):
         cache = cache_in(torch.bfloat16)
 
         def run():
             with torch.inference_mode():
                 M.decode_step(cfg, prepared, tok, cache, pos)
 
-        with plain_kernels(ops, ref) if plain else nullcontext():
+        reset_launches()
+        with ctx():
             step_ms = event_ms(torch, run, 20)
             busy_ms = device_ms(torch, run, 5)
         print(f"phase 5: {arch} full-width decode step, bf16, 4 slots, "
-              f"{'plain' if plain else 'kernel'} path: {step_ms!r} ms, "
-              f"device busy {busy_ms!r} ms [{card}]")
-    return launches
+              f"{path} path: {step_ms!r} ms, device busy {busy_ms!r} ms, "
+              f"launches per variant {read_variants()} [{card}]")
+        if path == "kernel":
+            require_wgmma(read_variants(), f"phase 5, {arch} decode step")
+    return launches, variants
 
 
 def wkv_bound_ms(shape, itemsize, backward):
@@ -753,7 +818,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 3-5 for qwen2, then its flash-attention times -------------------------
-    qwen_launches = model_phases(
+    qwen_launches, qwen_variants = model_phases(
         torch, ARCH, configs.get(ARCH),
         ["--requests", "6", "--slots", "2", "--gen", "8"], card, gen)
     keep = (torch.arange(DECODE["skv"], device="cuda")[None, :]
@@ -774,6 +839,7 @@ def main() -> int:
         shape = DECODE if what == "decode" else PREFILL
         times[what] = time_row(
             torch, (("ms", lambda: flash_attention(*args_, **kw)),
+                    ("simt_ms", lambda: flash_attention(*args_, **kw)),
                     ("plain_ms", lambda: ref.flash_reference(*args_, **kw)),
                     ("library_ms", lib)), iters,
             attention_bound_ms(shape, True, 2, "bfloat16"),
@@ -784,7 +850,7 @@ def main() -> int:
 
     # -- 3-5 for mixtral, then the grouped GEMM's times ----------------------
     torch.cuda.reset_peak_memory_stats()
-    moe_launches = model_phases(
+    moe_launches, moe_variants = model_phases(
         torch, MOE_ARCH, configs.get(MOE_ARCH).replace(n_layers=MOE_LAYERS),
         ["--requests", "6", "--slots", "2", "--gen", "8", "--max-len", "32"],
         card, gen)
@@ -794,6 +860,7 @@ def main() -> int:
                 < moe_kv_len[:, None])[:, None, None, :]
     time_row(torch, (
         ("ms", lambda: flash_attention(*moe_attn_args, **moe_attn_kw)),
+        ("simt_ms", lambda: flash_attention(*moe_attn_args, **moe_attn_kw)),
         ("plain_ms", lambda: ref.flash_reference(*moe_attn_args,
                                                  **moe_attn_kw)),
         ("library_ms", lambda: F.scaled_dot_product_attention(
@@ -807,6 +874,7 @@ def main() -> int:
         x, w = gemm_inputs(torch, shape, torch.bfloat16, gen)
         gemm_times[what] = time_row(
             torch, (("ms", lambda: moe_gemm(x, w)),
+                    ("simt_ms", lambda: moe_gemm(x, w)),
                     ("plain_ms", lambda: ref.moe_gemm_reference(x, w)),
                     ("library_ms", lambda: torch.bmm(x, w))), iters,
             gemm_bound_ms(shape, 2, "bfloat16"),
@@ -824,26 +892,31 @@ def main() -> int:
     g = gemm_times["decode wi"]
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
+        "variant": ran_variant(qwen_variants["flash_attention"]),
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:97",
         "launches": qwen_launches["flash_attention"],
         "max_abs_err": decode_err,
         "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
-        "bound_by": d["bound_by"], "library_ms": d["library_ms"]}, {
+        "bound_by": d["bound_by"], "library_ms": d["library_ms"],
+        "previous_ms": d["simt_ms"]}, {
         "name": "moe_gemm", "route": "cuda",
+        "variant": ran_variant(moe_variants["moe_gemm"]),
         "source": "src/repro_torch/kernels/csrc/moe_gemm.cu",
         "replaces": "src/repro/kernels/moe_gemm.py:41",
         "launches": moe_launches["moe_gemm"],
         "max_abs_err": gemm_errs["bfloat16", GEMM_DECODE["wi"]],
         "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
-        "bound_by": g["bound_by"], "library_ms": g["library_ms"]}] + [{
-        "name": name, "route": "cuda",
+        "bound_by": g["bound_by"], "library_ms": g["library_ms"],
+        "previous_ms": g["simt_ms"]}] + [{
+        # one design each, on the CUDA cores; no earlier one to time
+        "name": name, "route": "cuda", "variant": "simt",
         "source": "src/repro_torch/kernels/csrc/rwkv6.cu",
         "replaces": "src/repro/kernels/rwkv6_chunk.py:81",
         "launches": row["launches"], "max_abs_err": wkv_errs[direction],
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-        "library_ms": None, **extra}
+        "library_ms": None, "previous_ms": None, **extra}
         for name, direction, row, extra in (
             ("rwkv6_fwd", "fwd", wkv["rwkv6_fwd"], {}),
             ("rwkv6_bwd", "bwd", wkv["rwkv6_bwd"], {"note": (

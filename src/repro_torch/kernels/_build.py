@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 ``nvcc`` into ``build/repro_torch/<name>-<hash>.so`` at the repository root
-(the hash covers the source and the flags, so an edited source rebuilds).
+(the hash covers the source, the ``csrc/`` headers it includes and the
+flags, so an edited source or header rebuilds).
 Nothing is built at import: the first wrapper call on a CUDA tensor builds
 its kernel, and :func:`build` starts several builds at once.
 """
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -19,6 +21,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# After the source: the TMA kernels look up cuTensorMapEncodeTiled with dlsym.
+LINK_FLAGS = ("-ldl",)
+_INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.M)
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -35,11 +40,25 @@ def nvcc() -> str:
     return found
 
 
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every header it includes with quotes,
+    transitively."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        todo += [path.parent / inc
+                 for inc in _INCLUDE.findall(path.read_text())]
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names) -> dict[str, str]:
@@ -56,7 +75,8 @@ def build(names) -> dict[str, str]:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (subprocess.Popen(
-            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+             *LINK_FLAGS],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out)
     logs, failed = {}, []

@@ -9,38 +9,61 @@
 //
 // Online softmax with the running max, sum and output accumulator in f32.
 // GQA maps query head h to kv head h / (Hq / Hkv).  Logits are
-// (q * 1/sqrt(D)) . k.  Causal masking is bottom-right aligned (query i sits
-// at key position i + L - Sq), with an optional sliding window; keys past the
-// sequence length are masked and their V rows zeroed; the sum is clamped at
-// 1e-20.  One argument is added to the TPU kernel's: an optional `kv_len`
-// int32 [B].  Row b then attends over its first kv_len[b] keys with causal
-// offset kv_len[b] - Sq, exactly as if k and v were cut to that length; this
-// is the TPU kernel's padding mask made per row, which per-slot decode needs.
-// A query row with no visible key (causal with Sq > length) writes zeros.
+// 1/sqrt(D) q.k in f32.  Causal masking is bottom-right aligned (query i
+// sits at key position i + L - Sq), with an optional sliding window; keys
+// past the sequence length are masked and their V rows zeroed; the sum is
+// clamped at 1e-20.  One argument is added to the TPU kernel's: an optional
+// `kv_len` int32 [B].  Row b then attends over its first kv_len[b] keys with
+// causal offset kv_len[b] - Sq, exactly as if k and v were cut to that
+// length; this is the TPU kernel's padding mask made per row, which
+// per-slot decode needs.  A query row with no visible key writes zeros.
+// The rows that share one (batch, kv head) are ordered (query position,
+// head within the group), so a decode step (Sq = 1) puts a whole GQA group
+// in one block and reads its K/V once, not once per query head.  Tiles that
+// every row of a block masks out (above the causal diagonal, before the
+// window, past the length) are never loaded.  Two variants, chosen by the
+// wrapper's plan before the launch; the C entry point refuses a variant it
+// cannot take, and nothing falls back.
 //
-// Design.  One warp per query row.  The rows that share one (batch, kv head)
-// are ordered (query position, head within the group) and cut into blocks
-// of WARPS rows, so a decode step (Sq = 1) puts a whole GQA group in one
-// block and reads its K/V once, not once per query head.  K/V tiles of
-// TK = 32 keys are staged in shared memory as f32 with 16-byte loads; for
-// q.k each lane owns one key of the tile (K rows padded to an odd word
-// stride, so the lanes hit 32 different banks), and for P.V each lane owns
-// the columns d = lane + 32c of the output row.  The tile max and sum are
-// warp shuffles.  Tiles that every row of the block masks out (above the
-// causal diagonal, before the window, past the length) are never loaded.
-// All arithmetic is f32 FMAs on the CUDA cores: no tensor cores, so no TF32.
+// `wgmma` (bf16, D in {32, 64, 128}, 16-byte-aligned bases).  What bounds
+// it: decode reads a few hundred KB of K/V (microseconds at 3.35 TB/s) and
+// is bound by latency on a grid of B * Hkv blocks; prefill is bound by the
+// tensor cores.  The design: a block is one consumer warpgroup that owns 64
+// query rows and one producer warp; the heaviest causal row tiles start
+// first.  Q is staged once, zero-padded, in 128-byte-swizzled shared
+// memory; one producer thread streams 64-key K and V tiles by TMA into a
+// two-stage ring guarded by mbarriers (TMA fills keys past Skv, and head
+// dims past D = 32, with zeros).  S = Q K^T is one m64n64 wgmma chain from
+// shared memory; the scale is applied to S in f32; the mask and the online
+// softmax run on the accumulator's registers (each row's max is reduced
+// over the four threads that hold it; tiles that every row sees whole skip
+// the mask); P is rounded to bf16, as the Pallas kernel rounds it to v's
+// dtype before P.V, and O += P V is a wgmma with P as the register A
+// operand and V (D-contiguous) as the MN-major B operand.  V rows between
+// kv_len and Skv are zeroed in shared memory, since 0 x junk is NaN.  When
+// B * Hkv * (row tiles) is far below the 132 SMs, the plan splits the key
+// range over blocks (flash-decoding): each block writes f32 partials (row
+// max, sum, unnormalised output) to scratch the wrapper allocates, and the
+// last block of each (b, kv head, row tile) to take an atomic ticket
+// combines them in the same launch and resets the ticket.
 //
-// What bounds it.  Decode is bound by the bytes of K/V it must read (a few
-// hundred KB at qwen2-0.5b's shape, microseconds at 3.35 TB/s); with only
-// B * Hkv blocks in flight the kernel is bound by latency well before that.
-// Prefill is bound by FLOPs, and here by scalar FMAs at a fraction of the
-// tensor cores' rate.  Where the design stops short: no wgmma, no TMA, no
-// split of the kv axis across blocks for small batches, and K/V tiles are
-// re-read from L2 by every block of a long prefill.
+// `simt` (f32, and bf16 head dims the wgmma variant does not take): the
+// first design.  One warp per query row, blocks of 8 rows; 32-key K/V tiles
+// staged in shared memory as f32 with 16-byte loads; for q.k each lane owns
+// one key of the tile (K rows padded to an odd word stride, so the lanes
+// hit 32 different banks), and for P.V each lane owns the columns d = lane
+// + 32c of the output row.  All arithmetic is f32 FMAs on the CUDA cores
+// (no TF32, which would change the f32 function); P stays f32.
+//
+// Not yet: a persistent schedule, warp specialisation with setmaxnreg,
+// overlap of one tile's softmax with the next tile's wgmma, strided K/V
+// reads (the model layout still needs three copies before the call).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -230,20 +253,411 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+
+// ---- the wgmma variant ----------------------------------------------------
+
+constexpr int FW_BQ = 64;      // query rows per consumer warpgroup
+constexpr int FW_BKV = 64;     // keys per tile
+constexpr int FW_STAGES = 2;
+constexpr int FW_CHUNK = FW_BKV * hopper::ROW_BYTES;  // 64 rows x 64 columns
+constexpr double LOG2E = 1.4426950408889634;
+
+constexpr int FW_THREADS = 128 + 32;  // one consumer warpgroup, a producer
+
+// DP: the head dim padded to whole 64-column chunks.
+template <int DP>
+struct FlashTile {
+  static constexpr int CHUNKS = DP / 64;
+  static constexpr int TILE = CHUNKS * FW_CHUNK;     // Q (64 rows), K or V
+  static constexpr int STAGE = 2 * TILE;             // K, then V
+  static constexpr int SMEM = TILE + FW_STAGES * STAGE + 2 * FW_STAGES * 8 +
+                              16 + 1024;
+};
+
+struct FlashArgs {
+  const __nv_bfloat16* q;
+  const int* kv_len;          // may be null
+  __nv_bfloat16* out;
+  float* part_o;              // split partials (splits > 1), else null
+  float* part_ml;
+  int* tickets;
+  int Hq, Hkv, Sq, Skv, D, causal, window, splits, row_tiles;
+  float scale_log2;           // 1/sqrt(D) * log2(e): softmax in base 2
+};
+
+template <int DP>
+__global__ void __launch_bounds__(FW_THREADS)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const FlashArgs a) {
+  using Tile = FlashTile<DP>;
+  constexpr int BQ = FW_BQ;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = hopper::align_1024(smem_raw);
+  uint8_t* ring = q_s + Tile::TILE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + FW_STAGES * Tile::STAGE);
+  uint64_t* empty = full + FW_STAGES;
+  int* last_flag = reinterpret_cast<int*>(empty + FW_STAGES);
+
+  const int group = a.Hq / a.Hkv;
+  const int rows = group * a.Sq;       // query rows of this (b, kv head)
+  // Row tiles in reverse: under a causal mask the last see the most keys,
+  // and they start first.
+  const int rt = a.row_tiles - 1 - static_cast<int>(blockIdx.y);
+  const int bk = blockIdx.x;           // b * Hkv + kv head
+  const int b = bk / a.Hkv;
+  const int row0 = rt * BQ;
+  const int L = a.kv_len ? min(max(a.kv_len[b], 0), a.Skv) : a.Skv;
+  const int offs = L - a.Sq;           // query i sits at key i + offs
+
+  // Key tiles any row of the block can see; then this split's share.
+  const int i_lo = row0 / group;
+  const int i_hi = (min(row0 + BQ, rows) - 1) / group;
+  int kv_end = L;
+  int kv_begin = 0;
+  if (a.causal) {
+    kv_end = max(0, min(L, i_hi + offs + 1));
+    if (a.window > 0) kv_begin = max(0, i_lo + offs - a.window + 1);
+  }
+  const int t_first = kv_begin / FW_BKV;
+  const int t_last = kv_end > kv_begin ? (kv_end + FW_BKV - 1) / FW_BKV
+                                       : t_first;
+  const int per = (t_last - t_first + a.splits - 1) / a.splits;
+  const int t_begin = min(t_last, t_first + static_cast<int>(blockIdx.z) *
+                                                per);
+  const int t_end = min(t_last, t_begin + per);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < FW_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 1);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // producer: one thread streams the K/V tiles
+    if (threadIdx.x == 128) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int t = t_begin; t < t_end; ++t) {
+        hopper::mbar_wait(&empty[s], phase ^ 1);
+        uint8_t* st = ring + s * Tile::STAGE;
+        hopper::mbar_expect_tx(&full[s], Tile::STAGE);
+        for (int c = 0; c < Tile::CHUNKS; ++c) {
+          hopper::tma_load_3d(st + c * FW_CHUNK, &kmap, &full[s], 64 * c,
+                              t * FW_BKV, bk);
+          hopper::tma_load_3d(st + Tile::TILE + c * FW_CHUNK, &vmap,
+                              &full[s], 64 * c, t * FW_BKV, bk);
+        }
+        if (++s == FW_STAGES) { s = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup.  Thread tid holds rows r and r + 8 of the
+  // tile's 64 (r = 16 warp + lane / 4), columns 8j + 2 (lane % 4) + {0, 1}.
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int quad = lane % 4;
+  const int kvh = bk % a.Hkv;
+  // Q rows, zero past the live rows and past D, 128-byte swizzled.
+  for (int idx = tid; idx < FW_BQ * DP / 8; idx += 128) {
+    const int r = idx / (DP / 8);
+    const int c = idx % (DP / 8);      // 16-byte chunk of the row
+    const int row = row0 + r;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (row < rows && c * 8 < a.D) {
+      const int h = kvh * group + row % group;
+      val = *reinterpret_cast<const uint4*>(
+          a.q + ((static_cast<size_t>(b) * a.Hq + h) * a.Sq + row / group) *
+                    a.D + c * 8);
+    }
+    *reinterpret_cast<uint4*>(q_s + (c / 8) * FW_CHUNK + r * hopper::ROW_BYTES +
+                              (((c % 8) ^ (r % 8)) * 16)) = val;
+  }
+  hopper::fence_proxy_async();
+  hopper::bar_sync(1, 128);
+
+  int qpos[2];
+  const int r_own = 16 * (tid / 32) + lane / 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) qpos[h] = (row0 + r_own + 8 * h) / group + offs;
+
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};             // this thread's share of the row sum
+  int s = 0;
+  uint32_t phase = 0;
+  for (int t = t_begin; t < t_end; ++t) {
+    hopper::mbar_wait(&full[s], phase);
+    uint8_t* k_s = ring + s * Tile::STAGE;
+    uint8_t* v_s = k_s + Tile::TILE;
+
+    // S = Q K^T: both operands K-major, 16 head-dim columns a step.
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const int off = (kk / 4) * FW_CHUNK + (kk % 4) * 32;
+      hopper::Wgmma<64>::template ss<0, 0>(
+          sc, hopper::smem_desc(q_s + off, 16, 1024),
+          hopper::smem_desc(k_s + off, 16, 1024), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+
+    // Mask (only where some key of the tile is hidden from some row),
+    // scale in f32, online softmax in base 2.
+    const int key0 = t * FW_BKV + 2 * quad;
+    const int k_hi = t * FW_BKV + FW_BKV - 1;
+    const bool whole = k_hi < L &&
+        (!a.causal || (k_hi <= i_lo + offs &&
+                       (a.window == 0 || i_hi + offs - t * FW_BKV < a.window)));
+    float mx[2] = {-INFINITY, -INFINITY};
+    if (whole) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        sc[i] *= a.scale_log2;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const int key = key0 + 8 * j + (e & 1);
+          bool vis = key < L;
+          if (a.causal) {
+            vis = vis && key <= qpos[h];
+            if (a.window > 0) vis = vis && qpos[h] - key < a.window;
+          }
+          sc[4 * j + e] = vis ? sc[4 * j + e] * a.scale_log2 : -INFINITY;
+          mx[h] = fmaxf(mx[h], sc[4 * j + e]);
+        }
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      // m_new = -inf: nothing visible yet, and p = 0 (never NaN).
+      alpha[h] = m_new == -INFINITY ? 1.f : exp2f(m[h] - m_new);
+      m[h] = m_new;
+    }
+    float row_sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      const float p = m[h] == -INFINITY ? 0.f : exp2f(sc[i] - m[h]);
+      sc[i] = p;
+      row_sum[h] += p;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + row_sum[h];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    // P in bf16 as the A operand: keys 16 kt .. + 15 are sc[8 kt .. + 7].
+    uint32_t pa[FW_BKV / 16][4];
+#pragma unroll
+    for (int kt = 0; kt < FW_BKV / 16; ++kt)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        pa[kt][u] = hopper::pack_bf16(sc[8 * kt + 2 * u],
+                                      sc[8 * kt + 2 * u + 1]);
+
+    // V rows between kv_len and Skv hold data the mask hides; P is 0 there,
+    // and 0 x junk would be NaN, so they are zeroed (past Skv TMA did it).
+    const int first_dead = L - t * FW_BKV;
+    if (first_dead < FW_BKV && L < a.Skv) {
+      const int r_lo = max(first_dead, 0);
+      for (int idx = tid; idx < (FW_BKV - r_lo) * Tile::CHUNKS * 8;
+           idx += 128) {
+        const int r = r_lo + idx / (Tile::CHUNKS * 8);
+        const int c = idx % (Tile::CHUNKS * 8);
+        *reinterpret_cast<uint4*>(v_s + (c / 8) * FW_CHUNK +
+                                  r * hopper::ROW_BYTES + (c % 8) * 16) =
+            make_uint4(0, 0, 0, 0);
+      }
+      hopper::fence_proxy_async();
+      hopper::bar_sync(1, 128);
+    }
+
+    // O += P V: V is MN-major (D-contiguous), 16 keys a step.
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kt = 0; kt < FW_BKV / 16; ++kt)
+      hopper::Wgmma<DP>::template rs<1>(
+          o, pa[kt],
+          hopper::smem_desc(v_s + kt * 16 * hopper::ROW_BYTES, FW_CHUNK,
+                            1024), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    if (tid == 0) hopper::mbar_arrive(&empty[s]);
+    if (++s == FW_STAGES) { s = 0; phase ^= 1; }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(FULL, l[h], 1);
+    l[h] += __shfl_xor_sync(FULL, l[h], 2);
+  }
+
+  if (a.splits == 1) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + r_own + 8 * h;
+      if (row >= rows) continue;
+      __nv_bfloat16* o_row =
+          a.out + ((static_cast<size_t>(b) * a.Hq + kvh * group +
+                    row % group) * a.Sq + row / group) * a.D;
+      const float inv = 1.f / fmaxf(l[h], 1e-20f);
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + 2 * quad;
+        if (col < a.D)
+          *reinterpret_cast<__nv_bfloat162*>(o_row + col) =
+              __floats2bfloat162_rn(o[4 * j + 2 * h] * inv,
+                                    o[4 * j + 2 * h + 1] * inv);
+      }
+    }
+    return;
+  }
+
+  // Split: f32 partials (row max in base 2, row sum, unnormalised output).
+  const int tile_slot = (bk * a.row_tiles + rt) * a.splits;
+  const int slot = (tile_slot + blockIdx.z) * BQ;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r_own + 8 * h;
+    if (row0 + r >= rows) continue;
+    float* po = a.part_o + static_cast<size_t>(slot + r) * DP;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * quad;
+      if (col < a.D)
+        *reinterpret_cast<float2*>(po + col) =
+            make_float2(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
+    }
+    if (quad == 0)
+      *reinterpret_cast<float2*>(a.part_ml + 2 * static_cast<size_t>(
+                                     slot + r)) = make_float2(m[h], l[h]);
+  }
+  __threadfence();
+  hopper::bar_sync(1, 128);
+  int* ticket = a.tickets + bk * a.row_tiles + rt;
+  if (tid == 0) *last_flag = atomicAdd(ticket, 1) == a.splits - 1;
+  hopper::bar_sync(1, 128);
+  if (!*last_flag) return;
+
+  // The last block of this row tile to finish combines every split.
+  __threadfence();
+  const int live = min(BQ, rows - row0);
+  for (int idx = tid; idx < live * a.D; idx += 128) {
+    const int r = idx / a.D;
+    const int col = idx % a.D;
+    float mm = -INFINITY;
+    for (int sp = 0; sp < a.splits; ++sp)
+      mm = fmaxf(mm, __ldcg(a.part_ml + 2 * static_cast<size_t>(
+                                (tile_slot + sp) * BQ + r)));
+    float num = 0.f;
+    float den = 0.f;
+    if (mm != -INFINITY) {  // a split that saw no key has m = -inf: weight 0
+      for (int sp = 0; sp < a.splits; ++sp) {
+        const size_t at = static_cast<size_t>(tile_slot + sp) * BQ + r;
+        const float wsp = exp2f(__ldcg(a.part_ml + 2 * at) - mm);
+        num += wsp * __ldcg(a.part_o + at * DP + col);
+        den += wsp * __ldcg(a.part_ml + 2 * at + 1);
+      }
+    }
+    const int row = row0 + r;
+    a.out[((static_cast<size_t>(b) * a.Hq + kvh * group + row % group) *
+               a.Sq + row / group) * a.D + col] =
+        __float2bfloat16(num / fmaxf(den, 1e-20f));
+  }
+  if (tid == 0) *ticket = 0;  // ready for the next launch
+}
+
+template <int DP>
+cudaError_t launch_wgmma(const FlashArgs& args, const void* k, const void* v,
+                         int B, cudaStream_t stream) {
+  using Tile = FlashTile<DP>;
+  CUtensorMap kmap, vmap;
+  // k/v [B * Hkv, Skv, D]: boxes of 64 head-dim columns x 64 keys (a D of
+  // 32 loads zeros in columns 32-63).
+  const uint64_t row = static_cast<uint64_t>(args.D) * 2;
+  cudaError_t err = hopper::tensor_map_3d(
+      &kmap, k, args.D, args.Skv, static_cast<uint64_t>(B) * args.Hkv, row,
+      row * args.Skv, FW_BKV);
+  if (err != cudaSuccess) return err;
+  err = hopper::tensor_map_3d(&vmap, v, args.D, args.Skv,
+                              static_cast<uint64_t>(B) * args.Hkv, row,
+                              row * args.Skv, FW_BKV);
+  if (err != cudaSuccess) return err;
+  static bool smem_set[hopper::MAX_DEVICES] = {};
+  err = hopper::allow_smem(
+      reinterpret_cast<const void*>(flash_wgmma_kernel<DP>), Tile::SMEM,
+      smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * args.Hkv, args.row_tiles, args.splits);
+  flash_wgmma_kernel<DP><<<grid, FW_THREADS, Tile::SMEM, stream>>>(
+      kmap, vmap, args);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  kv_len may be NULL.  Returns a
-// cudaError_t: 0 on a successful launch (the kernel itself runs async).
+// dtype: 0 = float32, 1 = bfloat16.  kv_len may be NULL.  variant: 0 =
+// simt; 1 = wgmma (bf16, D in {32, 64, 128}, 16-byte-aligned q/k/v/out)
+// with 64 query rows a block (row_tiles = ceil(Hq / Hkv * Sq / 64)) and
+// the key range split over `splits` blocks; splits > 1 needs f32 scratch
+// part_o [B*Hkv*row_tiles*splits*64*DP] (DP: D rounded up to 64), part_ml
+// [B*Hkv*row_tiles*splits*64*2] and zeroed int32 tickets
+// [B*Hkv*row_tiles].
+// Returns a cudaError_t: 0 on a successful launch (the kernel itself runs
+// async), cudaErrorInvalidValue for a variant the shape does not allow.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const int* kv_len, void* out, int B, int Hq, int Hkv,
                         int Sq, int Skv, int D, int dtype, int causal,
-                        int window, void* stream) {
+                        int window, int variant, int splits,
+                        float* part_o, float* part_ml, int* tickets,
+                        void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0 || Hq % Hkv ||
       D <= 0 || D % 8 || D > MAX_D || window < 0 || B * Hkv > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == 1) {
+    const bool aligned = (reinterpret_cast<uintptr_t>(q) |
+                          reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) |
+                          reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+    if (dtype != 1 || !aligned || (D != 32 && D != 64 && D != 128) ||
+        splits < 1 || splits > 65535 ||
+        (splits > 1 && (!part_o || !part_ml || !tickets)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const long long rows = static_cast<long long>(Hq / Hkv) * Sq;
+    const long long row_tiles = (rows + FW_BQ - 1) / FW_BQ;
+    if (row_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    FlashArgs args{static_cast<const __nv_bfloat16*>(q), kv_len,
+                   static_cast<__nv_bfloat16*>(out), part_o, part_ml,
+                   tickets, Hq, Hkv, Sq, Skv, D, causal, window, splits,
+                   static_cast<int>(row_tiles),
+                   static_cast<float>(LOG2E / sqrt(static_cast<double>(D)))};
+    return static_cast<int>(D == 128 ? launch_wgmma<128>(args, k, v, B, s)
+                                     : launch_wgmma<64>(args, k, v, B, s));
+  }
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return static_cast<int>(launch<float>(q, k, v, kv_len, out, B, Hq, Hkv,
                                           Sq, Skv, D, causal, window, s));

@@ -7,36 +7,47 @@
 //
 //   x [E, C, d] @ w [E, d, F] -> out [E, C, F]   (contiguous, f32 or bf16)
 //
-// Both inputs are widened to f32, products and the accumulator are f32 and
-// the result is written in x's dtype, as the TPU kernel does.  Unlike the
-// Pallas version (whose blocks must divide the dims) any positive E, C, d and
-// F are taken: every tile is bounds-checked and padded with zeros, since the
-// model's C = slots x capacity need not divide a tile.
+// Products and the accumulator are f32 and the result is written in x's
+// dtype, as the TPU kernel does.  Two variants, chosen by the wrapper's
+// plan before the launch (the C entry point refuses a variant it cannot
+// take; nothing falls back):
 //
-// Design.  Grid (F tiles, C tiles, E).  A block owns a BM x 64 output tile
-// (BM = 32 when C <= 32, as at decode, else 64) and walks d in steps of 32,
-// staging an x tile (transposed) and a w tile in shared memory as f32.  Each
-// thread keeps a 4 x 4 register micro-tile in f32, fed by one 16-byte
-// shared load of x and one of w per step of d.  Global loads are 16 bytes a
-// thread where d and F allow it (d and F multiples of 16 bytes' worth of
-// elements, 16-byte aligned bases), else one element a thread.  All
-// arithmetic is IEEE f32 FMAs on the CUDA cores: no tensor cores, no TF32.
+// `wgmma` (bf16, d and F multiples of 8, 16-byte-aligned bases).  What
+// bounds it: at mixtral-8x7b's decode shape (4 slots x capacity 8: C = 32,
+// d = 4096, F = 14336, 8 experts) every weight is read once, 948.9 MB,
+// 0.283 ms at 3.35 TB/s; 30 GFLOP are nothing to the tensor cores.  The
+// prefill shape (C = 640) is bound by its 601 GFLOP, 0.608 ms at the bf16
+// tensor-core rate.  The design: the operands are swapped so the wide side
+// fills wgmma's 64-row M, out_e^T [F, C] = w_e^T [F, d] x_e^T [d, C].  A
+// block owns 128 F rows (two consumer warpgroups of 64) by BN = 32, 64 or
+// 128 C columns (the plan's choice) of one expert.  One producer thread
+// streams TMA boxes of w (64 d-rows x 64 F, F-contiguous: the MN-major A
+// operand) and x (BN rows x 64 d, d-contiguous: the K-major B operand),
+// 128-byte swizzled, into a ring of 3-5 stages guarded by mbarriers; the
+// consumers run m64nBNk16 wgmmas on each stage as it lands and release it
+// when they complete (keeping one stage's group in flight while the next is
+// issued gave wrong sums at BN = 128 on the H100 and was not faster at
+// decode, so each stage's group is waited for).
+// TMA fills the ragged edges of C, d and F with zeros.  Products of two
+// bf16 values are exact in f32, so this is the Pallas kernel's function up
+// to summation order.  The epilogue rounds to bf16 through a padded shared
+// tile and writes out[C, F] rows with 16-byte stores.  Grid (F / 128,
+// C / BN, E): 896 blocks for wi/wg and 256 for wo at decode, two per SM.
+// Not yet: a persistent schedule, setmaxnreg, skipping the capacity rows
+// that are empty at decode (3 of 4 at 4 slots).
 //
-// What bounds it.  At mixtral-8x7b's decode shape (4 slots x capacity 8:
-// C = 32, d = 4096, F = 14336, 8 experts) one C tile covers every row, so
-// each weight element is read from device memory once per GEMM: 948.9 MB of
-// bf16 weights, x and output, 0.283 ms at 3.35 TB/s.  It is bound by those
-// bytes on paper, but the 30 GFLOP it does on f32 CUDA cores (67 TFLOP/s)
-// take 0.45 ms at best.  3 of every 4 buffer rows are zeros at decode (2
-// assignments per slot in 8 capacity slots per expert); the kernel computes
-// them, as the TPU kernel does.  The prefill shape (C = 640) is bound by
-// FLOPs (601 GFLOP, 0.608 ms at the bf16 tensor-core rate), and this kernel
-// runs it at the CUDA cores' f32 rate.  Where the design stops short:
-// no wgmma, no TMA, no bf16 tensor cores, no skipping of empty capacity
-// rows, no double-buffered tiles.
+// `simt` (f32, and bf16 shapes the TMA rules refuse): the first design.
+// Grid (F tiles, C tiles, E).  A block owns a BM x 64 output tile (BM = 32
+// when C <= 32, else 64) and walks d in steps of 32, staging an x tile
+// (transposed) and a w tile in shared memory as f32; each thread keeps a
+// 4 x 4 register micro-tile, and every product is an IEEE f32 FMA on the
+// CUDA cores (no TF32, which would change the f32 function).  Any positive
+// E, C, d and F: every tile is bounds-checked and padded with zeros.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -198,18 +209,180 @@ cudaError_t launch(const void* x, const void* w, void* out, int E, int C,
   return launch_rows<T, 1>(x, w, out, E, C, D, F, stream);
 }
 
+
+// ---- the wgmma variant ----------------------------------------------------
+
+constexpr int WG_BM = 128;                  // F rows per block
+constexpr int WG_BK = hopper::ROW_ELEMS;    // d per stage: one swizzled row
+constexpr int W_BOX = WG_BK * hopper::ROW_BYTES;  // 64 d x 64 F: 8 KB
+constexpr int WG_THREADS = 2 * 128 + 32;    // two consumer warpgroups + one
+                                            // producer warp
+constexpr int OUT_PAD = 8;                  // epilogue row padding (bf16)
+
+template <int BN>
+struct WgmmaTile {
+  static constexpr int STAGE = 2 * W_BOX + BN * hopper::ROW_BYTES;
+  // About 100 KB of ring, so two blocks share an SM.
+  static constexpr int STAGES = BN == 32 ? 5 : BN == 64 ? 4 : 3;
+  static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
+  static_assert(BN * (WG_BM + OUT_PAD) * 2 <= STAGES * STAGE,
+                "the epilogue tile reuses the ring");
+};
+
+template <int BN>
+__global__ void __launch_bounds__(WG_THREADS)
+moe_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
+                      const __grid_constant__ CUtensorMap xmap,
+                      __nv_bfloat16* __restrict__ out, int C, int D, int F) {
+  using Tile = WgmmaTile<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = hopper::align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + Tile::STAGES *
+                                               Tile::STAGE);
+  uint64_t* empty = full + Tile::STAGES;
+
+  const int e = blockIdx.z;
+  const int f0 = blockIdx.x * WG_BM;
+  const int c0 = blockIdx.y * BN;
+  const int k_tiles = (D + WG_BK - 1) / WG_BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Tile::STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2);  // one arrival per consumer group
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: one thread keeps the ring full
+    if (threadIdx.x == 2 * 128) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        hopper::mbar_wait(&empty[s], phase ^ 1);
+        uint8_t* st = ring + s * Tile::STAGE;
+        hopper::mbar_expect_tx(&full[s], Tile::STAGE);
+        hopper::tma_load_3d(st, &wmap, &full[s], f0, kt * WG_BK, e);
+        hopper::tma_load_3d(st + W_BOX, &wmap, &full[s], f0 + 64,
+                            kt * WG_BK, e);
+        hopper::tma_load_3d(st + 2 * W_BOX, &xmap, &full[s], kt * WG_BK, c0,
+                            e);
+        if (++s == Tile::STAGES) { s = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns F rows f0 + 64 wg .. + 63 of out^T.
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  int s = 0;
+  uint32_t phase = 0;
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    hopper::mbar_wait(&full[s], phase);
+    const uint8_t* a = ring + s * Tile::STAGE + wg * W_BOX;
+    const uint8_t* b = ring + s * Tile::STAGE + 2 * W_BOX;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WG_BK / 16; ++kk) {
+      // A (w^T, MN-major): 16 d-rows further on; B (x, K-major): 32 bytes.
+      const uint64_t da = hopper::smem_desc(a + kk * 16 * hopper::ROW_BYTES,
+                                            W_BOX, 1024);
+      const uint64_t db = hopper::smem_desc(b + kk * 32, 16, 1024);
+      hopper::Wgmma<BN>::template ss<1, 0>(acc, da, db, 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if (threadIdx.x % 128 == 0) hopper::mbar_arrive(&empty[s]);
+    if (++s == Tile::STAGES) { s = 0; phase ^= 1; }
+  }
+
+  // Epilogue: out^T fragments -> a [BN][128 + pad] bf16 tile over the ring
+  // (both groups done with it first) -> rows of out with 16-byte stores.
+  hopper::bar_sync(1, 256);
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(ring);
+  constexpr int TS = WG_BM + OUT_PAD;
+  const int lane = threadIdx.x % 32;
+  const int fr = 64 * wg + 16 * ((threadIdx.x % 128) / 32) + lane / 4;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = 8 * j + 2 * (lane % 4);
+    tile[c * TS + fr] = __float2bfloat16(acc[4 * j + 0]);
+    tile[(c + 1) * TS + fr] = __float2bfloat16(acc[4 * j + 1]);
+    tile[c * TS + fr + 8] = __float2bfloat16(acc[4 * j + 2]);
+    tile[(c + 1) * TS + fr + 8] = __float2bfloat16(acc[4 * j + 3]);
+  }
+  hopper::bar_sync(1, 256);
+  __nv_bfloat16* oe = out + static_cast<size_t>(e) * C * F;
+  for (int i = threadIdx.x; i < BN * (WG_BM / 8); i += 256) {
+    const int c = i / (WG_BM / 8);
+    const int f = (i % (WG_BM / 8)) * 8;
+    if (c0 + c < C && f0 + f < F)   // F % 8 == 0: a chunk is all in or out
+      *reinterpret_cast<uint4*>(oe + static_cast<size_t>(c0 + c) * F + f0 +
+                                f) =
+          *reinterpret_cast<const uint4*>(tile + c * TS + f);
+  }
+}
+
+template <int BN>
+cudaError_t launch_wgmma(const void* x, const void* w, void* out, int E,
+                         int C, int D, int F, cudaStream_t stream) {
+  using Tile = WgmmaTile<BN>;
+  CUtensorMap wmap, xmap;
+  // w [E, d, F]: boxes of 64 F x 64 d; x [E, C, d]: boxes of 64 d x BN C.
+  cudaError_t err = hopper::tensor_map_3d(
+      &wmap, w, F, D, E, static_cast<uint64_t>(F) * 2,
+      static_cast<uint64_t>(D) * F * 2, WG_BK);
+  if (err != cudaSuccess) return err;
+  err = hopper::tensor_map_3d(&xmap, x, D, C, E,
+                              static_cast<uint64_t>(D) * 2,
+                              static_cast<uint64_t>(C) * D * 2, BN);
+  if (err != cudaSuccess) return err;
+  static bool smem_set[hopper::MAX_DEVICES] = {};
+  err = hopper::allow_smem(
+      reinterpret_cast<const void*>(moe_gemm_wgmma_kernel<BN>), Tile::SMEM,
+      smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((F + WG_BM - 1) / WG_BM, (C + BN - 1) / BN, E);
+  moe_gemm_wgmma_kernel<BN><<<grid, WG_THREADS, Tile::SMEM, stream>>>(
+      wmap, xmap, static_cast<__nv_bfloat16*>(out), C, D, F);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t: 0 on a
-// successful launch (the kernel itself runs async).
+// dtype: 0 = float32, 1 = bfloat16.  variant: 0 = simt, 1 = wgmma with
+// block_c C columns a block (32, 64 or 128; bf16, D and F multiples of 8,
+// 16-byte-aligned x, w and out).  Returns a cudaError_t: 0 on a successful
+// launch (the kernel itself runs async), cudaErrorInvalidValue for a
+// variant the shape does not allow.
 int moe_gemm_fwd(const void* x, const void* w, void* out, int E, int C, int D,
-                 int F, int dtype, void* stream) {
+                 int F, int dtype, int variant, int block_c, void* stream) {
   if (E <= 0 || C <= 0 || D <= 0 || F <= 0 || E > 65535 ||
       (C + 31) / 32 > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == 1) {
+    const bool aligned = (reinterpret_cast<uintptr_t>(x) |
+                          reinterpret_cast<uintptr_t>(w) |
+                          reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+    if (dtype != 1 || !aligned || D % 8 || F % 8)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (block_c == 32) return static_cast<int>(
+        launch_wgmma<32>(x, w, out, E, C, D, F, s));
+    if (block_c == 64) return static_cast<int>(
+        launch_wgmma<64>(x, w, out, E, C, D, F, s));
+    if (block_c == 128) return static_cast<int>(
+        launch_wgmma<128>(x, w, out, E, C, D, F, s));
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return static_cast<int>(launch<float>(x, w, out, E, C, D, F, s));
   if (dtype == 1)

@@ -38,6 +38,10 @@ SHAPES = [  # tests/test_kernels.py's sweep, then the port's main path
     (4, 14, 2, 1, 128, 64, True, 0),       # qwen2-0.5b decode, per-slot
     (2, 7, 1, 1, 40, 8, True, 0),          # smoke head_dim, per-slot
     (3, 4, 2, 33, 70, 256, True, 0),       # widest head
+    (4, 32, 8, 1, 128, 128, True, 0),      # mixtral decode: D 128, kv_len
+    (2, 8, 2, 1, 37, 128, True, 0),        # Skv 37: one ragged key tile
+    (2, 8, 2, 1, 200, 64, True, 0),        # Skv 200: split over 4 tiles
+    (1, 4, 1, 1, 512, 64, True, 100),      # window inside a split key range
 ]
 # The JAX package's grouped-GEMM tolerances: f32 summation order; bf16 one
 # rounding of the output.
@@ -51,7 +55,14 @@ GEMM_SHAPES = [  # (e, c, d, f): tests/test_kernels.py's sweep, then ragged
     (5, 33, 48, 40),                       # C just past one 32-row tile
     (4, 16, 64, 96),                       # smoke mixtral, 2 slots
     (8, 32, 1024, 512),                    # decode-shaped: C = 4 slots x 8
+    (8, 8, 4096, 256),                     # C 8: one C tile, mostly padding
+    (8, 33, 4096, 40),                     # C 33, F 40: ragged C and F
+    (2, 640, 4096, 256),                   # prefill C, five 128-wide tiles
 ]
+# These shapes draw w ~ N(0, 1/d), for outputs of unit scale: with N(0, 1)
+# at d = 4096 the f32 outputs, of size ~64, would put the kernel's summation
+# order above GEMM_TOL's f32 atol.  The other shapes draw N(0, 1).
+GEMM_UNIT_W = {(8, 8, 4096, 256), (8, 33, 4096, 40), (2, 640, 4096, 256)}
 # RWKV6 recurrence, kernel against plain version.  The forward: the JAX
 # package's tolerances for its own kernel (f32 3e-4, bf16 inputs 4e-2), though
 # both sides widen the same inputs and differ in summation order only.  The
@@ -104,6 +115,31 @@ def test_kernel_matches_plain(cuda, b, hq, hkv, sq, skv, d, causal, window,
                                expect.float().cpu().numpy(), **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,skv,d,lens", [
+    (4, 14, 2, 128, 64, (1, 37, 128, 90)),   # qwen2 decode: split in two
+    (4, 32, 8, 128, 128, (4, 41, 91, 128)),  # mixtral decode
+    (2, 4, 1, 200, 32, (5, 130)),            # D 32, four key tiles
+])
+def test_kernel_ignores_keys_past_kv_len(cuda, b, hq, hkv, skv, d, lens,
+                                         dtype):
+    """K/V rows at or past a row's kv_len hold NaN: both variants give the
+    plain version's output on the same inputs with those rows zeroed (P is
+    0 there, and 0 x NaN would poison P.V)."""
+    q, k, v = _qkv(b, hq, hkv, 1, skv, d, dtype, cuda)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    past = (torch.arange(skv, device=cuda)[None, :]
+            >= kv_len[:, None])[:, None, :, None]
+    out = flash_attention(q, k.masked_fill(past, float("nan")),
+                          v.masked_fill(past, float("nan")), kv_len=kv_len)
+    torch.cuda.synchronize()
+    expect = ref.flash_reference(q, k.masked_fill(past, 0),
+                                 v.masked_fill(past, 0), kv_len=kv_len)
+    assert torch.isfinite(out).all()
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               expect.float().cpu().numpy(), **TOL[dtype])
+
+
 @pytest.mark.parametrize("case", ["non_contiguous", "k_on_cpu",
                                   "kv_len_on_cpu"])
 def test_kernel_rejects(cuda, case):
@@ -125,8 +161,11 @@ def test_kernel_rejects(cuda, case):
 @pytest.mark.parametrize("e,c,d,f", GEMM_SHAPES)
 def test_moe_gemm_matches_plain(cuda, e, c, d, f, dtype):
     rng = np.random.default_rng(1)
-    x, w = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
-            .to(device=cuda, dtype=dtype) for s in ((e, c, d), (e, d, f)))
+    x = rng.standard_normal((e, c, d), dtype=np.float32)
+    w = rng.standard_normal((e, d, f), dtype=np.float32)
+    if (e, c, d, f) in GEMM_UNIT_W:
+        w /= np.sqrt(d)
+    x, w = (torch.from_numpy(t).to(device=cuda, dtype=dtype) for t in (x, w))
     before = moe_gemm.launches
     out = moe_gemm(x, w)
     torch.cuda.synchronize()
@@ -149,6 +188,33 @@ def test_moe_gemm_rejects(cuda, case):
     with pytest.raises(ValueError):
         moe_gemm(x, w)
     assert moe_gemm.launches == before
+
+
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "wgmma"),
+                                           (torch.float32, "simt")])
+def test_decode_shapes_launch_planned_variant(cuda, dtype, variant):
+    """The serve paths' decode shapes: bf16 goes to the tensor-core
+    variant of both kernels, f32 to the CUDA-core one."""
+    flash_before = dict(flash_attention.variant_launches)
+    gemm_before = dict(moe_gemm.variant_launches)
+    for b, hq, hkv, sq, skv, d, lens in ((4, 14, 2, 1, 128, 64,
+                                          (1, 37, 128, 90)),
+                                         (4, 32, 8, 1, 128, 128,
+                                          (4, 41, 91, 128))):
+        q, k, v = _qkv(b, hq, hkv, sq, skv, d, dtype, cuda)
+        flash_attention(q, k, v, kv_len=torch.tensor(
+            lens, dtype=torch.int32, device=cuda))
+    for e, c, d, f in ((8, 32, 4096, 14336), (8, 32, 14336, 4096)):
+        moe_gemm(torch.zeros(e, c, d, dtype=dtype, device=cuda),
+                 torch.zeros(e, d, f, dtype=dtype, device=cuda))
+    torch.cuda.synchronize()
+    assert flash_attention.variant_launches[variant] == \
+        flash_before[variant] + 2
+    assert moe_gemm.variant_launches[variant] == gemm_before[variant] + 2
+    assert flash_attention.variant_launches == {
+        **flash_before, variant: flash_before[variant] + 2}
+    assert moe_gemm.variant_launches == {
+        **gemm_before, variant: gemm_before[variant] + 2}
 
 
 def test_build_is_cached(cuda):
