@@ -18,8 +18,10 @@ Phases; any failure exits non-zero before the last line is printed:
    ragged shapes in f32 and bf16, mixtral's decode shapes and a prefill
    shape.  The RWKV6 forward and backward kernels: rwkv6-1.6b's train shape
    ``[128,1024,64]``, the smoke head dim 32, a ragged S and both ends of the
-   model's clipped decay, in f32 and bf16; the backward against autograd
-   through the plain version, all five gradients.
+   model's clipped decay, f32 on ``simt`` and bf16 on both the chunked
+   tensor-core variant (``mma``, as planned) and ``simt``; the backward
+   against autograd through the plain version, all five gradients; two
+   ``mma`` backward calls at the train shape give the same bits.
 3. Each serve path at full width, with seeded random weights, 8 requests
    over 4 slots, 16 tokens each, ``--capture``: qwen2-0.5b (24 layers),
    then mixtral-8x7b with its depth cut to 4 layers (the 32-layer model
@@ -44,9 +46,12 @@ Phases; any failure exits non-zero before the last line is printed:
    to 2 layers, one step's loss and gradients through the kernels against
    the plain path, in f32 and bf16; then the full 24-layer model trains 4
    steps at batch 4 x 1024 (bf16 activations, f32 parameters, AdamW) with
-   remat none and 1 with remat full, counting each step's kernel launches.
-   Times of both WKV kernels, their plain versions and one full-width train
-   step (wall, device busy, tokens/s, the card's idle share).
+   remat none and 1 with remat full, counting each step's kernel launches
+   per variant (every bf16 WKV launch on ``mma``).  Times of both WKV
+   kernels (``mma``, ``simt`` on the same inputs, the plain versions) beside
+   each variant's bound, and of one full-width train step (wall, device
+   busy, tokens/s, the card's idle share, the WKV kernels' device time per
+   call inside it).
 
 The qwen2 phases run first and free their tensors before mixtral's 36 GB
 (f32 weights and their bf16 copy) arrive; rwkv6 comes last.  Then one JSON
@@ -68,7 +73,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 # H100 SXM, dense (NVIDIA's data sheet): memory rate and peak rates by type.
 MEM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 ARCH = "qwen2-0.5b"
 MOE_ARCH = "mixtral-8x7b"
 # Full width; 4 layers hold 24.3 GB of f32 weights and a 12.1 GB bf16 copy.
@@ -128,6 +133,14 @@ TRAIN_PARAM_TOL = 1e-5
 TRAIN_PARITY_F32 = 1e-3
 RWKV_PARITY_LAYERS = 2
 TRAIN_BATCH, TRAIN_SEQ = 4, 1024
+# The kernels one call of each WKV wrapper launches on ``mma`` (D 64), by the
+# profiler's names: span pass, scan over spans, output or backward pass.
+WKV_STEP_KERNELS = {
+    "rwkv6_fwd": ("span_kernel<64, false>", "scan_kernel<false>",
+                  "fwd_kernel<64>"),
+    "rwkv6_bwd": ("span_kernel<64, true>", "scan_kernel<true>",
+                  "bwd_kernel<64>"),
+}
 
 
 def require(cond, what) -> None:
@@ -194,11 +207,13 @@ def event_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters, top=0):
+def device_ms(torch, fn, iters, top=0, by_name=None):
     """Device time of one call (kernels only, no launch gaps) from the
     profiler; None where it sees no device time.  Only the device's own
     events count: a CPU operator's entry repeats its kernels' time.  With
-    ``top``, also prints the ``top`` kernels by device time per call."""
+    ``top``, also prints the ``top`` kernels by device time per call; a
+    dict ``by_name`` receives each kernel's (ms per call, launches per
+    call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -224,6 +239,9 @@ def device_ms(torch, fn, iters, top=0):
     for us, count, name in kernels[:top]:
         print(f"  {us / 1e3 / iters:9.3f} ms/call {100 * us / total_us:5.1f}% "
               f"x{count // iters} {name[:100]}")
+    if by_name is not None:
+        by_name.update({name: (us / 1e3 / iters, count / iters)
+                        for us, count, name in kernels})
     return total_us / 1e3 / iters if total_us > 0 else None
 
 
@@ -278,17 +296,20 @@ def plain_kernels(ops, ref):
 
 @contextmanager
 def simt_only():
-    """Plan every flash and grouped-GEMM call onto its CUDA-core variant
-    (the previous design), as for an unaligned input: the same kernels'
-    time before this design, on the same inputs and card."""
+    """Plan every flash, grouped-GEMM and WKV call onto its CUDA-core
+    variant (the previous design), as for an unaligned input: the same
+    kernels' time before this design, on the same inputs and card."""
     from repro_torch.kernels import flash_attention as fa, moe_gemm as mg
-    plans = fa.plan, mg.plan
-    fa.plan = lambda *a, **k: plans[0](*a, **dict(k, aligned=False))
-    mg.plan = lambda *a, **k: plans[1](*a, **dict(k, aligned=False))
+    from repro_torch.kernels import rwkv6_chunk as wkv
+    mods = fa, mg, wkv
+    plans = [m.plan for m in mods]
+    for m, plan in zip(mods, plans):
+        m.plan = lambda *a, plan=plan, **k: plan(*a, **dict(k, aligned=False))
     try:
         yield
     finally:
-        fa.plan, mg.plan = plans
+        for m, plan in zip(mods, plans):
+            m.plan = plan
 
 
 def _wrappers():
@@ -323,7 +344,7 @@ def ran_variant(counts) -> str:
 
 
 def require_wgmma(variants, what) -> None:
-    """Every bf16 launch of a serve path went to a tensor-core variant."""
+    """Every bf16 launch of a path went to a tensor-core variant."""
     require(all(v["simt"] == 0 for v in variants.values()),
             f"{what}: bf16 launches on the CUDA-core variant {variants}")
 
@@ -426,7 +447,8 @@ def model_phases(torch, arch, cfg, smoke_flags, card, gen) -> dict:
             want = "wgmma" if dtype == "bfloat16" else "simt"
             require(all(v[want] == sum(v.values()) > 0 or
                         (name == "moe_gemm" and not cfg.moe)
-                        for name, v in variants.items()),
+                        for name, v in variants.items()
+                        if name in ("flash_attention", "moe_gemm")),
                     f"{dtype} decode step on the {want} variants")
         require(bool(torch.isfinite(logits).all())
                 and logits.shape == (4, 1, cfg.vocab),
@@ -471,14 +493,16 @@ def model_phases(torch, arch, cfg, smoke_flags, card, gen) -> dict:
     return launches, variants
 
 
-def wkv_bound_ms(shape, itemsize, backward):
+def wkv_bound_ms(shape, itemsize, backward, variant):
     """Least time for the WKV recurrence on [BH,S,D] inputs: bytes of r, k,
     v (``itemsize``), f32 logw, u (and for the backward f32 g in, gr/gk/gv
-    out in r's dtype, f32 glogw, gu out) against its f32 operations over the
-    f32 rate: per step 4*D^2 forward (r.S and the state update); 12*D^2
-    backward (the state rebuilt, q = S g, the G recurrence, p = G v,
-    G^T k and the glogw reduction).  The arithmetic is f32 by definition
-    (inputs widened, f32 state), so the f32 rate is its peak."""
+    out in r's dtype, f32 glogw, gu out) against its operations: per step
+    4*D^2 forward (r.S and the state update); 12*D^2 backward (the state
+    rebuilt, q = S g, the G recurrence, p = G v, G^T k and the glogw
+    reduction).  The rate for those operations is the variant's: ``simt``
+    runs them as f32 FMAs on the CUDA cores (67 TFLOP/s); ``mma`` runs the
+    same products on the tensor cores with TF32 operands (495 TFLOP/s),
+    where bytes bound both directions."""
     bh, s, d = shape
     n = bh * s * d
     if backward:
@@ -488,7 +512,7 @@ def wkv_bound_ms(shape, itemsize, backward):
     else:
         nbytes = 3 * n * itemsize + n * 4 + bh * d * 4 + n * 4  # in, out
         flops = 4 * bh * s * d * d
-    return bound(nbytes, flops, "float32")
+    return bound(nbytes, flops, "tf32" if variant == "mma" else "float32")
 
 
 def wkv_inputs(torch, shape, logw, dtype, gen):
@@ -508,44 +532,67 @@ def wkv_inputs(torch, shape, logw, dtype, gen):
 
 
 def rwkv_kernel_checks(torch, gen) -> dict:
-    """Phase 2 for the WKV kernels.  Returns the bf16 train shape's forward
-    and backward max abs errors."""
+    """Phase 2 for the WKV kernels, each line naming the variant that ran.
+    Returns the bf16 train shape's forward and backward max abs errors on
+    ``mma``."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.rwkv6_chunk import rwkv6_bwd, rwkv6_fwd
     print("phase 2: rwkv6_fwd / rwkv6_bwd against the plain version")
     errs = {}
     for dtype_name, dtype in (("float32", torch.float32),
                               ("bfloat16", torch.bfloat16)):
+        variants = ("simt",) if dtype_name == "float32" else ("mma", "simt")
         for bh, s, d, logw in WKV_SHAPES:
             args, g = wkv_inputs(torch, (bh, s, d), logw, dtype, gen)
-            what = f"{dtype_name} [{bh},{s},{d}] logw={logw!r}"
-            out = rwkv6_fwd(*args)
-            torch.cuda.synchronize()
-            expect = ref.rwkv6_reference(*args)
-            require(bool(torch.isfinite(out).all()), f"finite fwd, {what}")
-            fwd_err = compare(torch, lambda *a: out, lambda *a: expect, (),
-                              {}, WKV_TOL[dtype_name], f"fwd {what}")
-            grads = rwkv6_bwd(*args, g)
-            torch.cuda.synchronize()
+            expect_out = ref.rwkv6_reference(*args)
             expect = ref.rwkv6_backward_reference(*args, g)
-            rels, bwd_err = [], 0.0
-            for name, a, b in zip(("r", "k", "v", "w_log", "u"), grads,
-                                  expect):
-                require(a.dtype == b.dtype and a.shape == b.shape
-                        and bool(torch.isfinite(a).all()),
-                        f"finite {name} gradient, {what}")
-                err = (a.float() - b.float()).abs().max().item()
-                scale = b.float().abs().max().item()
-                rels.append(err / scale if scale > 0 else err)
-                bwd_err = max(bwd_err, err)
-            ok = max(rels) <= WKV_GRAD_REL[dtype_name]
-            print(f"  bwd {what}: max|d|/max|grad| r,k,v,w_log,u = "
-                  f"{[float(f'{x:.3g}') for x in rels]} (limit "
-                  f"{WKV_GRAD_REL[dtype_name]}) {'ok' if ok else 'FAIL'}")
-            require(ok, f"backward kernel disagrees with autograd: {what}")
-            if (bh, s, d) == WKV_TRAIN and dtype_name == "bfloat16":
-                errs = {"fwd": fwd_err, "bwd": bwd_err}
-            del args, g, out, grads, expect
+            for variant in variants:
+                what = f"{dtype_name} [{bh},{s},{d}] logw={logw!r}"
+                before = read_variants()
+                with simt_only() if variant == "simt" else nullcontext():
+                    out = rwkv6_fwd(*args)
+                    grads = rwkv6_bwd(*args, g)
+                torch.cuda.synchronize()
+                after = read_variants()
+                ran = {name: ran_variant({v: after[name][v] - before[name][v]
+                                          for v in after[name]})
+                       for name in ("rwkv6_fwd", "rwkv6_bwd")}
+                require(ran == {"rwkv6_fwd": variant, "rwkv6_bwd": variant},
+                        f"planned variant {variant}, ran {ran}: {what}")
+                require(bool(torch.isfinite(out).all()),
+                        f"finite fwd, {what}")
+                fwd_err = compare(torch, lambda *a: out,
+                                  lambda *a: expect_out, (), {},
+                                  WKV_TOL[dtype_name],
+                                  f"fwd [{variant}] {what}")
+                rels, bwd_err = [], 0.0
+                for name, a, b in zip(("r", "k", "v", "w_log", "u"), grads,
+                                      expect):
+                    require(a.dtype == b.dtype and a.shape == b.shape
+                            and bool(torch.isfinite(a).all()),
+                            f"finite {name} gradient, {what}")
+                    err = (a.float() - b.float()).abs().max().item()
+                    scale = b.float().abs().max().item()
+                    rels.append(err / scale if scale > 0 else err)
+                    bwd_err = max(bwd_err, err)
+                ok = max(rels) <= WKV_GRAD_REL[dtype_name]
+                print(f"  bwd [{variant}] {what}: max|d|/max|grad| "
+                      f"r,k,v,w_log,u = "
+                      f"{[float(f'{x:.3g}') for x in rels]} (limit "
+                      f"{WKV_GRAD_REL[dtype_name]}) {'ok' if ok else 'FAIL'}")
+                require(ok, f"backward kernel disagrees with autograd: "
+                        f"{variant} {what}")
+                if (bh, s, d) == WKV_TRAIN and variant == "mma":
+                    errs = {"fwd": fwd_err, "bwd": bwd_err}
+                    again = rwkv6_bwd(*args, g)
+                    same = all(bool(torch.equal(a, b))
+                               for a, b in zip(grads, again))
+                    print(f"  bwd [mma] {what}: a second call gives the "
+                          f"same bits: {same}")
+                    require(same, "mma backward is not deterministic")
+                    del again
+                del out, grads
+            del args, g, expect_out, expect
     return errs
 
 
@@ -574,18 +621,21 @@ def rwkv_train_phases(torch, card, gen) -> dict:
     from repro_torch.models.params import tree_items, tree_map
 
     # -- 5. the WKV kernels' device times, before any large profile -------
-    # Each kernel is one serial chain per thread, so its time follows the SM
-    # clock, printed beside it.
+    # ``mma`` as planned, then ``simt`` (the serial scan, whose time follows
+    # the SM clock, printed beside it) on the same inputs.
     args, g = wkv_inputs(torch, WKV_TRAIN, None, torch.bfloat16, gen)
     rows = {}
     for name, fn, backward in (("rwkv6_fwd", lambda: rwkv6_fwd(*args), False),
                                ("rwkv6_bwd", lambda: rwkv6_bwd(*args, g),
                                 True)):
-        rows[name] = time_row(torch, (("ms", fn),), 20,
-                              wkv_bound_ms(WKV_TRAIN, 2, backward),
-                              f"{name} {list(WKV_TRAIN)} bf16", card)
-        print(f"  SM clock, power after it: "
-              f"{card_line('clocks.sm,power.draw')}")
+        rows[name] = time_row(torch, (("ms", fn), ("simt_ms", fn)), 20,
+                              wkv_bound_ms(WKV_TRAIN, 2, backward, "mma"),
+                              f"{name} {list(WKV_TRAIN)} bf16, mma", card)
+        simt_bound, simt_by = wkv_bound_ms(WKV_TRAIN, 2, backward, "simt")
+        print(f"  {name} bound: mma {rows[name]['bound_ms']!r} ms "
+              f"({rows[name]['bound_by']}, TF32 operations), simt "
+              f"{simt_bound!r} ms ({simt_by}, f32 CUDA-core operations); SM "
+              f"clock, power after it: {card_line('clocks.sm,power.draw')}")
     del args, g
 
     # -- 6.1 smoke config, card against CPU --------------------------------
@@ -667,29 +717,39 @@ def rwkv_train_phases(torch, card, gen) -> dict:
 
         def on_step(i, per_step=per_step):
             if i:
-                per_step.append(read_launches())
+                per_step.append((read_launches(), read_variants()))
             reset_launches()
 
         torch.cuda.reset_peak_memory_stats()
         res = train.train_loop(train.config_from_args(args), params, args,
                                verbose=False, on_step=on_step)
-        per_step.append(read_launches())
+        per_step.append((read_launches(), read_variants()))
         runs[remat] = (res, per_step)
         fwd_per = (2 if remat == "full" else 1) * cfg.n_layers
         print(f"phase 6: {RWKV_ARCH} ({cfg.n_layers} layers) train, remat "
               f"{remat}, batch {TRAIN_BATCH}x{TRAIN_SEQ}: losses "
               f"{res.losses}, grad norms {res.grad_norms}, step ms "
               f"{[round(t * 1e3, 1) for t in res.step_seconds]}, launches "
-              f"per step {[(c['rwkv6_fwd'], c['rwkv6_bwd']) for c in per_step]}"
+              f"per step {[(c['rwkv6_fwd'], c['rwkv6_bwd']) for c, _ in per_step]}"
+              f", per variant {[(v['rwkv6_fwd'], v['rwkv6_bwd']) for _, v in per_step]}"
               f", peak {res.peak_bytes / 2**30:.2f} GiB [{card}]")
         require(all(math.isfinite(x) for x in res.losses), "finite losses")
         require(all(c["rwkv6_fwd"] == fwd_per and
-                    c["rwkv6_bwd"] == cfg.n_layers for c in per_step),
+                    c["rwkv6_bwd"] == cfg.n_layers for c, _ in per_step),
                 f"launches per step with remat {remat}")
+        require(all(v[k]["mma"] == c[k] for c, v in per_step
+                    for k in ("rwkv6_fwd", "rwkv6_bwd")),
+                f"every bf16 WKV launch on mma with remat {remat}")
+        for _, v in per_step:
+            require_wgmma({k: v[k] for k in ("rwkv6_fwd", "rwkv6_bwd")},
+                          f"phase 6, train with remat {remat}")
     first = runs["none"][0].losses[0]
     print(f"  step-0 loss {first!r}, ln(vocab) = {math.log(cfg.vocab)!r}")
     require(abs(first - math.log(cfg.vocab)) <= 0.5, "step-0 loss near ln V")
-    main_launches = {k: sum(c[k] for c in runs["none"][1])
+    main_launches = {k: sum(c[k] for c, _ in runs["none"][1])
+                     for k in ("rwkv6_fwd", "rwkv6_bwd")}
+    main_variants = {k: {var: sum(v[k][var] for _, v in runs["none"][1])
+                         for var in runs["none"][1][0][1][k]}
                      for k in ("rwkv6_fwd", "rwkv6_bwd")}
 
     # -- 5. one full-width train step: wall, device busy, top kernels -------
@@ -707,8 +767,17 @@ def rwkv_train_phases(torch, card, gen) -> dict:
 
     print(f"phase 5: {RWKV_ARCH} full-width train step, kernels by device "
           f"time:")
-    busy_ms = device_ms(torch, one_step, 1, top=12)
+    names = {}
+    busy_ms = device_ms(torch, one_step, 1, top=12, by_name=names)
     require(busy_ms is not None, "profiler device time, train step")
+    for name, parts in WKV_STEP_KERNELS.items():
+        found = {p: sum(ms for n, (ms, _) in names.items() if p in n)
+                 for p in parts}
+        calls = main_launches[name] / len(runs["none"][1])
+        print(f"  {name} inside the step: {sum(found.values()) / calls!r} ms "
+              f"per call ({calls:g} calls; "
+              + ", ".join(f"{p} {ms / calls!r}" for p, ms in found.items())
+              + f") [{card}]")
     wall_ms = event_ms(torch, one_step, 2)
     print(f"  SM clock, power after it: {card_line('clocks.sm,power.draw')}")
     tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (wall_ms / 1e3)
@@ -732,6 +801,7 @@ def rwkv_train_phases(torch, card, gen) -> dict:
             row["plain_ms"] = row["plain_wall_ms"]
             print(f"  {name} plain: no profiler device time; events only")
         row["launches"] = main_launches[name]
+        row["variant"] = ran_variant(main_variants[name])
         how = " (autograd through it)" if name == "rwkv6_bwd" else ""
         print(f"phase 5: {name} plain version{how} {list(WKV_TRAIN)} bf16: "
               f"plain_ms={row['plain_ms']!r}, plain_wall_ms="
@@ -909,14 +979,13 @@ def main() -> int:
         "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
         "bound_by": g["bound_by"], "library_ms": g["library_ms"],
         "previous_ms": g["simt_ms"]}] + [{
-        # one design each, on the CUDA cores; no earlier one to time
-        "name": name, "route": "cuda", "variant": "simt",
-        "source": "src/repro_torch/kernels/csrc/rwkv6.cu",
+        "name": name, "route": "cuda", "variant": row["variant"],
+        "source": "src/repro_torch/kernels/csrc/rwkv6_chunked.cu",
         "replaces": "src/repro/kernels/rwkv6_chunk.py:81",
         "launches": row["launches"], "max_abs_err": wkv_errs[direction],
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-        "library_ms": None, "previous_ms": None, **extra}
+        "library_ms": None, "previous_ms": row["simt_ms"], **extra}
         for name, direction, row, extra in (
             ("rwkv6_fwd", "fwd", wkv["rwkv6_fwd"], {}),
             ("rwkv6_bwd", "bwd", wkv["rwkv6_bwd"], {"note": (

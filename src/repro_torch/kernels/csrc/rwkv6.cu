@@ -51,8 +51,9 @@
 // backward's 12*D^2 f32 operations per step (6.4 GFLOP) take 0.096 ms at the
 // 67 TFLOP/s f32 rate.  This design is bound by neither: each step is a
 // serial chain per thread, and 128 blocks of 64 (forward) or 128 (backward)
-// threads leave most of each SM idle.  A chunked tensor-core form with more
-// blocks than b*h is later work.
+// threads leave most of each SM idle.  The `mma` variant (rwkv6_chunked.cu)
+// is the chunked tensor-core form with more blocks than b*h; this kernel
+// stays for f32 and for inputs that variant does not take.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -1,19 +1,28 @@
 """RWKV6 WKV recurrence: the wrappers over the hand-written Hopper kernels.
 
-The kernels (``csrc/rwkv6.cu``) replace the Pallas TPU kernel
+The kernels replace the Pallas TPU kernel
 ``repro.kernels.rwkv6_chunk.rwkv6_chunk``: the same function, per b*h a
-serial recurrence over a ``[D,D]`` f32 state with per-channel decay
-``exp(w_log)`` and bonus ``u``, computed step by step rather than in the
-Pallas kernel's chunked form (whose ``exp(-cum)`` factor overflows for
-decays the model makes), so any S >= 1 is taken.  The backward is a kernel
-too; the JAX package has none (its training differentiates the model's
-``_chunked_wkv`` through XLA).
+recurrence over a ``[D,D]`` f32 state with per-channel decay ``exp(w_log)``
+and bonus ``u``, for any S >= 1, finite for every decay the model makes (the
+Pallas kernel's ``exp(-cum)`` factor overflows there).  The backward is a
+kernel too; the JAX package has none (its training differentiates the
+model's ``_chunked_wkv`` through XLA).  Two variants, chosen by :func:`plan`
+from dtype, shape and alignment alone:
+
+- ``mma`` (``csrc/rwkv6_chunked.cu``), bf16 r/k/v: the model's chunked form
+  (16-step chunks, pairwise log-space decay inside a chunk) made parallel
+  over time: spans of several chunks get their local states in one pass, a
+  scan over spans gives each its start state (and, backward, its end
+  adjoint), and a block per (b*h, span) walks its chunks with the products
+  on the tensor cores (``mma.sync``, TF32 operands, f32 sums).
+- ``simt`` (``csrc/rwkv6.cu``), f32 and bf16 inputs the ``mma`` variant does
+  not take: the serial scan, a block per b*h.
 
 ``rwkv6_chunk`` is what the model calls: on CPU tensors the plain version
 (``ref.rwkv6_reference``, differentiated by autograd), on CUDA tensors a
 ``torch.autograd.Function`` whose forward launches ``rwkv6_fwd`` and whose
-backward launches ``rwkv6_bwd``.  ``rwkv6_fwd.launches`` and
-``rwkv6_bwd.launches`` count kernel launches.
+backward launches ``rwkv6_bwd``.  Each wrapper counts its launches in
+``.launches`` and per variant in ``.variant_launches``.
 """
 from __future__ import annotations
 
@@ -26,6 +35,10 @@ from .ref import rwkv6_backward_reference, rwkv6_reference
 
 HEAD_DIMS = (32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = ("simt", "mma")
+CHUNK = 16       # steps a chunk: the JAX model's _CHUNK, mma's M
+SPAN_FWD = 128   # steps a span, forward: 8 chunks
+SPAN_BWD = 64    # backward: 4 chunks, whose start states fit shared memory
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
@@ -36,6 +49,36 @@ _SIGNATURES = {
     "rwkv6_bwd": ([_P] * 12 + [_I] * 4 + [_P], _I),
     "rwkv6_bwd_ckpt_floats": ([_I] * 3, ctypes.c_longlong),
 }
+_MMA_SIGNATURES = {
+    # r, k, v, logw, u, out, scratch; BH, S, D, span; stream
+    "rwkv6_mma_fwd": ([_P] * 7 + [_I] * 4 + [_P], _I),
+    # r, k, v, logw, u, g, gr, gk, gv, glogw, gu, scratch; BH, S, D, span;
+    # stream
+    "rwkv6_mma_bwd": ([_P] * 12 + [_I] * 4 + [_P], _I),
+}
+
+
+def plan(bh: int, s: int, d: int, dtype: torch.dtype,
+         aligned: bool = True) -> dict:
+    """The kernel variant for one call, from its shape alone.
+
+    bf16 r/k/v with 16-byte-aligned bases (``aligned``: the chunks are
+    staged with 16-byte ``cp.async`` copies) go to ``mma``: a block per
+    (b*h, span of ``span_fwd`` or ``span_bwd`` steps), and f32 scratch of
+    ``scratch_fwd`` / ``scratch_bwd`` floats for the spans' states (and
+    adjoints) and total decays.  f32 inputs, whose products the tensor
+    cores would round to TF32, and unaligned ones go to ``simt``, a block
+    per b*h.  Head dims other than 32 and 64 are refused.
+    """
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d}; the kernels take {HEAD_DIMS}")
+    if dtype == torch.bfloat16 and aligned:
+        nf, nb = -(-s // SPAN_FWD), -(-s // SPAN_BWD)
+        return {"variant": "mma", "span_fwd": SPAN_FWD,
+                "span_bwd": SPAN_BWD, "blocks_fwd": bh * nf,
+                "blocks_bwd": bh * nb, "scratch_fwd": bh * nf * (d * d + d),
+                "scratch_bwd": 2 * bh * nb * (d * d + d)}
+    return {"variant": "simt", "blocks_fwd": bh, "blocks_bwd": bh}
 
 
 def _check(r, k, v, w_log, u):
@@ -71,6 +114,16 @@ def _on_card(tensors, what: str):
                          f"{HEAD_DIMS}")
 
 
+def _plan_for(tensors) -> dict:
+    r = tensors[0]
+    return plan(*r.shape, r.dtype, aligned=all(
+        t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
 def rwkv6_fwd(r, k, v, w_log, u) -> torch.Tensor:
     """The forward kernel: r, k, v [BH,S,D] (f32 or bf16), w_log [BH,S,D]
     and u [BH,D] f32 -> out [BH,S,D] f32.  CPU tensors go to the plain
@@ -80,15 +133,26 @@ def rwkv6_fwd(r, k, v, w_log, u) -> torch.Tensor:
         return rwkv6_reference(r, k, v, w_log, u)
     _on_card((r, k, v, w_log, u), "rwkv6_fwd")
     bh, s, d = r.shape
-    lib = _build.load("rwkv6", _SIGNATURES)
     out = torch.empty((bh, s, d), dtype=torch.float32, device=r.device)
+    p = _plan_for((r, k, v, w_log, u, out))
     with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = lib.rwkv6_fwd(r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            w_log.data_ptr(), u.data_ptr(), out.data_ptr(),
-                            bh, s, d, _DTYPES[r.dtype], stream)
-    _build.check(lib, err, "rwkv6_fwd launch")
+        if p["variant"] == "mma":
+            lib = _build.load("rwkv6_chunked", _MMA_SIGNATURES)
+            scratch = torch.empty(p["scratch_fwd"], dtype=torch.float32,
+                                  device=r.device)
+            err = lib.rwkv6_mma_fwd(
+                r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
+                u.data_ptr(), out.data_ptr(), scratch.data_ptr(), bh, s, d,
+                p["span_fwd"], _stream(r))
+        else:
+            lib = _build.load("rwkv6", _SIGNATURES)
+            err = lib.rwkv6_fwd(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                w_log.data_ptr(), u.data_ptr(),
+                                out.data_ptr(), bh, s, d, _DTYPES[r.dtype],
+                                _stream(r))
+    _build.check(lib, err, f"rwkv6_fwd launch ({p['variant']})")
     rwkv6_fwd.launches += 1
+    rwkv6_fwd.variant_launches[p["variant"]] += 1
     return out
 
 
@@ -106,26 +170,39 @@ def rwkv6_bwd(r, k, v, w_log, u, g):
         return rwkv6_backward_reference(r, k, v, w_log, u, g)
     _on_card(tensors, "rwkv6_bwd")
     bh, s, d = r.shape
-    lib = _build.load("rwkv6", _SIGNATURES)
     gr, gk, gv = (torch.empty_like(r) for _ in range(3))
     gw = torch.empty_like(w_log)
     gu = torch.empty_like(u)
-    ckpt = torch.empty(lib.rwkv6_bwd_ckpt_floats(bh, s, d),
-                       dtype=torch.float32, device=r.device)
+    p = _plan_for(tensors + (gr, gk, gv, gw, gu))
     with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = lib.rwkv6_bwd(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
-            u.data_ptr(), g.data_ptr(), gr.data_ptr(), gk.data_ptr(),
-            gv.data_ptr(), gw.data_ptr(), gu.data_ptr(), ckpt.data_ptr(),
-            bh, s, d, _DTYPES[r.dtype], stream)
-    _build.check(lib, err, "rwkv6_bwd launch")
+        if p["variant"] == "mma":
+            lib = _build.load("rwkv6_chunked", _MMA_SIGNATURES)
+            scratch = torch.empty(p["scratch_bwd"], dtype=torch.float32,
+                                  device=r.device)
+            err = lib.rwkv6_mma_bwd(
+                r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
+                u.data_ptr(), g.data_ptr(), gr.data_ptr(), gk.data_ptr(),
+                gv.data_ptr(), gw.data_ptr(), gu.data_ptr(),
+                scratch.data_ptr(), bh, s, d, p["span_bwd"], _stream(r))
+        else:
+            lib = _build.load("rwkv6", _SIGNATURES)
+            ckpt = torch.empty(lib.rwkv6_bwd_ckpt_floats(bh, s, d),
+                               dtype=torch.float32, device=r.device)
+            err = lib.rwkv6_bwd(
+                r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
+                u.data_ptr(), g.data_ptr(), gr.data_ptr(), gk.data_ptr(),
+                gv.data_ptr(), gw.data_ptr(), gu.data_ptr(), ckpt.data_ptr(),
+                bh, s, d, _DTYPES[r.dtype], _stream(r))
+    _build.check(lib, err, f"rwkv6_bwd launch ({p['variant']})")
     rwkv6_bwd.launches += 1
+    rwkv6_bwd.variant_launches[p["variant"]] += 1
     return gr, gk, gv, gw, gu
 
 
 rwkv6_fwd.launches = 0
 rwkv6_bwd.launches = 0
+rwkv6_fwd.variant_launches = dict.fromkeys(VARIANTS, 0)
+rwkv6_bwd.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
 class _WKV6(torch.autograd.Function):

@@ -18,6 +18,7 @@ from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.moe_gemm import moe_gemm  # noqa: E402
+from repro_torch.kernels import rwkv6_chunk as wkv  # noqa: E402
 from repro_torch.kernels.rwkv6_chunk import (  # noqa: E402
     rwkv6_bwd, rwkv6_chunk, rwkv6_fwd)
 from repro_torch.launch import serve, train  # noqa: E402
@@ -274,16 +275,18 @@ def _wkv_inputs(bh, s, d, logw, dtype, device):
     return ([t(x, dtype) for x in (r, k, v)] + [t(wl), t(u)], t(g))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bh,s,d,logw", WKV_SHAPES)
-def test_rwkv6_kernels_match_plain(cuda, bh, s, d, logw, dtype):
-    args, g = _wkv_inputs(bh, s, d, logw, dtype, cuda)
+def _check_wkv_against_plain(bh, s, d, logw, dtype, device, variant):
+    args, g = _wkv_inputs(bh, s, d, logw, dtype, device)
     before = rwkv6_fwd.launches, rwkv6_bwd.launches
+    ran = rwkv6_fwd.variant_launches[variant], \
+        rwkv6_bwd.variant_launches[variant]
     out = rwkv6_fwd(*args)
     grads = rwkv6_bwd(*args, g)
     torch.cuda.synchronize()
     assert (rwkv6_fwd.launches, rwkv6_bwd.launches) == \
         (before[0] + 1, before[1] + 1)
+    assert (rwkv6_fwd.variant_launches[variant],
+            rwkv6_bwd.variant_launches[variant]) == (ran[0] + 1, ran[1] + 1)
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
     np.testing.assert_allclose(
         out.cpu().numpy(), ref.rwkv6_reference(*args).cpu().numpy(),
@@ -295,6 +298,70 @@ def test_rwkv6_kernels_match_plain(cuda, bh, s, d, logw, dtype):
         err = (a.float() - b.float()).abs().max().item()
         assert err <= WKV_GRAD_REL[dtype] * b.float().abs().max().item(), \
             (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,d,logw", WKV_SHAPES)
+def test_rwkv6_kernels_match_plain(cuda, bh, s, d, logw, dtype):
+    """The planned variant: f32 on ``simt``, bf16 on ``mma``."""
+    _check_wkv_against_plain(bh, s, d, logw, dtype, cuda,
+                             "mma" if dtype == torch.bfloat16 else "simt")
+
+
+@pytest.mark.parametrize("bh,s,d,logw", WKV_SHAPES)
+def test_rwkv6_simt_matches_plain_in_bf16(cuda, monkeypatch, bh, s, d,
+                                          logw):
+    """bf16 planned onto ``simt``, as for an unaligned input."""
+    plan = wkv.plan
+    monkeypatch.setattr(wkv, "plan", lambda *a, **k: plan(
+        *a, **dict(k, aligned=False)))
+    _check_wkv_against_plain(bh, s, d, logw, torch.bfloat16, cuda, "simt")
+
+
+def test_rwkv6_train_shape_launches_mma(cuda):
+    """rwkv6-1.6b's train shape [128,1024,64] in bf16: both wrappers
+    launch the ``mma`` variant and nothing on ``simt``."""
+    args, g = _wkv_inputs(128, 1024, 64, None, torch.bfloat16, cuda)
+    before = dict(rwkv6_fwd.variant_launches), \
+        dict(rwkv6_bwd.variant_launches)
+    out = rwkv6_fwd(*args)
+    grads = rwkv6_bwd(*args, g)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert all(torch.isfinite(x).all() for x in grads)
+    assert rwkv6_fwd.variant_launches == {**before[0],
+                                          "mma": before[0]["mma"] + 1}
+    assert rwkv6_bwd.variant_launches == {**before[1],
+                                          "mma": before[1]["mma"] + 1}
+
+
+@pytest.mark.parametrize("s,logw", [(256, None), (37, None),
+                                    (100, -float(np.exp(4.0)))])
+def test_rwkv6_mma_backward_is_deterministic(cuda, s, logw):
+    """No float atomics: two backward runs give the same bits."""
+    args, g = _wkv_inputs(8, s, 64, logw, torch.bfloat16, cuda)
+    first = rwkv6_bwd(*args, g)
+    second = rwkv6_bwd(*args, g)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_rwkv6_refused_mma_launch_raises(cuda, monkeypatch, which):
+    """A bf16 call planned onto ``mma`` whose launch the kernel refuses (a
+    span that is no whole number of chunks, a backward span past what
+    shared memory holds) raises; nothing falls back to ``simt`` or to the
+    plain version, and no launch is counted."""
+    plan = wkv.plan
+    monkeypatch.setattr(wkv, "plan", lambda *a, **k: dict(
+        plan(*a, **k), span_fwd=24, span_bwd=128))
+    args, g = _wkv_inputs(2, 64, 32, None, torch.bfloat16, cuda)
+    fn = rwkv6_fwd if which == "fwd" else rwkv6_bwd
+    before = fn.launches, dict(fn.variant_launches)
+    with pytest.raises(RuntimeError, match="mma"):
+        fn(*args) if which == "fwd" else fn(*args, g)
+    assert (fn.launches, fn.variant_launches) == before
 
 
 @pytest.mark.parametrize("case", ["u_on_cpu", "r_bf16_k_f32", "logw_bf16",

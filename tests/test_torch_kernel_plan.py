@@ -1,7 +1,7 @@
 """The kernels' launch plans and the split-kv arithmetic, on the CPU.
 
 Each wrapper decides before a launch, from dtype, shape and alignment alone,
-which kernel variant runs and with which tiles (``plan``).  These tests pin
+which kernel variant runs and with which tiles or spans (``plan``).  These tests pin
 what the card will run on the main paths.  The split-kv schedule of the
 ``wgmma`` flash kernel, written out in plain PyTorch (``split_reference``),
 is checked against the JAX package's reference, inputs made from a seed
@@ -21,6 +21,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import moe_gemm as mg  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import rwkv6_chunk as wkv  # noqa: E402
 
 BF16, F32 = torch.bfloat16, torch.float32
 # Split partials and their combine differ from one softmax only in f32
@@ -146,6 +147,40 @@ def test_flash_plan(shape, dtype, aligned, expect):
     assert (p["variant"], p["row_tiles"], p["kv_splits"]) == expect
     assert (p["block_q"], p["block_kv"]) == (
         (64, 64) if p["variant"] == "wgmma" else (8, 32))
+
+
+@pytest.mark.parametrize("shape,dtype,aligned,expect", [
+    # rwkv6-1.6b train: batch 4 x 32 heads over 1024 steps of 64; spans of
+    # 128 (forward) and 64 (backward) steps
+    ((128, 1024, 64), BF16, True, ("mma", 1024, 2048)),
+    ((128, 1024, 64), F32, True, ("simt", 128, 128)),   # f32 stays f32
+    ((128, 1024, 64), BF16, False, ("simt", 128, 128)),  # unaligned base
+    ((2, 1, 32), BF16, True, ("mma", 2, 2)),            # S 1: one step
+    ((3, 37, 64), BF16, True, ("mma", 3, 3)),           # ragged last chunk
+    ((8, 32, 32), BF16, True, ("mma", 8, 8)),           # smoke head dim
+])
+def test_wkv_plan(shape, dtype, aligned, expect):
+    p = wkv.plan(*shape, dtype, aligned=aligned)
+    assert (p["variant"], p["blocks_fwd"], p["blocks_bwd"]) == expect
+    if p["variant"] == "mma":
+        assert (p["span_fwd"], p["span_bwd"]) == (128, 64)
+
+
+def test_wkv_plan_scratch_at_train_shape():
+    """Scratch a call at [128,1024,64]: the spans' states and decays, f32:
+    17.0 MB forward, 68.2 MB backward (states and adjoints); the serial
+    backward's checkpoints every 8 steps took 268 MB."""
+    p = wkv.plan(128, 1024, 64, BF16)
+    assert 4 * p["scratch_fwd"] == 128 * 8 * (64 * 64 + 64) * 4 == 17039360
+    assert 4 * p["scratch_bwd"] == 2 * 128 * 16 * (64 * 64 + 64) * 4 \
+        == 68157440
+    assert 128 * (1024 // 8) * 64 * 64 * 4 == 268435456
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_wkv_plan_refuses_head_dim_16(dtype):
+    with pytest.raises(ValueError, match="head dim 16"):
+        wkv.plan(4, 64, 16, dtype)
 
 
 def _qkv(b, hq, hkv, sq, skv, d, seed):
