@@ -30,7 +30,8 @@ Phases; any failure exits non-zero before the last line is printed:
    of phases 3-5 must go to the ``wgmma`` variants.  Then each smoke config
    served on the card and on the CPU gives the same tokens.
 4. Path parity, per model: one full-width decode step through the kernels
-   and through the plain versions, on the same parameters, cache and tokens.
+   and through the plain versions, on the same parameters, cache and tokens;
+   and layer 0 alone (below).
 5. Times of each kernel, its CUDA-core variant (the previous design, on the
    same inputs), its plain version and the PyTorch library call at the
    decode and prefill shapes, beside the least time the card could take:
@@ -53,16 +54,38 @@ Phases; any failure exits non-zero before the last line is printed:
    busy, tokens/s, the card's idle share, the WKV kernels' device time per
    call inside it).
 
-The qwen2 phases run first and free their tensors before mixtral's 36 GB
-(f32 weights and their bf16 copy) arrive; rwkv6 comes last.  Then one JSON
-line per kernel table, the card line, and ``{"ok": true, "device": {...}}``
-as the last line.
+7. The eager DTR executor (``repro_torch.eager``) on the card, f32, after
+   rwkv6 frees its tensors; it reaches none of the kernels.  (a) The chain
+   of ``tests/test_eager.py`` at 64 MiB a tensor under a 5-tensor budget:
+   evictions and rematerializations, every value bit-equal to the chain at
+   no budget, and after every call ``memory_allocated`` above the start
+   equal to ``live_bytes()`` (within one allocation and 512 B a tensor),
+   ``live_bytes()`` within the budget and one allocation.  (b) The eager MLP
+   train loop of ``capture_eager_mlp`` at card width (512 MiB activations),
+   4 steps: at no budget against the same torch calls made directly (the
+   executor's bookkeeping an op); then under fractions of that run's
+   measured peak, losses and weights bit-identical, the peak within the
+   budget and one activation, evictions and, with h_dtr_local,
+   rematerializations; a budget below the loop's floor is refused.  (c) The
+   same with the host tier: offloads and fetches through pinned host
+   tensors, the same bits, host bytes within their budget.  (d) Phase 3's
+   captured qwen2-0.5b serve log through the port's copy of the engine:
+   ``check_log``, then scan == index replay.
+
+Phase 4 also holds layer 0 alone in bf16 (attention output, MLP or MoE
+output), kernel against plain on the same inputs, to the kernels' own
+tolerances.  The qwen2 phases run first and free their tensors before
+mixtral's 36 GB (f32 weights and their bf16 copy) arrive; rwkv6 comes
+next, the eager executor last.  Then one JSON line per kernel table, the
+card line, and ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
+import collections
 import gc
 import json
 import math
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -84,9 +107,14 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 MOE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # Full-width decode step, kernel path against plain path.  In f32 the two
 # differ by summation order only.  In bf16 they round a few attention outputs
-# to the other side, and 24 layers of random weights amplify that (5.5% of
-# max|logits| measured on an H100), so the bound there is the plain path's
-# own bf16 error: its distance from the same step in f32.
+# to the other side, and 24 layers of random weights amplify that: qwen2's
+# bf16 step, kernel vs plain, is 63.66 of max|logits| 142.3 against the plain
+# path's own bf16-vs-f32 distance 85.54 (measured on an H100 80GB HBM3 at
+# 700 W; PERF.md), and on the CPU at 4 layers the port's bf16 step lies 3.625
+# from JAX's, inside JAX's own 3.861 of 295.4 (tests/test_torch_bf16_width.py).
+# So the whole-step bound (the plain path's own bf16-vs-f32 distance) bounds
+# little, and layer 0's attention and MLP (MoE) outputs are also held alone,
+# before any amplification, to the kernels' own tolerances (TOL, MOE_TOL).
 PARITY_F32 = 1e-3
 SWEEP = [  # tests/test_kernels.py: (b, hq, hkv, sq, skv, d, causal, window)
     (1, 2, 2, 128, 128, 64, True, 0), (2, 4, 2, 128, 128, 64, True, 0),
@@ -135,6 +163,27 @@ RWKV_PARITY_LAYERS = 2
 TRAIN_BATCH, TRAIN_SEQ = 4, 1024
 # The kernels one call of each WKV wrapper launches on ``mma`` (D 64), by the
 # profiler's names: span pass, scan over spans, output or backward pass.
+# Phase 7, the eager DTR executor.  7a: test_eager.py's chain at card size,
+# 20 ops over 64 MiB f32 tensors under a 5-tensor budget.
+CHAIN_N, CHAIN_OPS, CHAIN_BUDGET = 16 << 20, 20, 5
+# The caching allocator rounds every block up to 512 B.
+ALLOC_ROUND = 512
+# 7b: capture_eager_mlp's op stream at card width (an activation is
+# 512 MiB); lr 1e-5 keeps the losses finite and falling at this width.
+MLP = dict(steps=4, batch=8192, din=4096, dh=16384, lr=1e-5)
+MLP_ACT = 4 * MLP["batch"] * MLP["dh"]
+# Budgets as fractions of the unbounded run's peak.  0.7: h_dtr_eq (the
+# default).  0.5 lies below the loop's floor (relu's backward holds three
+# activations and the pinned inputs, 0.68 of the peak), so the engine must
+# refuse it; h_dtr_eq meets every budget above the floor by evicting tensors
+# no later op reads, so h_dtr_local at 0.8 is the run that rematerializes.
+MLP_RUNS = (("h_dtr_eq", 0.7), ("h_dtr_local", 0.8))
+MLP_INFEASIBLE = 0.5
+# 7c: the host tier, bandwidths in bytes per op (unit costs).
+MLP_OFFLOAD = dict(host_budget=8 * MLP_ACT, h2d_bandwidth=4 * MLP_ACT,
+                   d2h_bandwidth=4 * MLP_ACT)
+# 7d: fractions of the captured serve log's baseline peak.
+SERVE_FRACTIONS = (0.9, 0.6)
 WKV_STEP_KERNELS = {
     "rwkv6_fwd": ("span_kernel<64, false>", "scan_kernel<false>",
                   "fwd_kernel<64>"),
@@ -365,10 +414,11 @@ def time_row(torch, fns, iters, bound_ms_by, what, card):
     return row
 
 
-def model_phases(torch, arch, cfg, smoke_flags, card, gen) -> dict:
+def model_phases(torch, arch, cfg, smoke_flags, card, gen) -> tuple:
     """Phases 3-5 for one model at full width: serve, decode-step parity,
     decode-step times.  Returns the serve path's launch counts, in all and
-    per variant.  Every tensor it makes is freed when it returns."""
+    per variant, and its captured log.  Every tensor it makes is freed when
+    it returns."""
     from repro_torch import configs
     from repro_torch.core.graph import Log
     from repro_torch.kernels import ops, ref
@@ -470,6 +520,7 @@ def model_phases(torch, arch, cfg, smoke_flags, card, gen) -> dict:
     require(d32 <= PARITY_F32 * scale, f"f32 parity {d32} > {PARITY_F32} x "
             f"{scale}")
     require(d16 <= noise, f"bf16 parity {d16} > bf16 rounding noise {noise}")
+    layer0_bf16(torch, arch, cfg, params, base, tok, pos)
 
     # -- 5. decode-step times ------------------------------------------------
     prepared = M.prepare_params(cfg, params)
@@ -490,7 +541,49 @@ def model_phases(torch, arch, cfg, smoke_flags, card, gen) -> dict:
               f"launches per variant {read_variants()} [{card}]")
         if path == "kernel":
             require_wgmma(read_variants(), f"phase 5, {arch} decode step")
-    return launches, variants
+    return launches, variants, log
+
+
+def layer0_bf16(torch, arch, cfg, params, cache, tok, pos) -> None:
+    """Phase 4, per layer: layer 0's attention output and its MLP (MoE)
+    output in bf16 through the kernels and through the plain versions, each
+    pair on the same inputs, held to the kernels' own tolerances."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.params import tree_map
+    c = cfg.replace(dtype="bfloat16")
+    p16 = M.prepare_params(c, params)
+    p0 = tree_map(lambda t: t[0], p16["groups"])["slot0"]
+    window = cfg.window if cfg.pattern[0] == "attn_local" else 0
+    ffn = MOE.moe_apply if cfg.moe else L.mlp_apply
+    out = {}
+    with torch.inference_mode():
+        x = L.embed_apply(c, p16["embed"], tok)
+        h = L.rmsnorm_apply(c, p0["norm1"], x)
+        for plain in (False, True):
+            kv = tree_map(lambda t: t[0].to(torch.bfloat16, copy=True),
+                          cache["groups"])["slot0"]["attn"]
+            with plain_kernels(ops, ref) if plain else nullcontext():
+                out["attn", plain], _ = L.attention_apply(
+                    c, p0["attn"], h, positions=pos[:, None], window=window,
+                    cache={**kv, "pos": pos})
+        h2 = L.rmsnorm_apply(c, p0["norm2"], x + out["attn", True])
+        for plain in (False, True):
+            with plain_kernels(ops, ref) if plain else nullcontext():
+                out["ffn", plain] = ffn(c, p0["ffn"], h2)
+    torch.cuda.synchronize()
+    for part, tol in (("attn", TOL["bfloat16"]),
+                      ("ffn", (MOE_TOL if cfg.moe else TOL)["bfloat16"])):
+        k, p = out[part, False].float(), out[part, True].float()
+        err = (k - p).abs().max().item()
+        ok = bool(torch.isfinite(k).all()) and torch.allclose(
+            k, p, rtol=tol, atol=tol)
+        print(f"phase 4: {arch} layer 0 {part} output, bf16, kernel vs plain:"
+              f" max|d|={err!r} of max|out|={p.abs().max().item()!r} "
+              f"(tol {tol}) {'ok' if ok else 'FAIL'}")
+        require(ok, f"{arch} layer 0 {part} output in bf16, kernel vs plain")
 
 
 def wkv_bound_ms(shape, itemsize, backward, variant):
@@ -809,6 +902,209 @@ def rwkv_train_phases(torch, card, gen) -> dict:
     return rows
 
 
+def eager_chain(torch, card) -> None:
+    """Phase 7a: the chain under a budget of real bytes on the card."""
+    from repro_torch.eager import DTRContext
+    size = 4 * CHAIN_N
+    budget = CHAIN_BUDGET * size
+    worst = {"held_minus_live": 0, "live_minus_budget": -budget}
+
+    def check(ctx, base, bound):
+        live = ctx.live_bytes()
+        held = torch.cuda.memory_allocated() - base
+        slack = size + ALLOC_ROUND * len(ctx.buffers)
+        require(live <= bound + size, f"live {live} over budget {bound}")
+        require(abs(held - live) <= slack,
+                f"memory_allocated - base {held} against live {live}")
+        worst["held_minus_live"] = max(worst["held_minus_live"],
+                                       abs(held - live))
+        worst["live_minus_budget"] = max(worst["live_minus_budget"],
+                                         live - bound)
+
+    def chain(bound):
+        # Contexts die in reference cycles (the runtime's hooks are their
+        # bound methods): collect earlier ones before taking the base.
+        gc.collect()
+        ctx = DTRContext(bound)
+        base = torch.cuda.memory_allocated()
+        vals = [ctx.wrap(torch.linspace(0, 1, CHAIN_N, device="cuda"))]
+        for i in range(CHAIN_OPS):
+            vals.append(ctx.call(f"f{i}", lambda a: torch.cos(a) * 1.01,
+                                 [vals[-1]])[0])
+            check(ctx, base, bound)
+        return ctx, vals, base
+
+    ref_ctx, ref, _ = chain(float("inf"))
+    ctx, vals, base = chain(budget)
+    same = True
+    for v, r in zip(vals, ref):
+        same &= bool(torch.equal(v.value, r.value))
+        check(ctx, base, budget)
+    print(f"phase 7a: chain of {CHAIN_OPS} ops over {size >> 20} MiB f32 "
+          f"tensors, budget {budget >> 20} MiB: evictions "
+          f"{ctx.rt.evictions}, remat runs {ctx.remat_runs}, every value "
+          f"bit-equal to the unbounded chain: {same}; after every call and "
+          f"read, max |memory_allocated - base - live_bytes| = "
+          f"{worst['held_minus_live']} B, max live_bytes - budget = "
+          f"{worst['live_minus_budget']} B [{card}]")
+    require(ctx.rt.evictions > 0 and ctx.remat_runs > 0,
+            "7a: evictions and rematerializations")
+    require(same, "7a: values read back equal the unbounded chain's")
+    del ctx, vals, ref_ctx, ref
+    gc.collect()
+
+
+class Direct:
+    """The eager MLP's op stream with no DTR: each call runs at once."""
+
+    class Handle:
+        def __init__(self, t):
+            self.value = t
+
+        def release(self):
+            self.value = None
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def wrap(self, x, name=""):
+        return Direct.Handle(self.torch.as_tensor(x, device="cuda"))
+
+    def call(self, name, fn, args):
+        out = fn(*[a.value if isinstance(a, Direct.Handle) else a
+                   for a in args])
+        return [Direct.Handle(o)
+                for o in (out if isinstance(out, tuple) else (out,))]
+
+
+def eager_mlp_run(torch, ctx):
+    """One run of the eager MLP through ``ctx``: losses, final weights,
+    wall ms of each step after the first, and the peak above the start."""
+    from repro_torch.trace.capture import eager_mlp
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    losses, stamps = [], []
+
+    def on_loss(step, loss):
+        losses.append(loss.value.item())     # waits for the card
+        stamps.append(time.perf_counter())
+
+    w1, w2 = eager_mlp(ctx, on_loss=on_loss, **MLP)
+    weights = (w1.value.clone(), w2.value.clone())
+    peak = torch.cuda.max_memory_allocated() - base
+    steps_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    return losses, weights, steps_ms, peak
+
+
+def eager_mlp_phases(torch, card) -> None:
+    """Phases 7b and 7c: the eager MLP train loop at card width under
+    budgets, then with the host tier."""
+    from repro_torch.core.runtime import OOMError
+    from repro_torch.eager import DTRContext
+    from repro_torch.offload import OffloadConfig
+    from repro_torch.trace.capture import eager_mlp
+    ops_per_step = 12
+    direct = eager_mlp_run(torch, Direct(torch))
+    gc.collect()
+    ctx = DTRContext(float("inf"), use_wallclock_cost=False)
+    ref = eager_mlp_run(torch, ctx)
+    frees = ctx.rt.evictions          # no pressure: every one a release
+    del ctx
+    gc.collect()
+    direct2 = eager_mlp_run(torch, Direct(torch))
+    gc.collect()
+    losses, (w1, w2), inf_ms, peak = ref
+    direct_ms = direct[2] + direct2[2]
+    print(f"phase 7b: eager MLP {MLP}, f32, no budget: losses {losses}, "
+          f"peak {peak / 2**30:.3f} GiB, {frees} frees at release; step ms "
+          f"{inf_ms} against the same "
+          f"torch calls made directly {direct_ms}: "
+          f"{(statistics.median(inf_ms) - statistics.median(direct_ms)) / ops_per_step!r}"
+          f" ms of bookkeeping an op [{card}]")
+    require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            f"7b: finite, falling losses {losses}")
+    require(direct[0] == losses and torch.equal(direct[1][0], w1)
+            and torch.equal(direct[1][1], w2),
+            "7b: DTR with no budget gives the direct run's bits")
+
+    def budgeted(heuristic, frac, offload=None):
+        """One run under ``frac`` of the peak; its runtime's counters."""
+        budget = frac * peak
+        ctx = DTRContext(budget, heuristic=heuristic,
+                         use_wallclock_cost=False, offload=offload)
+        got_losses, (g1, g2), ms, got_peak = eager_mlp_run(torch, ctx)
+        same = (got_losses == losses and bool(torch.equal(g1, w1))
+                and bool(torch.equal(g2, w2)))
+        # evictions counts the frees at release too (eager dealloc); the
+        # victims that memory pressure chose are the picks.
+        n = dict(evictions=ctx.rt.evictions, picks=ctx.rt.victim_picks,
+                 remats=ctx.remat_runs, offloads=ctx.rt.offloads,
+                 fetches=ctx.rt.fetches, host_bytes=ctx.host_bytes())
+        remade = collections.Counter()     # remats by the op replayed
+        for sid, k in ctx.rt._remat_counts.items():
+            remade[ctx.rt.tensors[ctx.rt.storages[sid].root_tid].op.name] += k
+        what = (f"{heuristic} at {frac} of the peak"
+                + (" with the host tier" if offload else ""))
+        print(f"phase 7{'c' if offload else 'b'}: {what} "
+              f"({budget / 2**30:.3f} GiB): {n}, remats by op "
+              f"{dict(remade)}; peak - budget "
+              f"{(got_peak - budget) / 2**20:.1f} MiB (limit "
+              f"{MLP_ACT >> 20}); losses and weights bit-identical to no "
+              f"budget: {same}; step ms {ms} against {inf_ms} with no budget "
+              f"[{card}]")
+        require(same, f"7b/c: {what}: the bits of the unbounded run")
+        require(got_peak <= budget + MLP_ACT,
+                f"7b/c: {what}: peak {got_peak} over budget + one activation")
+        del ctx
+        gc.collect()
+        return n
+
+    n = budgeted(*MLP_RUNS[0])
+    require(n["picks"] > 0, f"7b: evictions under pressure at {MLP_RUNS[0]}")
+    n = budgeted(*MLP_RUNS[1])
+    require(n["picks"] > 0 and n["remats"] > 0,
+            f"7b: evictions under pressure and rematerializations at "
+            f"{MLP_RUNS[1]}")
+    ctx = DTRContext(MLP_INFEASIBLE * peak, use_wallclock_cost=False)
+    refused = None
+    try:
+        eager_mlp(ctx, **MLP)
+    except OOMError as e:
+        refused = str(e)
+    print(f"phase 7b: h_dtr_eq at {MLP_INFEASIBLE} of the peak, below the "
+          f"loop's floor: refused: {refused}")
+    require(refused is not None,
+            "7b: a budget below the loop's floor must raise OOMError")
+    del ctx
+    gc.collect()
+    cfg = OffloadConfig(**MLP_OFFLOAD)
+    n = budgeted(*MLP_RUNS[0], offload=cfg)
+    require(n["offloads"] > 0 and n["fetches"] > 0,
+            "7c: offloads and fetches")
+    require(n["host_bytes"] <= cfg.host_budget, "7c: host bytes in budget")
+
+
+def serve_log_replay(log) -> None:
+    """Phase 7d: the captured qwen2-0.5b serve log through the copied
+    engine: the static checker, then scan == index replay."""
+    from repro_torch.check import check_log
+    from repro_torch.trace.replay import verify_oracle_equivalence
+    t0 = time.perf_counter()
+    check_log(log)
+    rep = verify_oracle_equivalence(log, fractions=SERVE_FRACTIONS)
+    runs = rep["index_results"].values()
+    print(f"phase 7d: {log.name} ({log.op_count()} ops): check_log ok; "
+          f"scan == index over {rep['cells']} cells at {SERVE_FRACTIONS} of "
+          f"the baseline peak {rep['baseline_peak']!r}: {rep['ok']} "
+          f"(mismatches {rep['mismatches']}); evictions "
+          f"{sum(r.evictions for r in runs)}, remats "
+          f"{sum(r.remat_ops for r in runs)}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    require(rep["ok"], "7d: scan and index replays differ")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -888,7 +1184,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 3-5 for qwen2, then its flash-attention times -------------------------
-    qwen_launches, qwen_variants = model_phases(
+    qwen_launches, qwen_variants, qwen_log = model_phases(
         torch, ARCH, configs.get(ARCH),
         ["--requests", "6", "--slots", "2", "--gen", "8"], card, gen)
     keep = (torch.arange(DECODE["skv"], device="cuda")[None, :]
@@ -920,7 +1216,7 @@ def main() -> int:
 
     # -- 3-5 for mixtral, then the grouped GEMM's times ----------------------
     torch.cuda.reset_peak_memory_stats()
-    moe_launches, moe_variants = model_phases(
+    moe_launches, moe_variants, _ = model_phases(
         torch, MOE_ARCH, configs.get(MOE_ARCH).replace(n_layers=MOE_LAYERS),
         ["--requests", "6", "--slots", "2", "--gen", "8", "--max-len", "32"],
         card, gen)
@@ -957,6 +1253,11 @@ def main() -> int:
 
     # -- 6 and 5 for rwkv6 -------------------------------------------------
     wkv = rwkv_train_phases(torch, card, gen)
+
+    # -- 7. the eager DTR executor, f32 (TF32 off since phase 1) -------------
+    eager_chain(torch, card)
+    eager_mlp_phases(torch, card)
+    serve_log_replay(qwen_log)
 
     d = times["decode"]
     g = gemm_times["decode wi"]

@@ -1,13 +1,16 @@
-"""Capture a continuous-batching serve workload as a DTR Log.
+"""Capture serve workloads and eager-executor programs as DTR Logs.
 
-The serve pieces of ``repro.trace.capture``: :class:`WorkloadTrace` +
+The serve and eager pieces of ``repro.trace.capture``: :class:`WorkloadTrace` +
 :func:`capture_serve_trace` — a continuous-batching decode driver at the
 slot level: per-request KV caches grow token by token, finished slots retire
 their storages and are immediately refilled, so the captured log exercises
 the interleaved dynamic lifetimes no synthetic graph produces.  Every
 instruction is tagged with request/slot/position metadata.  The step model
 takes its sizes from the port's ``param_defs``/``cache_defs``, so the logs
-are byte-identical to the JAX package's.
+are byte-identical to the JAX package's.  :func:`capture_eager_mlp` and
+:func:`capture_eager_treelstm` record programs run through the port's eager
+executor; with unit costs their logs depend only on shapes and dtypes, so
+they too equal the JAX package's byte for byte.
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ import math
 import random
 from collections import deque
 from dataclasses import dataclass
+
+import numpy as np
 
 from ..core.graph import Log, LogBuilder
 from ..models.params import ITEMSIZE, tree_items
@@ -204,3 +209,118 @@ def capture_serve_trace(model: ServeStepModel, *, slots: int = 4,
     log = wt.finish()
     log.meta["steps"] = step
     return log
+
+
+# ---------------------------------------------------------------------------
+# Eager-executor captures (TraceRecorder through real torch tensors)
+# ---------------------------------------------------------------------------
+
+def eager_mlp(ctx, *, steps: int, din: int, dh: int, batch: int,
+              seed: int = 0, lr: float = 0.05, rec=None, on_loss=None):
+    """The manual-backward MLP training loop of :func:`capture_eager_mlp`,
+    through ``ctx`` (a ``DTRContext``, or anything with its ``wrap`` /
+    ``call`` and handles with ``release``).  ``on_loss(step, loss)`` sees
+    each step's loss handle before it is released.  Returns the final
+    ``(w1, w2)`` handles.
+
+    Inputs are f32 draws from ``numpy.random.default_rng(seed)``.  Every op
+    writes only its output, with no temporary the size of an activation
+    (relu's backward is one ``threshold_backward``, the SGD step one
+    ``add`` with ``alpha``), so the card holds no more than the live
+    tensors and the output being made.
+    """
+    import torch
+
+    def tag(**meta):
+        if rec is not None:
+            rec.tag(**meta)
+
+    rng = np.random.default_rng(seed)
+    scale = np.float32(0.05)
+    w1 = ctx.wrap(rng.standard_normal((din, dh), np.float32) * scale,
+                  name="w1")
+    w2 = ctx.wrap(rng.standard_normal((dh, 1), np.float32) * scale,
+                  name="w2")
+    xb = ctx.wrap(rng.standard_normal((batch, din), np.float32), name="x")
+    yb = ctx.wrap(np.ones((batch, 1), np.float32), name="y")
+    for step in range(steps):
+        tag(step=step, phase="fwd")
+        h = ctx.call("fc1", torch.matmul, [xb, w1])[0]
+        a = ctx.call("relu", torch.relu, [h])[0]
+        p = ctx.call("fc2", torch.matmul, [a, w2])[0]
+        e = ctx.call("err", torch.sub, [p, yb])[0]
+        loss = ctx.call("mse", lambda t: torch.mean(t * t), [e])[0]
+        tag(step=step, phase="bwd")
+        gp = ctx.call("d_mse", lambda t: 2 * t / t.numel(), [e])[0]
+        gw2 = ctx.call("d_w2", lambda a_, g: a_.T @ g, [a, gp])[0]
+        ga = ctx.call("d_a", lambda g, w: g @ w.T, [gp, w2])[0]
+        gh = ctx.call("d_relu", lambda g, h_:
+                      torch.ops.aten.threshold_backward(g, h_, 0.0),
+                      [ga, h])[0]
+        gw1 = ctx.call("d_w1", lambda x_, g: x_.T @ g, [xb, gh])[0]
+        w1_new = ctx.call("sgd1", lambda w, g: torch.add(w, g, alpha=-lr),
+                          [w1, gw1])[0]
+        w2_new = ctx.call("sgd2", lambda w, g: torch.add(w, g, alpha=-lr),
+                          [w2, gw2])[0]
+        if on_loss is not None:
+            on_loss(step, loss)
+        for t in (h, a, p, e, loss, gp, gw2, ga, gh, gw1):
+            t.release()
+        w1.release()          # superseded weights (step-0: pinned constants)
+        w2.release()
+        w1, w2 = w1_new, w2_new
+    return w1, w2
+
+
+def capture_eager_mlp(*, steps: int = 2, din: int = 32, dh: int = 64,
+                      batch: int = 16, seed: int = 0,
+                      device="cuda") -> Log:
+    """Manual-backward MLP training loop through the eager DTR executor.
+
+    Unit costs (``use_wallclock_cost=False``) keep the captured log — and
+    every replay decision downstream — bit-reproducible across hosts.
+    """
+    from ..eager import DTRContext
+    from .record import TraceRecorder
+    rec = TraceRecorder(name=f"eager_mlp_s{steps}",
+                        meta={"kind": "eager_mlp", "steps": steps,
+                              "din": din, "dh": dh, "batch": batch})
+    ctx = DTRContext(budget_bytes=float("inf"), use_wallclock_cost=False,
+                     recorder=rec, device=device)
+    eager_mlp(ctx, steps=steps, din=din, dh=dh, batch=batch, seed=seed,
+              rec=rec)
+    return rec.finish()
+
+
+def capture_eager_treelstm(*, depth: int = 3, dim: int = 32,
+                           device="cuda") -> Log:
+    """Data-dependent recursion (the paper's dynamic headline) captured live."""
+    import torch
+    from ..eager import DTRContext
+    from .record import TraceRecorder
+    rec = TraceRecorder(name=f"eager_treelstm_d{depth}",
+                        meta={"kind": "eager_treelstm", "depth": depth,
+                              "dim": dim})
+    ctx = DTRContext(budget_bytes=float("inf"), use_wallclock_cost=False,
+                     recorder=rec, device=device)
+    w = ctx.wrap(np.eye(dim, dtype=np.float32) * np.float32(0.5)
+                 + np.float32(0.01), name="w")
+
+    def cell(a, b, d):
+        rec.tag(depth=d)
+        s = ctx.call("add", torch.add, [a, b])[0]
+        rec.tag(depth=d)
+        out = ctx.call("cell", lambda s_, w_: torch.tanh(s_ @ w_), [s, w])[0]
+        s.release()
+        a.release()
+        b.release()
+        return out
+
+    def build(d, leaf_val):
+        if d == 0:
+            return ctx.wrap(np.full((dim,), leaf_val, np.float32),
+                            name="leaf")
+        return cell(build(d - 1, leaf_val), build(d - 1, leaf_val + 0.1), d)
+
+    build(depth, 0.05)
+    return rec.finish()

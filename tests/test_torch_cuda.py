@@ -8,6 +8,8 @@ and skips inside the test where torch sees none.  Run on the card with
 This file imports neither JAX nor the JAX package, so it runs where only
 the port is installed.
 """
+import gc
+
 import numpy as np
 import pytest
 
@@ -400,3 +402,55 @@ def test_smoke_train_step_launches(cuda, remat, fwd_per_layer):
     assert np.isfinite(res.losses[0])
     assert (rwkv6_fwd.launches, rwkv6_bwd.launches) == \
         (fwd_per_layer * cfg.n_layers, cfg.n_layers)
+
+
+# ---------------------------------------------------------------------------
+# The eager DTR executor on the card: its budget is made of real bytes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("offload", [False, True])
+def test_eager_live_bytes_match_memory_allocated(cuda, offload):
+    """A chain of 1 MiB tensors under a 5-tensor budget: after every call
+    the caching allocator holds exactly the live tensors (1 MiB is a
+    multiple of its 512 B rounding), and every value read back equals the
+    same chain at an unbounded budget, bit for bit."""
+    from repro_torch.eager import DTRContext
+    from repro_torch.offload import OffloadConfig
+    n = 1 << 18
+    mib = 4 * n
+    cfg = OffloadConfig(host_budget=8 * mib, h2d_bandwidth=mib,
+                        d2h_bandwidth=mib) if offload else None
+
+    def chain(budget):
+        # Contexts of earlier tests die in reference cycles (runtime hooks
+        # are the context's bound methods): collect them before the base.
+        gc.collect()
+        ctx = DTRContext(budget, use_wallclock_cost=False, offload=cfg)
+        base = torch.cuda.memory_allocated()
+        vals = [ctx.wrap(torch.linspace(0, 1, n, device=cuda))]
+        for i in range(20):
+            vals.append(ctx.call(f"f{i}", lambda a: torch.cos(a) * 1.01,
+                                 [vals[-1]])[0])
+            assert torch.cuda.memory_allocated() - base == \
+                ctx.live_bytes() <= budget + mib
+        return ctx, vals, base
+
+    _, ref, _ = chain(float("inf"))
+    ctx, vals, base = chain(5 * mib)
+    assert ctx.rt.evictions > 0
+    for r, v in zip(ref, vals):
+        assert torch.equal(v.value, r.value)
+        assert torch.cuda.memory_allocated() - base == ctx.live_bytes()
+    if offload:
+        assert ctx.rt.offloads > 0 and ctx.rt.fetches > 0
+        assert ctx.host_bytes() <= 8 * mib
+        assert all(b.is_pinned() for b in ctx.host_buffers.values())
+    else:
+        assert ctx.remat_runs > 0
+
+
+def test_eager_context_defaults_to_the_card(cuda):
+    from repro_torch.eager import DTRContext
+    ctx = DTRContext(float("inf"))
+    x = ctx.wrap(np.ones(4, np.float32))
+    assert x.value.device.type == "cuda"

@@ -32,6 +32,32 @@ def test_no_jax_and_no_reference_package(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def _relative_targets(path: Path):
+    """Each relative import of a module, function bodies included (the
+    lazy ones too), as the file or package it names."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.ImportFrom) and node.level > 0:
+            base = path.parent
+            for _ in range(node.level - 1):
+                base = base.parent
+            if node.module:
+                yield node.lineno, base.joinpath(*node.module.split("."))
+            else:
+                for a in node.names:
+                    yield node.lineno, base / a.name
+
+
+@pytest.mark.parametrize("path", PORT_FILES[:-1],
+                         ids=[str(p.relative_to(ROOT))
+                              for p in PORT_FILES[:-1]])
+def test_relative_imports_resolve_inside_the_port(path):
+    missing = [(line, str(t.relative_to(ROOT)))
+               for line, t in _relative_targets(path)
+               if not (t.with_suffix(".py").is_file()
+                       or (t / "__init__.py").is_file())]
+    assert not missing, f"{path.relative_to(ROOT)} imports {missing}"
+
+
 def _without_imports(text: str) -> list:
     """The lines of a module that are not import statements."""
     tree = ast.parse(text)
@@ -43,10 +69,24 @@ def _without_imports(text: str) -> list:
             if i not in skip]
 
 
-@pytest.mark.parametrize("rel", ["core/graph.py", "models/config.py",
-                                 "configs/qwen2_0_5b.py",
-                                 "configs/mixtral_8x7b.py",
-                                 "configs/rwkv6_1_6b.py"])
+COPIES = [
+    "core/graph.py", "models/config.py", "configs/qwen2_0_5b.py",
+    "configs/mixtral_8x7b.py", "configs/rwkv6_1_6b.py",
+    # The DTR engine the eager executor drives, and what it imports.
+    "core/unionfind.py", "core/evict_index.py", "core/heuristics.py",
+    "core/runtime.py", "core/simulator.py", "core/graphs.py",
+    "faults/__init__.py", "faults/schedule.py", "faults/recovery.py",
+    "alloc/__init__.py", "alloc/pool.py", "alloc/allocator.py",
+    "offload/__init__.py", "offload/engine.py", "offload/host.py",
+    "offload/predictor.py", "offload/transfer.py",
+    "check/trace_lint.py", "check/sanitizer.py",
+    "trace/record.py", "trace/replay.py",
+    "static/__init__.py", "static/chain.py", "static/executor.py",
+    "static/lpbound.py", "static/panel.py", "static/solvers.py",
+]
+
+
+@pytest.mark.parametrize("rel", COPIES)
 def test_copies_equal_originals_apart_from_imports(rel):
     assert _without_imports((PORT / rel).read_text()) == \
         _without_imports((REF / rel).read_text())
