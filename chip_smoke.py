@@ -21,7 +21,13 @@ Phases; any failure exits non-zero before the last line is printed:
    model's clipped decay, f32 on ``simt`` and bf16 on both the chunked
    tensor-core variant (``mma``, as planned) and ``simt``; the backward
    against autograd through the plain version, all five gradients; two
-   ``mma`` backward calls at the train shape give the same bits.
+   ``mma`` backward calls at the train shape give the same bits.  The flash
+   backward (``csrc/flash_attention_bwd.cu``): a forward that saves the
+   LSE, held to ``flash_reference_lse``, then dq/dk/dv against
+   ``flash_backward_reference`` on the same output and LSE, f32 (``simt``)
+   and bf16 (``mma`` where planned, and ``simt``), GQA 14/2 and 32/8,
+   ragged lengths, a window, qwen2's train shape ``[4,14,2048,64]``, and a
+   second call's bits.
 3. Each serve path at full width, with seeded random weights, 8 requests
    over 4 slots, 16 tokens each, ``--capture``: qwen2-0.5b (24 layers),
    then mixtral-8x7b with its depth cut to 4 layers (the 32-layer model
@@ -54,6 +60,20 @@ Phases; any failure exits non-zero before the last line is printed:
    busy, tokens/s, the card's idle share, the WKV kernels' device time per
    call inside it).
 
+   Then qwen2-0.5b training (after rwkv6 frees its tensors): the flash
+   forward (saving the LSE) and backward at the train shape beside their
+   bounds, the plain versions and SDPA's forward and backward timed apart;
+   at full width cut to 2 layers, batch 4 x 2048, loss and gradients
+   through the kernels against the plain path in f32 and bf16; all 24
+   layers under remat none, full, dots and dtr (flash launches 24 + 24,
+   then 48 + 24, every bf16 launch of both on the tensor cores;
+   ``max_memory_allocated`` per policy; loss and gradients
+   bit-identical to none's; the step-0 loss against the plain path's); the
+   train loop (AdamW, remat none, 3 steps: the main path's launches); one
+   Adafactor and one SGDM step; one step's wall, device busy, idle share,
+   tokens/s and the flash kernels' device time inside it; the train CLI
+   with a named policy and Adafactor.
+
 7. The eager DTR executor (``repro_torch.eager``) on the card, f32, after
    rwkv6 frees its tensors; it reaches none of the kernels.  (a) The chain
    of ``tests/test_eager.py`` at 64 MiB a tensor under a 5-tensor budget:
@@ -71,6 +91,16 @@ Phases; any failure exits non-zero before the last line is printed:
    tensors, the same bits, host bytes within their budget.  (d) Phase 3's
    captured qwen2-0.5b serve log through the port's copy of the engine:
    ``check_log``, then scan == index replay.
+
+8. The trace-time DTR planner on real bytes: fig4's tagged MLP stack at d
+   4096, 8 layers, batch 8192, f32, a checkpoint region a layer, traced on
+   fake tensors, planned at 0.8 and 0.7 of its traced peak (planning wall
+   printed) and run as ``dtr_checkpoint`` applies each plan, then as one
+   region: gradients bit-identical to the unplanned step,
+   ``max_memory_allocated`` beside the budget and the plan's estimate; 0.6
+   and 0.4, below the floor of the parameters and their gradients, refused.
+   Then the full-width qwen2-0.5b train-step capture: its peak beside the
+   card's step under remat none, ``check_log`` and scan == index at 0.9.
 
 Phase 4 also holds layer 0 alone in bf16 (attention output, MLP or MoE
 output), kernel against plain on the same inputs, to the kernels' own
@@ -91,6 +121,7 @@ import sys
 import tempfile
 import time
 from contextlib import contextmanager, nullcontext
+from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -184,6 +215,38 @@ MLP_OFFLOAD = dict(host_budget=8 * MLP_ACT, h2d_bandwidth=4 * MLP_ACT,
                    d2h_bandwidth=4 * MLP_ACT)
 # 7d: fractions of the captured serve log's baseline peak.
 SERVE_FRACTIONS = (0.9, 0.6)
+# The flash backward against its plain version (phase 2): (b, hq, hkv, sq,
+# skv, d, causal, window).  GQA 14/2 (qwen2) and 32/8 (mixtral), lengths
+# that are not multiples of 64, a window with Sq < Skv, then qwen2's train
+# shape.  Each of dq/dk/dv within this share of its max|.|: f32 sums the
+# same products in another order; bf16 rounds each gradient once.
+FLASH_TRAIN = (4, 14, 2, 2048, 2048, 64, True, 0)
+FLASH_BWD_CASES = [(2, 4, 2, 128, 128, 64, True, 0),
+                   (1, 14, 2, 100, 100, 64, True, 0),
+                   (1, 14, 2, 77, 131, 64, True, 33),
+                   (1, 32, 8, 96, 96, 128, True, 0),
+                   (2, 4, 1, 64, 96, 32, False, 0), FLASH_TRAIN]
+FLASH_BWD_REL = {"float32": 1e-4, "bfloat16": 2e-2}
+# The forward's row log-sum-exp, f32 on both sides.
+LSE_TOL = 1e-4
+# qwen2-0.5b training (phases 5, 6): full width, batch 4 x 2048.
+QWEN_BATCH, QWEN_SEQ = 4, 2048
+QWEN_PARITY_LAYERS = 2
+QWEN_REMATS = ("none", "full", "dots", "dtr")
+# The kernels one bf16 flash call launches, by the profiler's names.
+FLASH_STEP_KERNELS = {"flash_attention": ("flash_wgmma_kernel",),
+                      "flash_attention_bwd": ("flash_bwd_delta_kernel",
+                                              "flash_bwd_dkdv_mma_kernel",
+                                              "flash_bwd_dq_mma_kernel")}
+# Phase 8: fig4's tagged MLP stack (benchmarks/fig4_overhead.py) widened
+# from d 128, batch 256 to d 4096, batch 8192 (an activation of 512 MiB),
+# 8 layers, f32; planned at fractions of its traced peak.  The parameters
+# (4.3 GB) and their gradients hold 0.6 of that peak at the step's end, so
+# 0.6 and 0.4 lie below its floor: the planner must refuse them.
+PLAN_MLP = dict(d=4096, layers=8, batch=8192)
+PLAN_FRACTIONS = (0.8, 0.7)
+PLAN_INFEASIBLE = (0.6, 0.4)
+CAPTURE_FRACTION = 0.9
 WKV_STEP_KERNELS = {
     "rwkv6_fwd": ("span_kernel<64, false>", "scan_kernel<false>",
                   "fwd_kernel<64>"),
@@ -256,13 +319,15 @@ def event_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters, top=0, by_name=None):
+def device_ms(torch, fn, iters, top=0, by_name=None, per_call=None):
     """Device time of one call (kernels only, no launch gaps) from the
     profiler; None where it sees no device time.  Only the device's own
     events count: a CPU operator's entry repeats its kernels' time.  With
     ``top``, also prints the ``top`` kernels by device time per call; a
     dict ``by_name`` receives each kernel's (ms per call, launches per
-    call)."""
+    call).  ``per_call``: the launches one call makes; a session that
+    recorded fewer is incomplete (after a long run the profiler has come
+    back with a part of a session's kernels) and is run again."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -281,10 +346,12 @@ def device_ms(torch, fn, iters, top=0, by_name=None):
                           if e.device_type == DeviceType.CUDA),
                          reverse=True)
         total_us = sum(us for us, _, _ in kernels)
-        if total_us > 0:
+        seen = sum(count for _, count, _ in kernels)
+        if total_us > 0 and (per_call is None or seen >= per_call * iters):
             break
-        print(f"  profiler saw no device time (attempt {attempt + 1}); "
-              f"profiling again")
+        print(f"  profiler saw {seen} kernels, {total_us!r} us (attempt "
+              f"{attempt + 1}); profiling again")
+        total_us = 0
     for us, count, name in kernels[:top]:
         print(f"  {us / 1e3 / iters:9.3f} ms/call {100 * us / total_us:5.1f}% "
               f"x{count // iters} {name[:100]}")
@@ -329,6 +396,103 @@ def gemm_bound_ms(shape, itemsize, dtype_name):
                  2 * e * c * d * f, dtype_name)
 
 
+def causal_pairs(b, sq, skv):
+    """Visible (query, key) pairs of one head under a bottom-right causal
+    mask, over the batch."""
+    return b * sum(min(skv, i + skv - sq + 1) for i in range(sq))
+
+
+def flash_bwd_bound_ms(case, itemsize):
+    """Least time for the attention backward: q, k, v, o, dO and the f32
+    LSE read once and dq, dk, dv written once, over the memory rate,
+    against its five score-area products (S, dP, dV, dQ, dK: 2 * D FLOPs
+    each per visible pair and query head) at the bf16 tensor-core peak."""
+    b, hq, hkv, sq, skv, d, causal, window = case
+    require(causal and window == 0, "bound for causal, unwindowed calls")
+    nbytes = (4 * b * hq * sq * d + 4 * b * hkv * skv * d) * itemsize \
+        + 4 * b * hq * sq
+    return bound(nbytes, 10 * hq * d * causal_pairs(b, sq, skv), "bfloat16")
+
+
+def flash_bwd_checks(torch, gen) -> float:
+    """Phase 2 for the flash backward: the train forward's output and LSE
+    against ``flash_reference_lse``, the backward kernels against
+    ``flash_backward_reference`` on the same output and LSE, and a second
+    call's bits; bf16 on the planned variant and on ``simt``.  Returns the
+    bf16 train shape's max abs errors, forward (``wgmma``) and backward
+    (``mma``)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    print("phase 2: flash_attention_bwd against flash_backward_reference")
+    train_err = None
+    for dtype_name, dtype in (("float32", torch.float32),
+                              ("bfloat16", torch.bfloat16)):
+        for case in FLASH_BWD_CASES:
+            b, hq, hkv, sq, skv, d, causal, window = case
+            shape = dict(b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, d=d,
+                         kv_len=None)
+            q, k, v, _ = inputs(torch, shape, dtype, gen)
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+            before = read_variants()["flash_attention"]
+            out, lse = fa._forward(q, k, v, causal, window, None,
+                                   save_lse=True)
+            fwd_variant = ran_variant({
+                v_: n - before[v_] for v_, n in
+                read_variants()["flash_attention"].items()})
+            want_out, want_lse = ref.flash_reference_lse(
+                q, k, v, causal=causal, window=window)
+            lse_err = (lse - want_lse).abs().max().item()
+            out_err = (out.float() - want_out.float()).abs().max().item()
+            out_ok = math.isfinite(out_err) and torch.allclose(
+                out.float(), want_out.float(), rtol=TOL[dtype_name],
+                atol=TOL[dtype_name])
+            expect = ref.flash_backward_reference(
+                q, k, v, out, lse, do, causal=causal, window=window)
+            planned = fa.plan_backward(b, hq, hkv, sq, skv, d,
+                                       dtype)["variant"]
+            for variant in dict.fromkeys((planned, "simt")):
+                before = read_variants()["flash_attention_bwd"]
+                with simt_only() if variant == "simt" else nullcontext():
+                    grads = fa.flash_attention_bwd(
+                        q, k, v, out, lse, do, causal=causal, window=window)
+                    again = fa.flash_attention_bwd(
+                        q, k, v, out, lse, do, causal=causal, window=window)
+                torch.cuda.synchronize()
+                ran = ran_variant({
+                    v_: n - before[v_] for v_, n in
+                    read_variants()["flash_attention_bwd"].items()})
+                require(ran == variant, f"planned {variant}, ran {ran}")
+                rels, err = [], 0.0
+                for g, e in zip(grads, expect):
+                    require(g.dtype == dtype
+                            and bool(torch.isfinite(g).all()),
+                            f"finite flash gradients {case}")
+                    d_ = (g.float() - e.float()).abs().max().item()
+                    rels.append(d_ / e.float().abs().max().item())
+                    err = max(err, d_)
+                same = all(bool(torch.equal(a, b_))
+                           for a, b_ in zip(grads, again))
+                ok = (max(rels) <= FLASH_BWD_REL[dtype_name] and same
+                      and lse_err <= LSE_TOL and out_ok)
+                print(f"  {dtype_name} {case} fwd [{fwd_variant}] out "
+                      f"max_abs_err={out_err!r} (tol {TOL[dtype_name]}), lse "
+                      f"max|d|={lse_err!r} (tol {LSE_TOL}); bwd [{variant}] "
+                      f"max|d|/max|g| q,k,v = "
+                      f"{[float(f'{x:.3g}') for x in rels]} (limit "
+                      f"{FLASH_BWD_REL[dtype_name]}); second call same "
+                      f"bits: {same} {'ok' if ok else 'FAIL'}")
+                require(ok, f"flash backward kernel against plain: "
+                        f"{dtype_name} {case} {variant}")
+                if (case == FLASH_TRAIN and dtype_name == "bfloat16"
+                        and variant == "mma"):
+                    require(fwd_variant == "wgmma",
+                            "bf16 train forward on wgmma")
+                    train_err = {"fwd": out_err, "bwd": err}
+                del grads, again
+            del q, k, v, do, out, lse, expect, want_out
+    return train_err
+
+
 @contextmanager
 def plain_kernels(ops, ref):
     """Route the model's kernels to their plain versions, CUDA tensors
@@ -345,27 +509,33 @@ def plain_kernels(ops, ref):
 
 @contextmanager
 def simt_only():
-    """Plan every flash, grouped-GEMM and WKV call onto its CUDA-core
-    variant (the previous design), as for an unaligned input: the same
+    """Plan every flash (forward and backward), grouped-GEMM and WKV call
+    onto its CUDA-core variant (the previous design; the forwards as for an
+    unaligned input, the backward by its ``simt`` schedule): the same
     kernels' time before this design, on the same inputs and card."""
     from repro_torch.kernels import flash_attention as fa, moe_gemm as mg
     from repro_torch.kernels import rwkv6_chunk as wkv
-    mods = fa, mg, wkv
-    plans = [m.plan for m in mods]
-    for m, plan in zip(mods, plans):
-        m.plan = lambda *a, plan=plan, **k: plan(*a, **dict(k, aligned=False))
+    plans = [(m, m.plan) for m in (fa, mg, wkv)]
+    plan_backward = fa.plan_backward
+    for m, plan in plans:
+        m.plan = lambda *a, plan=plan, **k: plan(
+            *a, **dict(k, aligned=False))
+    fa.plan_backward = lambda *shape: fa.backward_schedule("simt", *shape[:6])
     try:
         yield
     finally:
-        for m, plan in zip(mods, plans):
+        for m, plan in plans:
             m.plan = plan
+        fa.plan_backward = plan_backward
 
 
 def _wrappers():
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.moe_gemm import moe_gemm
     from repro_torch.kernels.rwkv6_chunk import rwkv6_bwd, rwkv6_fwd
-    return {"flash_attention": flash_attention, "moe_gemm": moe_gemm,
+    return {"flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd, "moe_gemm": moe_gemm,
             "rwkv6_fwd": rwkv6_fwd, "rwkv6_bwd": rwkv6_bwd}
 
 
@@ -398,14 +568,16 @@ def require_wgmma(variants, what) -> None:
             f"{what}: bf16 launches on the CUDA-core variant {variants}")
 
 
-def time_row(torch, fns, iters, bound_ms_by, what, card):
+def time_row(torch, fns, iters, bound_ms_by, what, card, per_call=None):
     """Device and event time of each named call, beside the bound.  A name
     that starts with ``simt`` is timed with its wrappers planned onto the
-    CUDA-core variants."""
+    CUDA-core variants.  ``per_call`` maps a name to the kernels one call
+    launches (see ``device_ms``)."""
     row = {}
     for name, fn in fns:
         with simt_only() if name.startswith("simt") else nullcontext():
-            row[name] = device_ms(torch, fn, iters)
+            row[name] = device_ms(torch, fn, iters,
+                                  per_call=(per_call or {}).get(name))
             require(row[name] is not None, f"profiler device time, {name}")
             row[name.replace("ms", "wall_ms")] = event_ms(torch, fn, iters)
     row["bound_ms"], row["bound_by"] = bound_ms_by
@@ -695,6 +867,7 @@ def _leaf_rel(torch, a, b):
     from repro_torch.models.params import tree_items
     worst = (0.0, "")
     for (path, x), (_, y) in zip(tree_items(a), tree_items(b)):
+        y = y.to(x.device)
         ref_norm = torch.linalg.vector_norm(y.float()).item()
         err = torch.linalg.vector_norm(x.float() - y.float()).item()
         worst = max(worst, (err / ref_norm if ref_norm > 0 else err, path))
@@ -902,6 +1075,276 @@ def rwkv_train_phases(torch, card, gen) -> dict:
     return rows
 
 
+def _train_batch(torch, cfg, step=0):
+    from repro_torch.data.pipeline import SyntheticLM
+    return {"tokens": torch.from_numpy(SyntheticLM(
+        vocab=cfg.vocab, seq_len=QWEN_SEQ, batch=QWEN_BATCH,
+        seed=0).batch_at(step)["tokens"]).cuda()}
+
+
+def _step_kernels_ms(names, parts, calls):
+    """Device ms per call of a kernel inside a profiled step, from the
+    profiler's per-name sums; and each part's."""
+    found = {p: sum(ms for n, (ms, _) in names.items() if p in n)
+             for p in parts}
+    return sum(found.values()) / calls, {p: ms / calls
+                                         for p, ms in found.items()}
+
+
+def flash_train_times(torch, card, gen) -> dict:
+    """Phase 5 for the flash kernels at qwen2's train shape, before any
+    large profile: the forward that saves the LSE and the backward, beside
+    their bounds, their plain versions and SDPA's forward and backward
+    (timed apart)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    b, hq, hkv, sq, skv, d, _, _ = FLASH_TRAIN
+    shape = dict(b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, d=d, kv_len=None)
+    q, k, v, _ = inputs(torch, shape, torch.bfloat16, gen)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    out, lse = fa._forward(q, k, v, True, 0, None, save_lse=True)
+    xs = [t.detach().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*xs, is_causal=True,
+                                             enable_gqa=True)
+    rows = {"fwd": time_row(torch, (
+        ("ms", lambda: fa._forward(q, k, v, True, 0, None, save_lse=True)),
+        ("plain_ms", lambda: ref.flash_reference_lse(q, k, v, causal=True)),
+        ("library_ms", lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))), 10,
+        attention_bound_ms(shape, True, 2, "bfloat16"),
+        f"flash_attention train forward {list(FLASH_TRAIN[:6])} bf16, "
+        f"saving the LSE (library: SDPA forward)", card, {"ms": 1})}
+    bwd = (lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                          causal=True))
+    rows["bwd"] = time_row(torch, (
+        ("ms", bwd), ("simt_ms", bwd),
+        ("plain_ms", lambda: ref.flash_backward_reference(
+            q, k, v, out, lse, do, causal=True)),
+        ("library_ms", lambda: torch.autograd.grad(
+            lib_out, xs, do, retain_graph=True))), 5,
+        flash_bwd_bound_ms(FLASH_TRAIN, 2),
+        f"flash_attention_bwd {list(FLASH_TRAIN[:6])} bf16 (library: "
+        f"SDPA's backward alone)", card, {"ms": 3, "simt_ms": 3})
+    del q, k, v, do, out, lse, xs, lib_out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def qwen_train_phases(torch, card) -> dict:
+    """Phases 5 and 6 for qwen2-0.5b training at full width: 2 layers
+    kernel vs plain; 24 layers under every remat policy; the main path (the
+    train loop, AdamW, remat none); Adafactor and SGDM steps; the train
+    CLI; one step's breakdown.  Returns the main path's flash launches,
+    the flash kernels' device ms per call inside the step and each remat
+    policy's ``max_memory_allocated``."""
+    from repro_torch import configs, optim
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_items, tree_map
+
+    # -- 6.1 full width, 2 layers: kernel path against plain path ----------
+    cut = configs.get(ARCH).replace(n_layers=QWEN_PARITY_LAYERS)
+    params = M.init_params(cut, torch.Generator("cuda").manual_seed(0))
+    batch = _train_batch(torch, cut)
+    got = {}
+    for dtype in ("float32", "bfloat16"):
+        for plain in (False, True):
+            reset_launches()
+            with plain_kernels(ops, ref) if plain else nullcontext():
+                loss, grads = loss_and_grads(cut.replace(dtype=dtype),
+                                             params, batch)
+            torch.cuda.synchronize()
+            require(math.isfinite(float(loss)), f"finite {dtype} loss")
+            if not plain:
+                n = read_launches()
+                require(n["flash_attention"] == n["flash_attention_bwd"]
+                        == cut.n_layers, f"2-layer launches {n}")
+            got[dtype, plain] = (float(loss), grads)
+    l32, g32 = got["float32", False]
+    p32, gp32 = got["float32", True]
+    l16, g16 = got["bfloat16", False]
+    p16, gp16 = got["bfloat16", True]
+    (d32, at32), (d16, at16), (noise, at_noise) = (
+        _leaf_rel(torch, g32, gp32), _leaf_rel(torch, g16, gp16),
+        _leaf_rel(torch, gp16, gp32))
+    print(f"phase 6: {ARCH} full width, {QWEN_PARITY_LAYERS} layers, batch "
+          f"{QWEN_BATCH}x{QWEN_SEQ}, kernel vs plain: f32 loss {l32!r} vs "
+          f"{p32!r}, worst leaf ||d||/||g|| {d32!r} ({at32}; limit "
+          f"{TRAIN_PARITY_F32}); bf16 loss |d|={abs(l16 - p16)!r} (limit: "
+          f"plain bf16-vs-f32 {abs(p16 - p32)!r}), worst leaf {d16!r} "
+          f"({at16}; limit: plain bf16-vs-f32 {noise!r}, {at_noise})")
+    require(abs(l32 - p32) <= TRAIN_PARITY_F32 * abs(p32), "f32 loss parity")
+    require(d32 <= TRAIN_PARITY_F32, "f32 gradient parity")
+    require(abs(l16 - p16) <= abs(p16 - p32), "bf16 loss parity")
+    require(d16 <= noise, "bf16 gradient parity")
+    del params, batch, got, g32, gp32, g16, gp16, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 6.2 all 24 layers under every remat policy ------------------------
+    cfg = configs.get(ARCH)
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    batch = _train_batch(torch, cfg)
+    base, peaks = None, {}
+    for remat in QWEN_REMATS:
+        c = cfg.replace(remat=remat)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(c, params, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n, var = read_launches(), read_variants()
+        peak = peaks[remat] = torch.cuda.max_memory_allocated()
+        fwd_per = (1 if remat == "none" else 2) * cfg.n_layers
+        if base is None:
+            # On the host, so that every policy's peak holds the same
+            # parameters and batch and nothing else.
+            base = (float(loss), tree_map(lambda t: t.cpu(), grads))
+            same, (rel, at) = True, (0.0, "")
+        else:
+            same = float(loss) == base[0] and all(
+                bool(torch.equal(a, b_.to(a.device))) for (_, a), (_, b_) in
+                zip(tree_items(grads), tree_items(base[1])))
+            rel, at = _leaf_rel(torch, grads, base[1])
+        print(f"phase 6: {ARCH} ({cfg.n_layers} layers) loss and grads, "
+              f"remat {remat}, batch {QWEN_BATCH}x{QWEN_SEQ}: loss "
+              f"{float(loss)!r}, flash launches fwd "
+              f"{n['flash_attention']} bwd {n['flash_attention_bwd']}, per "
+              f"variant {var['flash_attention']} "
+              f"{var['flash_attention_bwd']}, max_memory_allocated "
+              f"{peak / 2**30:.3f} GiB, {ms:.0f} ms (first call of the "
+              f"policy); against remat none: bit-identical {same}, worst "
+              f"leaf ||d||/||g|| {rel!r} {at} [{card}]")
+        require(n["flash_attention"] == fwd_per and
+                n["flash_attention_bwd"] == cfg.n_layers,
+                f"launches with remat {remat}: {n}")
+        require_wgmma({k_: var[k_] for k_ in FLASH_STEP_KERNELS},
+                      f"phase 6, {ARCH} with remat {remat}")
+        require(float(loss) == base[0], f"loss with remat {remat}")
+        require(rel <= TRAIN_PARITY_F32, f"gradients with remat {remat}")
+        del loss, grads
+    # The step-0 loss: qwen2 ties its unembedding to the N(0, 1) token
+    # table (the reference's init_scale 1.0), so a random init's logits have
+    # a spread of ~sqrt(d_model) and its loss lies far above ln V.  It is
+    # held instead, in the forward alone, to the plain path at all 24
+    # layers, by the bf16 rule.
+    plain = {}
+    for dtype in ("bfloat16", "float32"):
+        with torch.no_grad(), plain_kernels(ops, ref):
+            plain[dtype] = float(M.loss_fn(cfg.replace(dtype=dtype), params,
+                                           batch))
+    first = base[0]
+    print(f"  step-0 loss {first!r} (ln V {math.log(cfg.vocab)!r}); plain "
+          f"path bf16 {plain['bfloat16']!r}, f32 {plain['float32']!r}: "
+          f"|kernel - plain| {abs(first - plain['bfloat16'])!r} (limit: "
+          f"plain bf16-vs-f32 "
+          f"{abs(plain['bfloat16'] - plain['float32'])!r})")
+    require(abs(first - plain["bfloat16"])
+            <= abs(plain["bfloat16"] - plain["float32"]),
+            "24-layer step-0 loss, kernel vs plain")
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 6.3 the main path: the train loop, AdamW, remat none --------------
+    args = train.parse_args([
+        "--arch", ARCH, "--steps", "3", "--batch", str(QWEN_BATCH),
+        "--seq", str(QWEN_SEQ), "--remat", "none"])
+    per_step = []
+
+    def on_step(i):
+        if i:
+            per_step.append((read_launches(), read_variants()))
+        reset_launches()
+
+    torch.cuda.reset_peak_memory_stats()
+    res = train.train_loop(train.config_from_args(args), params, args,
+                           verbose=False, on_step=on_step)
+    per_step.append((read_launches(), read_variants()))
+    print(f"phase 6: {ARCH} ({cfg.n_layers} layers) train loop, AdamW, "
+          f"remat none, batch {QWEN_BATCH}x{QWEN_SEQ}: losses {res.losses}, "
+          f"grad norms {res.grad_norms}, step ms "
+          f"{[round(t * 1e3, 1) for t in res.step_seconds]}, flash launches "
+          f"per step "
+          f"{[(c['flash_attention'], c['flash_attention_bwd']) for c, _ in per_step]}"
+          f", peak {res.peak_bytes / 2**30:.2f} GiB [{card}]")
+    require(all(math.isfinite(x) for x in res.losses), "finite losses")
+    require(all(c["flash_attention"] == c["flash_attention_bwd"]
+                == cfg.n_layers for c, _ in per_step),
+            "flash launches per step in the train loop")
+    for _, v in per_step:
+        require_wgmma({k_: v[k_] for k_ in FLASH_STEP_KERNELS},
+                      f"phase 6, {ARCH} train loop")
+    main_launches = {k: sum(c[k] for c, _ in per_step)
+                     for k in FLASH_STEP_KERNELS}
+    bwd_variants = {var: sum(v["flash_attention_bwd"][var]
+                             for _, v in per_step)
+                    for var in per_step[0][1]["flash_attention_bwd"]}
+
+    # -- 6.4 Adafactor and SGD with momentum, one step each ------------------
+    for name in ("adafactor", "sgdm"):
+        opt = optim.make_optimizer(name, lr=1e-3)
+        state = opt.init(params)
+        before = params["embed"]["tokens"][:4].clone()
+        params, state, m = make_train_step(cfg, opt)(
+            params, state, _train_batch(torch, cfg, 5))
+        moved = not torch.equal(before, params["embed"]["tokens"][:4])
+        print(f"phase 6: {ARCH} one {name} step: loss {float(m['loss'])!r}, "
+              f"grad norm {float(m['grad_norm'])!r}, parameters moved "
+              f"{moved}")
+        require(math.isfinite(float(m["loss"])) and moved, f"{name} step")
+        del opt, state, m
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- 5. one full-width train step: wall, device busy, top kernels -------
+    opt = optim.adamw(lr=optim.cosine_schedule(3e-4, warmup=20, total=100))
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt)
+    batch = _train_batch(torch, cfg, 9)
+
+    def one_step():
+        nonlocal params, state
+        params, state, m = step_fn(params, state, batch)
+        return m
+
+    print(f"phase 5: {ARCH} full-width train step, kernels by device time:")
+    names = {}
+    busy_ms = device_ms(torch, one_step, 1, top=12, by_name=names)
+    require(busy_ms is not None, "profiler device time, qwen2 train step")
+    inside = {}
+    for name, parts in FLASH_STEP_KERNELS.items():
+        inside[name], each = _step_kernels_ms(names, parts, cfg.n_layers)
+        print(f"  {name} inside the step: {inside[name]!r} ms per call "
+              f"({cfg.n_layers} calls; {each}) [{card}]")
+    wall_ms = event_ms(torch, one_step, 2)
+    print(f"  SM clock, power after it: {card_line('clocks.sm,power.draw')}")
+    tokens_per_s = QWEN_BATCH * QWEN_SEQ / (wall_ms / 1e3)
+    print(f"phase 5: {ARCH} full-width train step, batch "
+          f"{QWEN_BATCH}x{QWEN_SEQ}, bf16, AdamW, remat none: wall "
+          f"{wall_ms!r} ms, device busy {busy_ms!r} ms, idle share "
+          f"{1 - busy_ms / wall_ms!r}, {tokens_per_s!r} tokens/s [{card}]")
+    del params, state, step_fn, batch, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 6.5 the train CLI, a policy by name and Adafactor -------------------
+    train.main(["--arch", ARCH, "--steps", "1", "--batch", "1", "--seq",
+                str(QWEN_SEQ), "--remat", "names:attn_out,ffn_out",
+                "--optimizer", "adafactor"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": main_launches, "variants": bwd_variants,
+            "inside": inside, "peaks": peaks}
+
+
 def eager_chain(torch, card) -> None:
     """Phase 7a: the chain under a budget of real bytes on the card."""
     from repro_torch.eager import DTRContext
@@ -1105,6 +1548,132 @@ def serve_log_replay(log) -> None:
     require(rep["ok"], "7d: scan and index replays differ")
 
 
+def planner_phase(torch, card, train_peak) -> None:
+    """Phase 8: the DTR planner on real bytes.  fig4's tagged MLP stack at
+    card width, a checkpoint region a layer, traced on fake tensors,
+    planned at fractions of its traced peak and run as ``dtr_checkpoint``
+    applies each plan (gradients against the unplanned run,
+    ``max_memory_allocated`` beside the budget and the plan's estimate,
+    planning wall), then as one region for contrast; then the full-width
+    qwen2-0.5b train-step capture through the checker and both replay
+    engines, its peak beside ``train_peak`` (the card's, remat none)."""
+    from repro_torch.check import check_log
+    from repro_torch.core import planner, remat, simulator
+    from repro_torch.kernels.ref import Q_BLOCK
+    from repro_torch.trace.capture import capture_train_step
+    from repro_torch.trace.replay import verify_oracle_equivalence
+    d, layers, batch = PLAN_MLP["d"], PLAN_MLP["layers"], PLAN_MLP["batch"]
+    g = torch.Generator("cuda").manual_seed(0)
+    params = [{"w1": torch.randn(d, 4 * d, generator=g, device="cuda") * 0.02,
+               "w2": torch.randn(4 * d, d, generator=g, device="cuda") * 0.02}
+              for _ in range(layers)]
+    x = torch.randn(batch, d, generator=g, device="cuda")
+
+    def layer(i, p, h):
+        a = remat.tag(torch.nn.functional.gelu(h @ p["w1"],
+                                               approximate="tanh"), f"act{i}")
+        return h + remat.tag(a @ p["w2"], f"proj{i}")
+
+    def fwd(params, x):
+        for i, p in enumerate(params):
+            x = remat.region(partial(layer, i))(p, x)
+        return x
+
+    def grads_of(f):
+        return planner.grad_of_sum(lambda pp, xx: torch.mean(f(pp, xx) ** 2))
+
+    t0 = time.perf_counter()
+    traced = planner.trace_to_log(grads_of(fwd), params, x)
+    trace_ms = (time.perf_counter() - t0) * 1e3
+    peak, _ = simulator.measure_baseline(traced.log)
+
+    def run(f):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = grads_of(f)(params, x)
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated(), \
+            (time.perf_counter() - t0) * 1e3
+
+    ref_grads, ref_peak, ref_ms = run(fwd)
+    # On the host, so that every run's peak holds the same parameters and
+    # input and nothing else.
+    ref_grads = [t.cpu() for t in ref_grads]
+    print(f"phase 8: fig4 MLP stack {PLAN_MLP}, f32, a region a layer: "
+          f"traced on fake tensors in {trace_ms:.0f} ms "
+          f"({traced.log.op_count()} ops), traced peak "
+          f"{peak / 2**30:.3f} GiB; unplanned step: max_memory_allocated "
+          f"{ref_peak / 2**30:.3f} GiB, {ref_ms:.0f} ms [{card}]")
+    for frac in PLAN_FRACTIONS:
+        t0 = time.perf_counter()
+        ck, plan = planner.dtr_checkpoint(fwd, params, x,
+                                          budget_bytes=frac * peak,
+                                          grad_fn=grads_of(fwd))
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        require(plan.feasible and plan.remat_names,
+                f"8: a feasible plan that rematerializes at {frac}")
+        print(f"phase 8: planned at {frac} of the traced peak "
+              f"({frac * peak / 2**30:.3f} GiB): planning wall {plan_ms:.0f} "
+              f"ms (the trace included), remat {plan.remat_names}, est "
+              f"slowdown {plan.est_slowdown!r}, est_peak_bytes "
+              f"{plan.est_peak_bytes / 2**30:.3f} GiB")
+        for how, f in (("a region per layer, as dtr_checkpoint applies it",
+                        ck),
+                       ("one region over the stack",
+                        remat.checkpointed(fwd, plan.policy()))):
+            grads, real_peak, ms = run(f)
+            same = all(bool(torch.equal(a.cpu(), b))
+                       for a, b in zip(grads, ref_grads))
+            print(f"  planned step, {how}: max_memory_allocated "
+                  f"{real_peak / 2**30:.3f} GiB = "
+                  f"{real_peak / (frac * peak)!r} of the budget, "
+                  f"{real_peak / plan.est_peak_bytes!r} of est_peak_bytes, "
+                  f"{real_peak / ref_peak!r} of the unplanned step; step "
+                  f"{ms:.0f} ms; gradients bit-identical to the unplanned "
+                  f"run: {same} [{card}]")
+            require(same, f"8: planned gradients at {frac}, {how}")
+            del grads
+    for frac in PLAN_INFEASIBLE:
+        t0 = time.perf_counter()
+        plan = planner.plan(grads_of(fwd), params, x,
+                            budget_bytes=frac * peak)
+        print(f"phase 8: planned at {frac} of the traced peak, below the "
+              f"floor of the parameters and their gradients "
+              f"({traced.log.pinned_bytes() / 2**30:.3f} GiB pinned): "
+              f"feasible {plan.feasible} "
+              f"({(time.perf_counter() - t0) * 1e3:.0f} ms)")
+        require(not plan.feasible, f"8: a plan below the floor at {frac}")
+    del params, x, ref_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    log = capture_train_step(ARCH, smoke=False, batch=QWEN_BATCH,
+                             seq=QWEN_SEQ)
+    cap_s = time.perf_counter() - t0
+    check_log(log)
+    cap_peak, _ = simulator.measure_baseline(log)
+    print(f"phase 8: {log.name}: baseline peak {cap_peak / 2**30:.3f} GiB "
+          f"(the plain path, attention blocked by {Q_BLOCK} query "
+          f"rows) against the card's step under remat none "
+          f"{train_peak / 2**30:.3f} GiB (phase 6) [{card}]")
+    rep = verify_oracle_equivalence(
+        log, fractions=(CAPTURE_FRACTION,), thrash_factor=3.0,
+        heuristics=("h_dtr", "h_dtr_eq", "h_lru"))
+    runs = rep["index_results"].values()
+    print(f"phase 8: {log.name}: captured in {cap_s:.1f} s on fake CPU "
+          f"tensors, {log.op_count()} ops, baseline peak "
+          f"{rep['baseline_peak']!r} B; check_log ok; scan == index over "
+          f"{rep['cells']} cells at {CAPTURE_FRACTION}: {rep['ok']} "
+          f"(mismatches {rep['mismatches']}); feasible "
+          f"{[r.ok for r in runs]}, evictions "
+          f"{[r.evictions for r in runs]}, remats "
+          f"{[r.remat_ops for r in runs]}")
+    require(rep["ok"], "8: scan and index replays of the train capture")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1163,6 +1732,8 @@ def main() -> int:
     compare(torch, flash_attention, ref.flash_reference, moe_attn_args,
             moe_attn_kw, TOL["bfloat16"],
             f"bfloat16 mixtral decode {MOE_ATTN_DECODE}")
+    flash_train_err = flash_bwd_checks(torch, gen)
+    flash_train = flash_train_times(torch, card, gen)
 
     print("phase 2: moe_gemm against moe_gemm_reference")
     gemm_errs = {}
@@ -1251,15 +1822,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 6 and 5 for rwkv6 -------------------------------------------------
+    # -- 6 and 5 for rwkv6, then for qwen2 training ------------------------
     wkv = rwkv_train_phases(torch, card, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    qwen_train = qwen_train_phases(torch, card)
 
     # -- 7. the eager DTR executor, f32 (TF32 off since phase 1) -------------
     eager_chain(torch, card)
     eager_mlp_phases(torch, card)
     serve_log_replay(qwen_log)
 
+    # -- 8. the planner on real bytes -----------------------------------------
+    planner_phase(torch, card, qwen_train["peaks"]["none"])
+
     d = times["decode"]
+    tf, tb = flash_train["fwd"], flash_train["bwd"]
     g = gemm_times["decode wi"]
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
@@ -1270,7 +1848,27 @@ def main() -> int:
         "max_abs_err": decode_err,
         "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
         "bound_by": d["bound_by"], "library_ms": d["library_ms"],
-        "previous_ms": d["simt_ms"]}, {
+        "previous_ms": d["simt_ms"],
+        "train_launches": qwen_train["launches"]["flash_attention"],
+        "train_max_abs_err": flash_train_err["fwd"],
+        "train_ms": tf["ms"], "train_in_step_ms":
+            qwen_train["inside"]["flash_attention"],
+        "train_plain_ms": tf["plain_ms"], "train_bound_ms": tf["bound_ms"],
+        "train_bound_by": tf["bound_by"],
+        "train_library_ms": tf["library_ms"]}, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "variant": ran_variant(qwen_train["variants"]),
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:97",
+        "note": ("no TPU counterpart: the JAX package differentiates "
+                 "_sdpa / _sdpa_blocked (src/repro/models/layers.py:96-172) "
+                 "through XLA"),
+        "launches": qwen_train["launches"]["flash_attention_bwd"],
+        "max_abs_err": flash_train_err["bwd"], "ms": tb["ms"],
+        "in_step_ms": qwen_train["inside"]["flash_attention_bwd"],
+        "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
+        "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
+        "previous_ms": tb["simt_ms"]}, {
         "name": "moe_gemm", "route": "cuda",
         "variant": ran_variant(moe_variants["moe_gemm"]),
         "source": "src/repro_torch/kernels/csrc/moe_gemm.cu",

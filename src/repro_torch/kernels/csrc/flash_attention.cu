@@ -17,6 +17,10 @@
 // causal offset kv_len[b] - Sq, exactly as if k and v were cut to that
 // length; this is the TPU kernel's padding mask made per row, which
 // per-slot decode needs.  A query row with no visible key writes zeros.
+// When the caller passes `lse` (f32 [B, Hq, Sq]), each row also writes the
+// natural log-sum-exp of its scaled logits, m + log(l), which the backward
+// kernels (flash_attention_bwd.cu) recompute the probabilities from; such a
+// call never splits the key range.
 // The rows that share one (batch, kv head) are ordered (query position,
 // head within the group), so a decode step (Sq = 1) puts a whole GQA group
 // in one block and reads its K/V once, not once per query head.  Tiles that
@@ -113,8 +117,9 @@ template <typename T>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ kv_len,
-                 T* __restrict__ out, int Hq, int Hkv, int Sq, int Skv, int D,
-                 int causal, int window, float scale) {
+                 T* __restrict__ out, float* __restrict__ lse, int Hq,
+                 int Hkv, int Sq, int Skv, int D, int causal, int window,
+                 float scale) {
   constexpr int VEC = 16 / sizeof(T);
   extern __shared__ float smem[];
   const int kstride = D + 1;            // odd word stride: conflict-free q.k
@@ -226,12 +231,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = lane + 32 * c;
       if (d < D) from_f32(acc[c] / denom, o_row + d);
     }
+    if (lse && lane == 0)
+      lse[(static_cast<size_t>(b) * Hq + h) * Sq + i] = m + logf(denom);
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* kv_len, void* out, int B, int Hq, int Hkv,
+                   const int* kv_len, void* out, float* lse, int B, int Hq,
+                   int Hkv,
                    int Sq, int Skv, int D, int causal, int window,
                    cudaStream_t stream) {
   const int rows = (Hq / Hkv) * Sq;
@@ -248,8 +256,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
   flash_fwd_kernel<T><<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_len, static_cast<T*>(out), Hq, Hkv, Sq,
-      Skv, D, causal, window, scale);
+      static_cast<const T*>(v), kv_len, static_cast<T*>(out), lse, Hq, Hkv,
+      Sq, Skv, D, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -261,6 +269,7 @@ constexpr int FW_BKV = 64;     // keys per tile
 constexpr int FW_STAGES = 2;
 constexpr int FW_CHUNK = FW_BKV * hopper::ROW_BYTES;  // 64 rows x 64 columns
 constexpr double LOG2E = 1.4426950408889634;
+constexpr double LN2 = 0.6931471805599453;
 
 constexpr int FW_THREADS = 128 + 32;  // one consumer warpgroup, a producer
 
@@ -278,6 +287,7 @@ struct FlashArgs {
   const __nv_bfloat16* q;
   const int* kv_len;          // may be null
   __nv_bfloat16* out;
+  float* lse;                 // [B, Hq, Sq] (splits == 1), may be null
   float* part_o;              // split partials (splits > 1), else null
   float* part_ml;
   int* tickets;
@@ -521,6 +531,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
           a.out + ((static_cast<size_t>(b) * a.Hq + kvh * group +
                     row % group) * a.Sq + row / group) * a.D;
       const float inv = 1.f / fmaxf(l[h], 1e-20f);
+      if (a.lse && quad == 0)
+        a.lse[(static_cast<size_t>(b) * a.Hq + kvh * group + row % group) *
+                  a.Sq + row / group] =
+            m[h] * static_cast<float>(LN2) + logf(fmaxf(l[h], 1e-20f));
 #pragma unroll
       for (int j = 0; j < DP / 8; ++j) {
         const int col = 8 * j + 2 * quad;
@@ -618,7 +632,8 @@ cudaError_t launch_wgmma(const FlashArgs& args, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  kv_len may be NULL.  variant: 0 =
+// dtype: 0 = float32, 1 = bfloat16.  kv_len and lse (f32 [B*Hq*Sq], the
+// rows' log-sum-exp, only with splits = 1) may be NULL.  variant: 0 =
 // simt; 1 = wgmma (bf16, D in {32, 64, 128}, 16-byte-aligned q/k/v/out)
 // with 64 query rows a block (row_tiles = ceil(Hq / Hkv * Sq / 64)) and
 // the key range split over `splits` blocks; splits > 1 needs f32 scratch
@@ -628,13 +643,15 @@ extern "C" {
 // Returns a cudaError_t: 0 on a successful launch (the kernel itself runs
 // async), cudaErrorInvalidValue for a variant the shape does not allow.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
-                        const int* kv_len, void* out, int B, int Hq, int Hkv,
+                        const int* kv_len, void* out, float* lse, int B,
+                        int Hq, int Hkv,
                         int Sq, int Skv, int D, int dtype, int causal,
                         int window, int variant, int splits,
                         float* part_o, float* part_ml, int* tickets,
                         void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0 || Hq % Hkv ||
-      D <= 0 || D % 8 || D > MAX_D || window < 0 || B * Hkv > 65535)
+      D <= 0 || D % 8 || D > MAX_D || window < 0 || B * Hkv > 65535 ||
+      (lse && splits != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == 1) {
@@ -650,7 +667,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
     const long long row_tiles = (rows + FW_BQ - 1) / FW_BQ;
     if (row_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
     FlashArgs args{static_cast<const __nv_bfloat16*>(q), kv_len,
-                   static_cast<__nv_bfloat16*>(out), part_o, part_ml,
+                   static_cast<__nv_bfloat16*>(out), lse, part_o, part_ml,
                    tickets, Hq, Hkv, Sq, Skv, D, causal, window, splits,
                    static_cast<int>(row_tiles),
                    static_cast<float>(LOG2E / sqrt(static_cast<double>(D)))};
@@ -659,11 +676,13 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   }
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return static_cast<int>(launch<float>(q, k, v, kv_len, out, B, Hq, Hkv,
-                                          Sq, Skv, D, causal, window, s));
+    return static_cast<int>(launch<float>(q, k, v, kv_len, out, lse, B, Hq,
+                                          Hkv, Sq, Skv, D, causal, window,
+                                          s));
   if (dtype == 1)
     return static_cast<int>(launch<__nv_bfloat16>(
-        q, k, v, kv_len, out, B, Hq, Hkv, Sq, Skv, D, causal, window, s));
+        q, k, v, kv_len, out, lse, B, Hq, Hkv, Sq, Skv, D, causal, window,
+        s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

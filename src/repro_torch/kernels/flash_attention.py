@@ -4,10 +4,17 @@ The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
 ``repro.kernels.flash_attention.flash_attention``: online-softmax attention
 with GQA, bottom-right causal masking and an optional sliding window, plus a
 per-row ``kv_len`` for per-slot decode.  A tensor on the CPU goes to the
-plain version (``ref.flash_reference``); a CUDA tensor launches the kernel
-variant that :func:`plan` names, or raises.  ``flash_attention.launches``
-counts kernel launches, ``flash_attention.variant_launches`` the launches of
-each variant.
+plain version (``ref.flash_reference``, blocked over queries from
+``ref.BLOCKED_ATTN_THRESHOLD`` rows on as the JAX model's attention is,
+differentiated by autograd); a CUDA tensor launches the kernel variant that
+:func:`plan` names, or raises.
+Where q, k or v requires grad, the call on the card is a
+``torch.autograd.Function``: its forward also writes each row's log-sum-exp
+and saves q, k, v, the output and the LSE; its backward launches
+:func:`flash_attention_bwd` (``csrc/flash_attention_bwd.cu``; the JAX package
+has no backward kernel, it differentiates its attention through XLA), whose
+variant and tiles :func:`plan_backward` chooses.  ``.launches`` counts each
+wrapper's kernel launches, ``.variant_launches`` those of each variant.
 """
 from __future__ import annotations
 
@@ -18,7 +25,8 @@ from typing import Optional
 import torch
 
 from . import _build
-from .ref import flash_reference
+from .ref import (BLOCKED_ATTN_THRESHOLD, flash_backward_reference,
+                  flash_reference, flash_reference_blocked)
 
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -27,10 +35,20 @@ WGMMA_HEAD_DIMS = (32, 64, 128)
 SMS = 132              # H100 SXM
 MAX_SPLITS = 8
 MAX_GRID_Y = 65535
-# q, k, v, kv_len, out; B, Hq, Hkv, Sq, Skv, D, dtype, causal, window,
+BWD_MAX_HEAD_DIM = 128
+BWD_VARIANTS = {"simt": 0, "mma": 1}
+# (block, step) of each backward variant: keys of a dK/dV block and rows of
+# a dQ block; queries of a dK/dV step and keys of a dQ step.
+BWD_TILES = {"simt": (32, 32), "mma": (64, 32)}
+# q, k, v, kv_len, out, lse; B, Hq, Hkv, Sq, Skv, D, dtype, causal, window,
 # variant, splits; part_o, part_ml, tickets, stream
 _SIGNATURES = {"flash_attention_fwd": (
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 4,
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 4,
+    ctypes.c_int)}
+# q, k, v, o, lse, dout, dq, dk, dv, delta; B, Hq, Hkv, Sq, Skv, D, dtype,
+# causal, window, variant, block, step, dp; stream
+_BWD_SIGNATURES = {"flash_attention_bwd": (
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13 + [ctypes.c_void_p],
     ctypes.c_int)}
 # Per (device, stream): int32 tickets of the split-kv combine, zero between
 # launches (the combining block resets its own).  Launches on one stream run
@@ -39,7 +57,8 @@ _TICKETS: dict = {}
 
 
 def plan(b: int, hq: int, hkv: int, sq: int, skv: int, d: int,
-         dtype: torch.dtype, aligned: bool = True) -> dict:
+         dtype: torch.dtype, aligned: bool = True,
+         save_lse: bool = False) -> dict:
     """The kernel variant, tiles and kv splits for one call, from its shape.
 
     bf16 with D in (32, 64, 128) and 16-byte-aligned bases goes to
@@ -50,6 +69,7 @@ def plan(b: int, hq: int, hkv: int, sq: int, skv: int, d: int,
     key range is split over up to ``MAX_SPLITS`` blocks.  The rest (f32,
     whose products the tensor cores would round to TF32, other head dims,
     longer query ranges) goes to ``simt``: 8 rows a block, 32-key tiles.
+    A call that saves the LSE for the backward (``save_lse``) never splits.
     """
     rows = (hq // hkv) * sq
     row_tiles = -(-rows // 64)
@@ -58,12 +78,73 @@ def plan(b: int, hq: int, hkv: int, sq: int, skv: int, d: int,
         blocks = b * hkv * row_tiles
         kv_tiles = -(-skv // 64)
         splits = 1
-        if 4 * blocks <= SMS and kv_tiles > 1:
+        if 4 * blocks <= SMS and kv_tiles > 1 and not save_lse:
             splits = min(kv_tiles, SMS // blocks, MAX_SPLITS)
         return {"variant": "wgmma", "block_q": 64, "block_kv": 64,
                 "row_tiles": row_tiles, "kv_splits": splits}
     return {"variant": "simt", "block_q": 8, "block_kv": 32,
             "row_tiles": -(-rows // 8), "kv_splits": 1}
+
+
+def bwd_query_range(j0: int, n_keys: int, sq: int, skv: int, causal: bool,
+                    window: int) -> tuple[int, int]:
+    """Query rows ``[lo, hi)`` that see any of keys ``[j0, j0 + n_keys)``
+    (query i sits at key position ``i + skv - sq``); the dK/dV kernel walks
+    its query tiles from ``lo`` in steps of the plan's ``dkdv_step``."""
+    offs = skv - sq
+    lo, hi = 0, sq
+    if causal:
+        lo = max(0, j0 - offs)
+        if window > 0:
+            hi = min(sq, j0 + n_keys - 1 + window - offs)
+    return lo, hi
+
+
+def bwd_key_range(i0: int, n_rows: int, sq: int, skv: int, causal: bool,
+                  window: int) -> tuple[int, int]:
+    """Keys ``[lo, hi)`` that any of query rows ``[i0, i0 + n_rows)`` sees;
+    the dQ kernel walks its key tiles from ``lo`` in steps of the plan's
+    ``dq_step``."""
+    offs = skv - sq
+    lo, hi = 0, skv
+    if causal:
+        hi = min(skv, i0 + n_rows + offs)
+        if window > 0:
+            lo = max(0, i0 + offs - window + 1)
+    return lo, hi
+
+
+def plan_backward(b: int, hq: int, hkv: int, sq: int, skv: int, d: int,
+                  dtype: torch.dtype) -> dict:
+    """The backward kernels' variant, tiles and grids for one call.
+
+    Three passes: one warp per query row for ``D = rowsum(dO * O)``; a dK/dV
+    pass of one block per (``block``-key tile, b, kv head), walking the G
+    query heads of its kv head and, per head, the query tiles of
+    :func:`bwd_query_range` in steps of ``step``; a dQ pass of one block per
+    (``block``-row query tile, b, q head), walking the key tiles of
+    :func:`bwd_key_range` in steps of ``step``.  bf16 with D 64 goes to
+    ``mma`` (tensor cores); the rest to ``simt`` (f32 FMAs on the CUDA
+    cores, head dims padded to ``dp``).  The tiles are each variant's
+    ``BWD_TILES``, compiled into the kernels, which refuse a launch whose
+    ``block``, ``step`` or ``dp`` differs.
+    """
+    if d % 8 or d > BWD_MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d}: the backward kernel takes multiples "
+                         f"of 8 up to {BWD_MAX_HEAD_DIM}")
+    variant = "mma" if dtype == torch.bfloat16 and d == 64 else "simt"
+    return backward_schedule(variant, b, hq, hkv, sq, skv, d)
+
+
+def backward_schedule(variant: str, b: int, hq: int, hkv: int, sq: int,
+                      skv: int, d: int) -> dict:
+    """``variant``'s tiles and grids for one backward call (see
+    :func:`plan_backward`)."""
+    block, step = BWD_TILES[variant]
+    return {"variant": variant, "block": block, "step": step,
+            "dp": 64 if d <= 64 else 128,
+            "grid_dkdv": (-(-skv // block), b * hkv),
+            "grid_dq": (-(-sq // block), b * hq)}
 
 
 def _tickets(device, stream, n):
@@ -101,20 +182,37 @@ def _check(q, k, v, kv_len, causal, window):
                                or kv_len.dtype != torch.int32):
         raise ValueError(f"kv_len must be int32 [{b}], got {kv_len.dtype} "
                          f"{tuple(kv_len.shape)}")
-    if any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_attention has no backward kernel yet; "
-                           "call it under torch.no_grad()")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q: [B, Hq, Sq, D]; k/v: [B, Hkv, Skv, D] -> [B, Hq, Sq, D]."""
+    """q: [B, Hq, Sq, D]; k/v: [B, Hkv, Skv, D] -> [B, Hq, Sq, D].
+
+    Differentiable in q, k and v (not with ``kv_len``, which only decode
+    passes)."""
     _check(q, k, v, kv_len, causal, window)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    if grad and kv_len is not None:
+        raise ValueError("flash_attention: no backward with kv_len (decode "
+                         "only); call it under torch.no_grad()")
     tensors = (q, k, v) if kv_len is None else (q, k, v, kv_len)
     if all(t.device.type == "cpu" for t in tensors):
+        if kv_len is None and q.shape[2] >= BLOCKED_ATTN_THRESHOLD:
+            return flash_reference_blocked(q, k, v, causal=causal,
+                                           window=window)
         return flash_reference(q, k, v, causal=causal, window=window,
                                kv_len=kv_len)
+    if grad:
+        return _Flash.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window, kv_len, save_lse=False)[0]
+
+
+def _forward(q, k, v, causal, window, kv_len, save_lse):
+    """Launch the forward kernel; returns ``(out, lse)`` (lse None unless
+    ``save_lse``)."""
+    tensors = (q, k, v) if kv_len is None else (q, k, v, kv_len)
     if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
         raise ValueError(f"q/k/v/kv_len must all lie on one CUDA device, got "
                          f"{[str(t.device) for t in tensors]}")
@@ -123,8 +221,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if save_lse else None)
     p = plan(b, hq, hkv, sq, skv, d, q.dtype, aligned=all(
-        t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
+        t.data_ptr() % 16 == 0 for t in (q, k, v, out)), save_lse=save_lse)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scratch = [None, None, None]
     if p["kv_splits"] > 1:
@@ -142,14 +242,83 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if kv_len is None else kv_len.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             b, hq, hkv, sq, skv, d, _DTYPES[q.dtype], int(causal),
             int(window), VARIANTS[p["variant"]], p["kv_splits"], *scratch,
             stream)
     _build.check(lib, err, f"flash_attention launch ({p['variant']})")
     flash_attention.launches += 1
     flash_attention.variant_launches[p["variant"]] += 1
-    return out
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0):
+    """The backward kernels: the forward's inputs, its output ``o`` and row
+    log-sum-exp ``lse`` (f32 [B,Hq,Sq]) and the output gradient ``do`` ->
+    ``(dq, dk, dv)`` in the inputs' dtype.  CPU tensors go to the plain
+    version (``ref.flash_backward_reference``)."""
+    _check(q, k, v, None, causal, window)
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype:
+        raise ValueError(f"want o and do {q.dtype} {tuple(q.shape)}, got "
+                         f"{o.dtype} {tuple(o.shape)}, {do.dtype} "
+                         f"{tuple(do.shape)}")
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"want lse f32 {(b, hq, sq)}, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    tensors = (q, k, v, o, lse, do)
+    if all(t.device.type == "cpu" for t in tensors):
+        return flash_backward_reference(q, k, v, o, lse, do, causal=causal,
+                                        window=window)
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError(f"flash_attention_bwd: all tensors must lie on one "
+                         f"CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ptrs = tensors + (dq, dk, dv)
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ptrs):
+        raise ValueError("flash_attention_bwd: the kernels take contiguous, "
+                         "16-byte-aligned tensors")
+    p = plan_backward(b, hq, hkv, sq, skv, d, q.dtype)
+    delta = torch.empty(b * hq * sq, dtype=torch.float32, device=q.device)
+    lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd(
+            *(t.data_ptr() for t in ptrs[:6]), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), b, hq, hkv, sq, skv, d,
+            _DTYPES[q.dtype], int(causal), int(window),
+            BWD_VARIANTS[p["variant"]], p["block"], p["step"], p["dp"],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, f"flash_attention_bwd launch ({p['variant']})")
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.variant_launches[p["variant"]] += 1
+    return dq, dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    """Attention on the card: the forward kernel (saving the LSE), and the
+    backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = _forward(q, k, v, causal, window, None, save_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 flash_attention.launches = 0
 flash_attention.variant_launches = dict.fromkeys(VARIANTS, 0)
+flash_attention_bwd.launches = 0
+flash_attention_bwd.variant_launches = dict.fromkeys(BWD_VARIANTS, 0)

@@ -2,23 +2,23 @@
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+# Query rows from which the plain attention runs blocked: the reference's
+# ``layers.BLOCKED_ATTN_THRESHOLD`` and ``_sdpa_blocked``'s block.
+BLOCKED_ATTN_THRESHOLD = 2048
+Q_BLOCK = 512
 
 
-def flash_reference(q, k, v, *, causal: bool = True, window: int = 0,
-                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q: [B,Hq,Sq,D]; k/v: [B,Hkv,Skv,D] — naive softmax attention.
-
-    ``kv_len`` (int [B], optional): row ``b`` attends over its first
-    ``kv_len[b]`` keys with causal offset ``kv_len[b] - Sq``, as if k and v
-    were cut to that length.
-    """
+def _flash_logits(q, k, causal, window, kv_len):
+    """Scaled f32 logits [B,Hkv,G,Sq,Skv] with hidden pairs at -1e30."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
-    g = hq // hkv
-    qg = q.reshape(b, hkv, g, sq, d)
+    qg = q.reshape(b, hkv, hq // hkv, sq, d)
     logits = torch.einsum("bkgqd,bksd->bkgqs", qg.float(),
                           k.float()) / math.sqrt(d)
     length = (torch.full((b,), skv, device=q.device) if kv_len is None
@@ -30,10 +30,90 @@ def flash_reference(q, k, v, *, causal: bool = True, window: int = 0,
         mask = mask & (kpos <= qpos)
         if window > 0:
             mask = mask & ((qpos - kpos) < window)
-    logits = torch.where(mask[:, None, None], logits, -1e30)
-    probs = torch.softmax(logits, dim=-1)
+    return torch.where(mask[:, None, None], logits, -1e30)
+
+
+def flash_reference(q, k, v, *, causal: bool = True, window: int = 0,
+                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: [B,Hq,Sq,D]; k/v: [B,Hkv,Skv,D] — naive softmax attention.
+
+    ``kv_len`` (int [B], optional): row ``b`` attends over its first
+    ``kv_len[b]`` keys with causal offset ``kv_len[b] - Sq``, as if k and v
+    were cut to that length.
+    """
+    b, hq, sq, d = q.shape
+    probs = torch.softmax(_flash_logits(q, k, causal, window, kv_len), -1)
     out = torch.einsum("bkgqs,bksd->bkgqd", probs, v.float())
     return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def flash_reference_blocked(q, k, v, *, causal: bool = True,
+                            window: int = 0,
+                            q_block: int = Q_BLOCK) -> torch.Tensor:
+    """``flash_reference`` over blocks of ``q_block`` query rows, each under
+    a non-reentrant ``torch.utils.checkpoint``, so the ``[Sq,Skv]`` logits
+    never exist at once and the backward recomputes each block from q, k and
+    v: the counterpart of the reference's ``_sdpa_blocked`` (its inner
+    ``jax.checkpoint``).  A causal block sees only the keys up to its last
+    row's position, so k and v are cut there."""
+    sq, skv = q.shape[2], k.shape[2]
+    block = partial(flash_reference, causal=causal, window=window)
+    outs = []
+    for i0 in range(0, sq, q_block):
+        i1 = min(sq, i0 + q_block)
+        n = skv - sq + i1 if causal else skv
+        outs.append(checkpoint(block, q[:, :, i0:i1], k[:, :, :n],
+                               v[:, :, :n], use_reentrant=False))
+    return torch.cat(outs, dim=2)
+
+
+def flash_reference_lse(q, k, v, *, causal: bool = True, window: int = 0,
+                        kv_len: Optional[torch.Tensor] = None):
+    """``flash_reference``'s output and the f32 log-sum-exp of each row's
+    scaled logits, ``[B,Hq,Sq]`` (what the forward kernel saves for its
+    backward)."""
+    b, hq, sq, d = q.shape
+    logits = _flash_logits(q, k, causal, window, kv_len)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bksd->bkgqd", probs, v.float())
+    lse = torch.logsumexp(logits, dim=-1)
+    return out.reshape(b, hq, sq, d).to(q.dtype), lse.reshape(b, hq, sq)
+
+
+def flash_backward_reference(q, k, v, o, lse, do, *, causal: bool = True,
+                             window: int = 0):
+    """Gradients of ``flash_reference`` against ``do`` from the forward's
+    output ``o`` and row log-sum-exp ``lse`` (f32 ``[B,Hq,Sq]``), step by
+    step as the backward kernel computes them, in f32:
+
+      D  = rowsum(dO * O)              per query row
+      P  = exp(S - lse)                S = Q K^T / sqrt(d), hidden pairs 0
+      dV = sum_g P^T dO                over the G query heads of a KV head
+      dS = P * (dO V^T - D)
+      dQ = dS K / sqrt(d)
+      dK = sum_g dS^T Q / sqrt(d)
+
+    Returns ``(dq, dk, dv)`` in the inputs' dtypes.
+    """
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+
+    def grouped(x):
+        return x.float().reshape(b, hkv, g, sq, -1)
+
+    qg, og, dog = grouped(q), grouped(o), grouped(do)
+    delta = (dog * og).sum(-1, keepdim=True)            # [B,Hkv,G,Sq,1]
+    s = _flash_logits(q, k, causal, window, None)
+    p = torch.exp(s - lse.reshape(b, hkv, g, sq, 1))     # hidden: exp(-1e30)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, dog)
+    dp = torch.einsum("bkgqd,bksd->bkgqs", dog, v.float())
+    ds = p * (dp - delta)
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, k.float()) * scale
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qg) * scale
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def moe_gemm_reference(x, w) -> torch.Tensor:

@@ -1,22 +1,27 @@
-"""Training launcher: one card, deterministic synthetic data, AdamW.
+"""Training launcher: one card, deterministic synthetic data, AdamW or
+Adafactor.
 
 The counterpart of ``repro.launch.train`` without its mesh, sharding,
 checkpoints, divergence guard and monitors (ROADMAP Queue 1 item 4): pick
-an arch, a batch and sequence length, gradient accumulation and a remat
-policy, and train from a random init drawn from ``--seed``.  Each step
-prints the JAX launcher's line; ``mem`` is ``torch.cuda.max_memory_allocated``
-on the card.
+an arch, a batch and sequence length, gradient accumulation, a remat policy
+(every one the reference takes: ``none``, ``full``, ``dots``, ``dtr``,
+``names:a,b``) and an optimizer, and train from a random init drawn from
+``--seed``.  Each step prints the JAX launcher's line; ``mem`` is
+``torch.cuda.max_memory_allocated`` on the card.
 
   # CPU smoke (plain versions of the kernels):
-  python -m repro_torch.launch.train --arch rwkv6-1.6b --smoke \\
-      --device cpu --steps 3 --batch 2 --seq 32
-  # full width on the card (WKV forward and backward kernels):
-  python -m repro_torch.launch.train --arch rwkv6-1.6b --steps 4 \\
-      --batch 4 --seq 1024
+  python -m repro_torch.launch.train --arch qwen2-0.5b --smoke \\
+      --device cpu --steps 3 --batch 2 --seq 32 --remat dtr \\
+      --optimizer adafactor
+  # full width on the card (flash attention forward and backward kernels;
+  # the WKV kernels for --arch rwkv6-1.6b):
+  python -m repro_torch.launch.train --arch qwen2-0.5b --steps 4 \\
+      --batch 4 --seq 2048
 
-On the card, every rwkv layer's recurrence launches the Hopper forward
-kernel once per step and the backward kernel once (the forward twice with
-``--remat full``).
+On the card, every attention (rwkv: recurrence) layer launches its forward
+kernel once per step and its backward kernel once; with any remat policy
+other than ``none`` the group's forward runs again in the backward, so the
+forward kernel launches twice.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ from ..data.pipeline import Prefetcher, SyntheticLM
 from ..models import model as M
 from ..models.config import ModelConfig
 from ..models.params import tree_items
-from ..optim import adamw, cosine_schedule
+from ..optim import adafactor, adamw, cosine_schedule
 from .serve import resolve_device
 from .steps import make_train_step
 
@@ -54,8 +59,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--grad-accum", type=int, default=1)
-    ap.add_argument("--remat", default="none", choices=["none", "full"])
-    ap.add_argument("--optimizer", default="adamw", choices=["adamw"])
+    ap.add_argument("--remat", default="none",
+                    help="none | full | dots | dtr | names:a,b")
+    ap.add_argument("--optimizer", default="adamw",
+                    choices=["adamw", "adafactor"])
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; the CPU runs only "
@@ -69,6 +76,7 @@ def config_from_args(args) -> ModelConfig:
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get(args.arch))
     cfg = cfg.replace(remat=args.remat)
+    M.remat_policy(cfg)        # raises on a policy the reference lacks
     if args.smoke:
         cfg = cfg.replace(dtype="float32")
     return cfg
@@ -80,7 +88,11 @@ def train_loop(cfg: ModelConfig, params, args, *, verbose: bool = True,
     on ``SyntheticLM`` batches.  ``on_step(step)``, if given, runs before
     each step (the caller resets kernel counters there)."""
     device = next(t for _, t in tree_items(params)).device
-    opt = adamw(lr=cosine_schedule(args.lr, warmup=20, total=args.steps))
+    # The reference's choices: Adafactor at a constant rate, AdamW on the
+    # cosine schedule.
+    opt = (adafactor(lr=args.lr) if args.optimizer == "adafactor"
+           else adamw(lr=cosine_schedule(args.lr, warmup=20,
+                                         total=args.steps)))
     opt_state = opt.init(params)
     step_fn = make_train_step(cfg, opt, grad_accum=args.grad_accum)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq, batch=args.batch,

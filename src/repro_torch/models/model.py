@@ -9,10 +9,15 @@ shared experts, mixed patterns, cross attention or codebooks.
 Parameters keep the JAX tree's layout and key paths (``embed.tokens``,
 ``groups.slot0.attn.wq``, ...): each leaf of ``groups`` is stacked
 ``[n_groups, ...]``, and the JAX package's ``lax.scan`` over groups becomes
-a Python loop over that leading axis.  ``remat="full"`` wraps each group in
-``torch.utils.checkpoint`` (the JAX ``nothing_saveable`` policy on the scan
-body).  Decode keeps per-slot position clocks; a windowed layer's KV cache
-is a ring buffer; rwkv has no decode yet.
+a Python loop over that leading axis.  Every remat policy of the reference
+(``none``, ``full``, ``dots``, ``dtr``, ``names:a,b``) wraps each group in
+``torch.utils.checkpoint`` with a selective-checkpoint policy
+(:func:`remat_policy`, the JAX ``checkpoint_policies`` on the scan body);
+``core.remat.tag``, the counterpart of ``checkpoint_name``, marks each
+block's ``attn_out`` and ``ffn_out`` (a copy only where a policy reads the
+names: ``dtr``, ``names:``, and the planner's trace).  Decode keeps per-slot
+position clocks; a windowed layer's KV cache is a ring buffer; rwkv has no
+decode yet.
 """
 from __future__ import annotations
 
@@ -21,8 +26,8 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
+from ..core import remat as R
 from . import layers as L
 from . import moe as MOE
 from . import rwkv as RW
@@ -55,8 +60,6 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 _NO_RWKV_DECODE = ("rwkv decode (the recurrent state cache) is not ported "
                    "yet: ROADMAP Queue 1 item 12")
-_REMAT_LATER = ("remat policies other than none and full (dtr, dots, "
-                "names:) are not ported yet: ROADMAP Queue 1 item 3")
 
 
 def _block_defs(cfg: ModelConfig, kind: str, moe_layer: bool) -> dict:
@@ -130,28 +133,55 @@ def prepare_params(cfg: ModelConfig, params) -> Any:
 
 
 # ---------------------------------------------------------------------------
+# Remat policy (the paper's technique, applied to each group)
+# ---------------------------------------------------------------------------
+
+def remat_policy(cfg: ModelConfig):
+    """The group body's selective-checkpoint policy, None for ``none``:
+    ``full`` saves nothing, ``dots`` the outputs of matrix products with no
+    batch dims (``mm``/``addmm``, not ``bmm``), ``dtr`` the ``attn_out`` and
+    ``ffn_out`` tags, ``names:a,b`` the tags named."""
+    if cfg.remat == "none":
+        return None
+    if cfg.remat == "full":
+        return R.nothing_saveable
+    if cfg.remat == "dots":
+        return R.dots_with_no_batch_dims_saveable
+    if cfg.remat == "dtr":
+        # The reference's default plan: save the block outputs only.
+        return R.save_only_these_names("attn_out", "ffn_out")
+    if cfg.remat.startswith("names:"):
+        return R.save_only_these_names(
+            *[n for n in cfg.remat[6:].split(",") if n])
+    raise ValueError(cfg.remat)
+
+
+# ---------------------------------------------------------------------------
 # Block application
 # ---------------------------------------------------------------------------
 
 def block_apply(cfg: ModelConfig, kind: str, p, x, *, positions,
                 moe_layer: bool, cache=None):
-    """Pre-norm residual block; returns (x, new_cache)."""
+    """Pre-norm residual block; returns (x, new_cache).  The attention
+    (time-mix) and FFN (channel-mix) outputs are tagged ``attn_out`` and
+    ``ffn_out``."""
     if kind == "rwkv":
         if cache is not None:
             raise NotImplementedError(_NO_RWKV_DECODE)
         h = L.rmsnorm_apply(cfg, p["norm1"], x)
-        x = x + RW.rwkv_time_mix(cfg, p["mix"], h)
+        x = x + R.tag(RW.rwkv_time_mix(cfg, p["mix"], h), "attn_out")
         h2 = L.rmsnorm_apply(cfg, p["norm2"], x)
-        return x + RW.rwkv_channel_mix(cfg, p["mix"], h2), None
+        return x + R.tag(RW.rwkv_channel_mix(cfg, p["mix"], h2),
+                         "ffn_out"), None
     h = L.rmsnorm_apply(cfg, p["norm1"], x)
     window = cfg.window if kind == "attn_local" else 0
     attn_cache = None if cache is None else cache.get("attn")
     a, c2 = L.attention_apply(cfg, p["attn"], h, positions=positions,
                               window=window, cache=attn_cache)
-    x = x + a
+    x = x + R.tag(a, "attn_out")
     h2 = L.rmsnorm_apply(cfg, p["norm2"], x)
     ffn = MOE.moe_apply if moe_layer else L.mlp_apply
-    x = x + ffn(cfg, p["ffn"], h2)
+    x = x + R.tag(ffn(cfg, p["ffn"], h2), "ffn_out")
     return x, (None if c2 is None else {"attn": c2})
 
 
@@ -162,8 +192,7 @@ def _group(tree, g: int):
 
 def forward(cfg: ModelConfig, params, tokens):
     """Full-sequence forward -> logits.  tokens: [B,S] int."""
-    if cfg.remat not in ("none", "full"):
-        raise NotImplementedError(_REMAT_LATER)
+    policy = remat_policy(cfg)
     x = L.embed_apply(cfg, params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     for g in range(cfg.n_groups):
@@ -175,10 +204,9 @@ def forward(cfg: ModelConfig, params, tokens):
                                    positions=positions, moe_layer=cfg.moe)
             return h
 
-        # remat "full": keep only each group's input; the backward runs the
-        # group's forward again.
-        x = (checkpoint(body, x, use_reentrant=False)
-             if cfg.remat == "full" else body(x))
+        # Any remat: keep each group's input and what the policy saves; the
+        # backward runs the group's forward again.
+        x = body(x) if policy is None else R.checkpointed(body, policy)(x)
     x = L.rmsnorm_apply(cfg, params["final_norm"], x)
     return L.unembed_apply(cfg, params["embed"], x)
 

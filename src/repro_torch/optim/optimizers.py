@@ -1,4 +1,5 @@
-"""AdamW, its schedule and gradient clipping over dict trees of tensors.
+"""AdamW, Adafactor and SGD with momentum, the cosine schedule and gradient
+clipping over dict trees of tensors.
 
 The counterpart of ``repro.optim.optimizers``.  Scalars (the learning rate
 at a step, the bias corrections) are computed in numpy float32, as JAX
@@ -10,6 +11,7 @@ donates the old ones).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
@@ -96,6 +98,89 @@ def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8,
         return updates, OptState(step, state.inner)
 
     return Optimizer(init, update)
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (factored second moment; memory ~ O(n+m) per matrix)
+# ---------------------------------------------------------------------------
+
+def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_threshold=1.0,
+              weight_decay=0.0) -> Optimizer:
+    """Adafactor: a leaf of two or more dims keeps f32 row and column means
+    of ``g^2 + eps`` over its last two dims (``vr`` = shape[:-1], ``vc`` =
+    shape[:-2] + shape[-1:], stacked leaves included); others keep ``v``.
+    The decay is ``1 - t^-decay``; each leaf's update is clipped to RMS
+    ``clip_threshold``."""
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def init(params):
+        def one(p):
+            z = partial(torch.zeros, dtype=torch.float32, device=p.device)
+            if p.dim() >= 2:
+                return {"vr": z(p.shape[:-1]),
+                        "vc": z(p.shape[:-2] + p.shape[-1:])}
+            return {"v": z(p.shape)}
+        return OptState(0, tree_map(one, params))
+
+    def update(grads, state, params):
+        step = state.step + 1
+        beta = float(np.float32(1) - np.float32(step) ** np.float32(-decay))
+        lr_t = float(np.float32(lr_fn(step)))
+
+        def one(g, s, p):
+            if isinstance(g, dict):      # a subtree; s holds per-leaf dicts
+                return {k: one(g[k], s[k], p[k]) for k in sorted(g)}
+            g32 = g.float()
+            g2 = g32 * g32 + eps
+            if p.dim() >= 2:
+                s["vr"].mul_(beta).add_((1 - beta) * g2.mean(-1))
+                s["vc"].mul_(beta).add_((1 - beta) * g2.mean(-2))
+                rfac = (s["vr"] / s["vr"].mean(-1, keepdim=True))[..., None]
+                u = g32 * torch.rsqrt(rfac * s["vc"][..., None, :] + eps)
+            else:
+                s["v"].mul_(beta).add_((1 - beta) * g2)
+                u = g32 * torch.rsqrt(s["v"] + eps)
+            rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
+            u = u / torch.clamp(rms / clip_threshold, min=1.0)
+            if weight_decay:
+                u = u + weight_decay * p.float()
+            return (-lr_t * u).to(p.dtype)
+
+        return one(grads, state.inner, params), OptState(step, state.inner)
+
+    return Optimizer(init, update)
+
+
+# ---------------------------------------------------------------------------
+# SGD with momentum
+# ---------------------------------------------------------------------------
+
+def sgdm(lr=1e-2, momentum=0.9) -> Optimizer:
+    """SGD with f32 momentum ``m = momentum * m + g`` and update
+    ``-lr * m``."""
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def init(params):
+        return OptState(0, tree_map(
+            lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device), params))
+
+    def update(grads, state, params):
+        step = state.step + 1
+        lr_t = float(np.float32(lr_fn(step)))
+
+        def upd(g, m, p):
+            m.mul_(momentum).add_(g.float())
+            return (-lr_t * m).to(p.dtype)
+
+        updates = tree_map(upd, grads, state.inner, params)
+        return updates, OptState(step, state.inner)
+
+    return Optimizer(init, update)
+
+
+def make_optimizer(name: str, **kw) -> Optimizer:
+    return {"adamw": adamw, "adafactor": adafactor, "sgdm": sgdm}[name](**kw)
 
 
 def apply_updates(params, updates):

@@ -7,13 +7,19 @@
   # The eager MLP loop through the executor, on the card (or --device cpu):
   python -m repro_torch.trace capture --source eager-mlp --out mlp.log
 
+  # One train step's aten graph (forward + backward), traced on fake CPU
+  # tensors (nothing allocated, full width too), or one decode step:
+  python -m repro_torch.trace capture --source train-step --smoke \
+      --out train.log --verify
+  python -m repro_torch.trace capture --source serve-step --smoke --out s.log
+
   # Replay an existing trace across budgets/heuristics, or verify it:
   python -m repro_torch.trace replay serve.log --fractions 0.5 0.3
   python -m repro_torch.trace replay serve.log --verify
 
-The counterpart of ``python -m repro.trace`` for the sources the port has;
-``serve-step`` and ``train-step`` (jaxpr captures in the JAX package) wait
-for the port's planner.
+The counterpart of ``python -m repro.trace``'s ``capture`` and ``replay``;
+``serve-step`` and ``train-step`` trace aten graphs with ``make_fx`` where
+the JAX package traces jaxprs.
 """
 from __future__ import annotations
 
@@ -38,9 +44,14 @@ def _capture(args) -> Log:
         return C.capture_serve_trace(
             model, slots=args.slots, requests=args.requests, gen=args.gen,
             seed=args.seed)
-    if args.source in ("serve-step", "train-step"):
-        raise SystemExit(f"--source {args.source}: not yet ported (ROADMAP "
-                         f"item 13)")
+    if args.source == "serve-step":
+        return C.capture_serve_step(args.arch, smoke=args.smoke,
+                                    slots=args.slots,
+                                    cost_model=args.cost_model)
+    if args.source == "train-step":
+        return C.capture_train_step(args.arch, smoke=args.smoke,
+                                    batch=args.batch, seq=args.seq,
+                                    cost_model=args.cost_model)
     if args.source == "eager-mlp":
         return C.capture_eager_mlp(seed=args.seed, device=args.device)
     if args.source == "treelstm":
@@ -120,6 +131,13 @@ def main(argv=None) -> int:
     cap.add_argument("--slots", type=int, default=4)
     cap.add_argument("--requests", type=int, default=12)
     cap.add_argument("--gen", type=int, default=16)
+    cap.add_argument("--batch", type=int, default=2,
+                     help="train-step: batch rows")
+    cap.add_argument("--seq", type=int, default=16,
+                     help="train-step: sequence length")
+    cap.add_argument("--cost-model", choices=("flops", "unit", "hlo"),
+                     default="flops",
+                     help="serve-step/train-step op costs (hlo: not ported)")
     cap.add_argument("--device", default="cuda",
                      help="where the eager-mlp source runs its tensors")
     cap.add_argument("--out", default="trace.log")

@@ -405,6 +405,174 @@ def test_smoke_train_step_launches(cuda, remat, fwd_per_layer):
 
 
 # ---------------------------------------------------------------------------
+# The flash backward kernels and the qwen2 train step
+# ---------------------------------------------------------------------------
+
+BWD_SHAPES = [  # chip_smoke.py phase 2's backward cases, then the smoke dim
+    (2, 4, 2, 128, 128, 64, True, 0),
+    (1, 14, 2, 100, 100, 64, True, 0),     # qwen2 heads; 100 keys: ragged
+    (1, 14, 2, 77, 131, 64, True, 33),     # a window, Sq < Skv
+    (1, 32, 8, 96, 96, 128, True, 0),      # mixtral heads, D 128
+    (2, 4, 1, 64, 96, 32, False, 0),       # no mask, D 32
+    (2, 7, 1, 16, 16, 8, True, 0),         # qwen2 smoke heads, D 8
+]
+# Each gradient within this share of its largest magnitude: f32 sums the
+# same products in another order; bf16 rounds dq/dk/dv once on both sides,
+# and the tensor-core variant also rounds P and dS to bf16 as operands.
+BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _flash_bwd_case(b, hq, hkv, sq, skv, d, causal, window, dtype, device):
+    q, k, v = _qkv(b, hq, hkv, sq, skv, d, dtype, device)
+    rng = np.random.default_rng(1)
+    do = torch.from_numpy(rng.standard_normal((b, hq, sq, d),
+                                              dtype=np.float32)).to(
+        device=device, dtype=dtype)
+    out, lse = fa._forward(q, k, v, causal, window, None, save_lse=True)
+    return q, k, v, out, lse, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", BWD_SHAPES)
+def test_flash_backward_matches_plain(cuda, b, hq, hkv, sq, skv, d, causal,
+                                      window, dtype):
+    q, k, v, out, lse, do = _flash_bwd_case(b, hq, hkv, sq, skv, d, causal,
+                                            window, dtype, cuda)
+    planned = fa.plan_backward(b, hq, hkv, sq, skv, d, dtype)["variant"]
+    before = dict(fa.flash_attention_bwd.variant_launches)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                   window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.variant_launches == dict(
+        before, **{planned: before[planned] + 1})
+    expect = ref.flash_backward_reference(q, k, v, out, lse, do,
+                                          causal=causal, window=window)
+    for name, g, e in zip("qkv", grads, expect):
+        assert g.dtype == dtype and torch.isfinite(g).all(), name
+        err = (g.float() - e.float()).abs().max().item()
+        assert err <= BWD_REL[dtype] * e.float().abs().max().item(), \
+            (name, err)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", BWD_SHAPES)
+def test_flash_backward_simt_matches_plain_in_bf16(cuda, monkeypatch, b, hq,
+                                                   hkv, sq, skv, d, causal,
+                                                   window):
+    """bf16 on the CUDA-core backward (the design before ``mma``)."""
+    monkeypatch.setattr(fa, "plan_backward", lambda *shape: (
+        fa.backward_schedule("simt", *shape[:6])))
+    before = fa.flash_attention_bwd.variant_launches["simt"]
+    test_flash_backward_matches_plain(cuda, b, hq, hkv, sq, skv, d, causal,
+                                      window, torch.bfloat16)
+    assert fa.flash_attention_bwd.variant_launches["simt"] == before + 1
+
+
+@pytest.mark.parametrize("variant,tiles", [("simt", (64, 32)),
+                                           ("mma", (64, 64))])
+def test_flash_backward_refuses_another_schedule(cuda, monkeypatch, variant,
+                                                 tiles):
+    """The kernels check the wrapper's tiles against their own: a schedule
+    the Python side changed alone is refused, and nothing is counted."""
+    q, k, v, out, lse, do = _flash_bwd_case(1, 14, 2, 100, 100, 64, True, 0,
+                                            torch.bfloat16, cuda)
+    monkeypatch.setitem(fa.BWD_TILES, variant, tiles)
+    monkeypatch.setattr(fa, "plan_backward", lambda *shape: (
+        fa.backward_schedule(variant, *shape[:6])))
+    before = fa.flash_attention_bwd.launches
+    with pytest.raises(RuntimeError, match=variant):
+        fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    assert fa.flash_attention_bwd.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", BWD_SHAPES)
+def test_flash_forward_lse_matches_plain(cuda, b, hq, hkv, sq, skv, d,
+                                         causal, window, dtype):
+    """The LSE a train forward saves (f32 on both variants, never split),
+    and its output, against ``ref.flash_reference_lse``."""
+    q, k, v, out, lse, _ = _flash_bwd_case(b, hq, hkv, sq, skv, d, causal,
+                                           window, dtype, cuda)
+    want_out, want_lse = ref.flash_reference_lse(q, k, v, causal=causal,
+                                                 window=window)
+    assert lse.dtype == torch.float32 and lse.shape == (b, hq, sq)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out.float(), want_out.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_is_deterministic(cuda, dtype):
+    """No atomics: two calls at qwen2's train heads give the same bits."""
+    args = _flash_bwd_case(2, 14, 2, 512, 512, 64, True, 0, dtype, cuda)
+    one = fa.flash_attention_bwd(*args, causal=True)
+    two = fa.flash_attention_bwd(*args, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+def test_flash_autograd_on_card(cuda):
+    """Autograd through the wrapper on the card: the forward kernel once,
+    the backward kernel once, the plain backward's gradients."""
+    q, k, v = (t.requires_grad_() for t in _qkv(1, 14, 2, 100, 100, 64,
+                                                torch.float32, cuda))
+    fwd, bwd = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    out = flash_attention(q, k, v, causal=True)
+    do = torch.randn_like(out)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches) \
+        == (fwd + 1, bwd + 1)
+    xs = [t.detach().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.flash_reference(*xs, causal=True), xs, do)
+    for g, w in zip(grads, want):
+        assert (g - w).abs().max() <= BWD_REL[torch.float32] * w.abs().max()
+
+
+def test_qwen2_two_layer_step_kernel_vs_plain(cuda, monkeypatch):
+    """qwen2-0.5b at full width cut to 2 layers, f32: loss and every
+    gradient through the flash kernels against the plain path (each leaf
+    within 1e-3 in ||d|| / ||g||)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.params import tree_items
+    cfg = configs.get("qwen2-0.5b").replace(n_layers=2, dtype="float32")
+    params = M.init_params(cfg, torch.Generator(cuda).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 256), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(1))
+    before = fa.flash_attention_bwd.launches
+    loss, grads = loss_and_grads(cfg, params, {"tokens": tokens})
+    assert fa.flash_attention_bwd.launches == before + cfg.n_layers
+    monkeypatch.setattr(ops, "flash_attention", ref.flash_reference)
+    p_loss, p_grads = loss_and_grads(cfg, params, {"tokens": tokens})
+    assert abs(float(loss) - float(p_loss)) <= 1e-3 * abs(float(p_loss))
+    for (path, g), (_, w) in zip(tree_items(grads), tree_items(p_grads)):
+        rel = (torch.linalg.vector_norm(g - w)
+               / torch.linalg.vector_norm(w)).item()
+        assert rel <= 1e-3, (path, rel)
+    del params, grads, p_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("remat,fwd_per_layer", [
+    ("none", 1), ("full", 2), ("dots", 2), ("dtr", 2)])
+def test_qwen2_smoke_train_step_launches(cuda, remat, fwd_per_layer):
+    """One qwen2 smoke train step on the card: each attention layer
+    launched the flash forward once (twice under any remat: the group's
+    forward runs again in the backward) and the backward once."""
+    args = train.parse_args(["--arch", "qwen2-0.5b", "--smoke", "--steps",
+                             "1", "--batch", "2", "--seq", "32", "--remat",
+                             remat])
+    cfg = train.config_from_args(args)
+    params = M.init_params(cfg, torch.Generator(cuda).manual_seed(0))
+
+    def reset(step):
+        fa.flash_attention.launches = fa.flash_attention_bwd.launches = 0
+
+    res = train.train_loop(cfg, params, args, verbose=False, on_step=reset)
+    assert np.isfinite(res.losses[0])
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches) \
+        == (fwd_per_layer * cfg.n_layers, cfg.n_layers)
+
+
+# ---------------------------------------------------------------------------
 # The eager DTR executor on the card: its budget is made of real bytes
 # ---------------------------------------------------------------------------
 

@@ -128,8 +128,9 @@ def test_wrapper_rejects(case):
         k = k.to(torch.bfloat16)
     elif case == "float16":
         q, k, v = (t.half() for t in (q, k, v))
-    elif case == "grad":
+    elif case == "grad":        # differentiable, but not with kv_len
         q.requires_grad_(True)
+        kw["kv_len"] = torch.tensor([3, 4], dtype=torch.int32)
     elif case == "kv_len_dtype":
         kw["kv_len"] = torch.tensor([3, 4], dtype=torch.int64)
     elif case == "causal_sq_gt_skv":

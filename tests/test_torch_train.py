@@ -41,6 +41,13 @@ GRAD_REL = 1e-4
 # per step at most.
 ADAM_EPS = 1e-3
 PARAM_TOL = dict(rtol=1e-5, atol=1e-5)
+# Adafactor's step g / sqrt(mean g^2 + eps) is of size lr for any gradient
+# far above sqrt(eps), rounding noise included: qwen2's k bias has a
+# gradient of exactly 0 in exact arithmetic (softmax ignores a logit shift
+# shared by a row), so with eps 1e-30 the two sides' noise moves it by lr
+# either way.  The step-parity test takes eps 1e-6, under which a gradient
+# of 1e-6 or less moves a parameter by at most lr * g / 1e-3.
+ADAFACTOR_EPS = 1e-6
 
 
 @pytest.fixture(scope="module")
@@ -111,6 +118,127 @@ def test_every_gradient_matches_jax(jcfg, cfg, jparams, tokens):
         assert err <= GRAD_REL * np.abs(want).max(), (path, err)
 
 
+QWEN = "qwen2-0.5b"
+
+
+@pytest.fixture(scope="module")
+def jqcfg():
+    return jconfigs.get_smoke(QWEN)
+
+
+@pytest.fixture(scope="module")
+def qcfg():
+    return configs.get_smoke(QWEN)
+
+
+@pytest.fixture(scope="module")
+def jqparams(jqcfg):
+    return JM.init_params(jqcfg, jax.random.PRNGKey(0))
+
+
+def _assert_grads_match(grads, jgrads):
+    jflat = dict(tree_items(jax.tree.map(np.asarray, jgrads)))
+    flat = dict(tree_items(grads))
+    assert flat.keys() == jflat.keys()
+    for path, g in flat.items():
+        want = jflat[path]
+        assert g.shape == want.shape and g.dtype == torch.float32, path
+        err = np.abs(_np(g) - want).max()
+        assert err <= GRAD_REL * np.abs(want).max(), (path, err)
+
+
+def test_qwen2_logits_loss_and_grads_match_jax(jqcfg, qcfg, jqparams,
+                                               tokens):
+    """The qwen2 smoke train path (attention through the flash wrapper's
+    plain version, differentiated by autograd) against ``jax.grad``."""
+    params = _port(jqparams, qcfg)
+    batch = {"tokens": jnp.asarray(tokens)}
+    out = M.forward(qcfg, params, torch.from_numpy(tokens))
+    np.testing.assert_allclose(_np(out), np.asarray(JM.forward(
+        jqcfg, jqparams, batch["tokens"])), **LOGIT_TOL)
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: JM.loss_fn(jqcfg, p, batch)))(jqparams)
+    loss, grads = loss_and_grads(qcfg, params,
+                                 {"tokens": torch.from_numpy(tokens)})
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    assert len(dict(tree_items(grads))) == 14      # tied embeddings
+    _assert_grads_match(grads, jgrads)
+
+
+@pytest.mark.parametrize("name", ["adafactor", "sgdm"])
+def test_optimizer_train_steps_match_jax(jqcfg, qcfg, jqparams, name):
+    """Three qwen2 smoke steps (clipping at 1.0) with Adafactor or SGD with
+    momentum, as the reference builds them, on the same batches."""
+    data = SyntheticLM(vocab=qcfg.vocab, seq_len=16, batch=2, seed=0)
+    kw = {"eps": ADAFACTOR_EPS} if name == "adafactor" else {}
+    jopt = joptim.make_optimizer(name, lr=1e-3, **kw)
+    opt = optim.make_optimizer(name, lr=1e-3, **kw)
+    jstep = jax.jit(jmake_train_step(jqcfg, jopt))
+    step = make_train_step(qcfg, opt)
+    jp, jstate = jqparams, jopt.init(jqparams)
+    params = _port(jqparams, qcfg)
+    state = opt.init(params)
+    for i in range(3):
+        tokens = data.batch_at(i)["tokens"]
+        jp, jstate, jm = jstep(jp, jstate, {"tokens": jnp.asarray(tokens)})
+        params, state, m = step(params, state,
+                                {"tokens": torch.from_numpy(tokens)})
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=1e-5)
+    assert state.step == int(jstate.step) == 3
+    jflat = dict(tree_items(jax.tree.map(np.asarray, jp)))
+    for path, t in tree_items(params):
+        np.testing.assert_allclose(_np(t), jflat[path], **PARAM_TOL,
+                                   err_msg=path)
+
+
+def test_optimizer_updates_match_jax():
+    """Adafactor (factored and unfactored leaves, a stacked 3-d leaf) and
+    SGD with momentum, three updates on one tree against the reference."""
+    rng = np.random.default_rng(5)
+    shapes = {"a": (3, 5), "b": (7,), "c": (2, 4, 6)}
+    p = _tree(rng, shapes)
+    grads = [_tree(rng, shapes) for _ in range(3)]
+    for name in ("adafactor", "sgdm"):
+        jopt = joptim.make_optimizer(name, lr=joptim.cosine_schedule(
+            1e-2, 1, 10))
+        opt = optim.make_optimizer(name, lr=optim.cosine_schedule(
+            1e-2, 1, 10))
+        jp = jax.tree.map(jnp.asarray, p)
+        tp = {k: torch.from_numpy(v.copy()) for k, v in p.items()}
+        jstate, state = jopt.init(jp), opt.init(tp)
+        for g in grads:
+            jupd, jstate = jopt.update(jax.tree.map(jnp.asarray, g), jstate,
+                                       jp)
+            jp = joptim.apply_updates(jp, jupd)
+            upd, state = opt.update(
+                {k: torch.from_numpy(v) for k, v in g.items()}, state, tp)
+            tp = optim.apply_updates(tp, upd)
+        for k in shapes:
+            np.testing.assert_allclose(_np(tp[k]), np.asarray(jp[k]),
+                                       rtol=1e-6, atol=1e-7,
+                                       err_msg=f"{name} {k}")
+        jinner = dict(tree_items(jax.tree.map(np.asarray, jstate.inner)))
+        for path, t in tree_items(state.inner):
+            np.testing.assert_allclose(_np(t), jinner[path], rtol=1e-6,
+                                       atol=1e-7, err_msg=f"{name} {path}")
+
+
+def test_train_cli_qwen2_dtr_adafactor(capsys):
+    train.main(["--arch", QWEN, "--smoke", "--device", "cpu", "--remat",
+                "dtr", "--optimizer", "adafactor", "--steps", "2",
+                "--batch", "2", "--seq", "16"])
+    out = capsys.readouterr().out
+    assert "arch=qwen2-0.5b" in out and "remat=dtr" in out
+    assert "step     1 loss" in out and out.strip().endswith("done")
+
+
+def test_train_cli_refuses_unknown_remat():
+    with pytest.raises(ValueError):
+        train.main(["--arch", QWEN, "--smoke", "--device", "cpu",
+                    "--remat", "sometimes", "--steps", "1"])
+
+
 def test_remat_full_matches_none(cfg, jparams, tokens):
     params = _port(jparams, cfg)
     batch = {"tokens": torch.from_numpy(tokens)}
@@ -123,11 +251,23 @@ def test_remat_full_matches_none(cfg, jparams, tokens):
 
 
 @pytest.mark.parametrize("remat", ["dtr", "dots", "names:attn_out"])
-def test_other_remat_policies_are_not_ported_yet(cfg, jparams, tokens,
-                                                 remat):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        M.forward(cfg.replace(remat=remat), _port(jparams, cfg),
-                  torch.from_numpy(tokens))
+def test_remat_policies_match_none_and_jax(qcfg, jqcfg, jqparams, tokens,
+                                           remat):
+    """Every other policy of the reference: bit-equal to remat none on the
+    CPU (the recompute repeats the same arithmetic), and equal to JAX's
+    gradient under the same policy."""
+    params = _port(jqparams, qcfg)
+    batch = {"tokens": torch.from_numpy(tokens)}
+    loss, grads = loss_and_grads(qcfg, params, batch)
+    loss_r, grads_r = loss_and_grads(qcfg.replace(remat=remat), params,
+                                     batch)
+    assert float(loss_r) == float(loss)
+    for (path, g), (_, g_r) in zip(tree_items(grads), tree_items(grads_r)):
+        torch.testing.assert_close(g_r, g, rtol=0, atol=0, msg=path)
+    jcfg_r = jqcfg.replace(remat=remat)
+    jgrads = jax.jit(jax.grad(lambda p: JM.loss_fn(
+        jcfg_r, p, {"tokens": jnp.asarray(tokens)})))(jqparams)
+    _assert_grads_match(grads_r, jgrads)
 
 
 @pytest.mark.parametrize("seed,step,batch,seq,vocab",
