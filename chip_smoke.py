@@ -25,9 +25,10 @@ Phases; any failure exits non-zero before the last line is printed:
    backward (``csrc/flash_attention_bwd.cu``): a forward that saves the
    LSE, held to ``flash_reference_lse``, then dq/dk/dv against
    ``flash_backward_reference`` on the same output and LSE, f32 (``simt``)
-   and bf16 (``mma`` where planned, and ``simt``), GQA 14/2 and 32/8,
-   ragged lengths, a window, qwen2's train shape ``[4,14,2048,64]``, and a
-   second call's bits.
+   and bf16 (``wgmma`` where planned, at D 64, with the earlier ``mma``
+   design forced beside it, and ``simt``), GQA 14/2 and 32/8, ragged
+   lengths, a window, qwen2's train shape ``[4,14,2048,64]``, and a second
+   call's bits on every variant.
 3. Each serve path at full width, with seeded random weights, 8 requests
    over 4 slots, 16 tokens each, ``--capture``: qwen2-0.5b (24 layers),
    then mixtral-8x7b with its depth cut to 4 layers (the 32-layer model
@@ -62,11 +63,14 @@ Phases; any failure exits non-zero before the last line is printed:
 
    Then qwen2-0.5b training (after rwkv6 frees its tensors): the flash
    forward (saving the LSE) and backward at the train shape beside their
-   bounds, the plain versions and SDPA's forward and backward timed apart;
+   bounds, the plain versions and SDPA's forward and backward timed apart,
+   the backward on ``wgmma`` with its passes' device times, beside ``mma``
+   and ``simt`` on the same inputs;
    at full width cut to 2 layers, batch 4 x 2048, loss and gradients
    through the kernels against the plain path in f32 and bf16; all 24
    layers under remat none, full, dots and dtr (flash launches 24 + 24,
-   then 48 + 24, every bf16 launch of both on the tensor cores;
+   then 48 + 24, every bf16 forward on ``wgmma`` and every backward on
+   the ``wgmma`` backward;
    ``max_memory_allocated`` per policy; loss and gradients
    bit-identical to none's; the step-0 loss against the plain path's); the
    train loop (AdamW, remat none, 3 steps: the main path's launches); one
@@ -235,9 +239,15 @@ QWEN_PARITY_LAYERS = 2
 QWEN_REMATS = ("none", "full", "dots", "dtr")
 # The kernels one bf16 flash call launches, by the profiler's names.
 FLASH_STEP_KERNELS = {"flash_attention": ("flash_wgmma_kernel",),
-                      "flash_attention_bwd": ("flash_bwd_delta_kernel",
-                                              "flash_bwd_dkdv_mma_kernel",
-                                              "flash_bwd_dq_mma_kernel")}
+                      "flash_attention_bwd": ("flash_bwd_rowstat_kernel",
+                                              "flash_bwd_dkdv_wgmma_kernel",
+                                              "flash_bwd_reduce_kernel",
+                                              "flash_bwd_dq_wgmma_kernel")}
+# The kernels of the `mma` backward, the design before `wgmma`, timed beside
+# it at the train shape.
+FLASH_MMA_BWD_KERNELS = ("flash_bwd_delta_kernel",
+                         "flash_bwd_dkdv_mma_kernel",
+                         "flash_bwd_dq_mma_kernel")
 # Phase 8: fig4's tagged MLP stack (benchmarks/fig4_overhead.py) widened
 # from d 128, batch 256 to d 4096, batch 8192 (an activation of 512 MiB),
 # 8 layers, f32; planned at fractions of its traced peak.  The parameters
@@ -418,9 +428,9 @@ def flash_bwd_checks(torch, gen) -> float:
     """Phase 2 for the flash backward: the train forward's output and LSE
     against ``flash_reference_lse``, the backward kernels against
     ``flash_backward_reference`` on the same output and LSE, and a second
-    call's bits; bf16 on the planned variant and on ``simt``.  Returns the
-    bf16 train shape's max abs errors, forward (``wgmma``) and backward
-    (``mma``)."""
+    call's bits; bf16 on the planned variant, on ``mma`` where it takes the
+    shape (D 64) and on ``simt``.  Returns the bf16 train shape's max abs
+    errors, forward and backward (both ``wgmma``)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     print("phase 2: flash_attention_bwd against flash_backward_reference")
@@ -450,9 +460,10 @@ def flash_bwd_checks(torch, gen) -> float:
                 q, k, v, out, lse, do, causal=causal, window=window)
             planned = fa.plan_backward(b, hq, hkv, sq, skv, d,
                                        dtype)["variant"]
-            for variant in dict.fromkeys((planned, "simt")):
+            forced = ("mma",) if dtype == torch.bfloat16 and d == 64 else ()
+            for variant in dict.fromkeys((planned, *forced, "simt")):
                 before = read_variants()["flash_attention_bwd"]
-                with simt_only() if variant == "simt" else nullcontext():
+                with backward_on(variant):
                     grads = fa.flash_attention_bwd(
                         q, k, v, out, lse, do, causal=causal, window=window)
                     again = fa.flash_attention_bwd(
@@ -484,7 +495,7 @@ def flash_bwd_checks(torch, gen) -> float:
                 require(ok, f"flash backward kernel against plain: "
                         f"{dtype_name} {case} {variant}")
                 if (case == FLASH_TRAIN and dtype_name == "bfloat16"
-                        and variant == "mma"):
+                        and variant == "wgmma"):
                     require(fwd_variant == "wgmma",
                             "bf16 train forward on wgmma")
                     train_err = {"fwd": out_err, "bwd": err}
@@ -516,17 +527,35 @@ def simt_only():
     from repro_torch.kernels import flash_attention as fa, moe_gemm as mg
     from repro_torch.kernels import rwkv6_chunk as wkv
     plans = [(m, m.plan) for m in (fa, mg, wkv)]
-    plan_backward = fa.plan_backward
     for m, plan in plans:
         m.plan = lambda *a, plan=plan, **k: plan(
             *a, **dict(k, aligned=False))
-    fa.plan_backward = lambda *shape: fa.backward_schedule("simt", *shape[:6])
     try:
-        yield
+        with backward_on("simt"):
+            yield
     finally:
         for m, plan in plans:
             m.plan = plan
+
+
+@contextmanager
+def backward_on(variant):
+    """Plan every flash backward call onto ``variant``'s schedule (the
+    planned one, ``mma`` or ``simt``) for the duration."""
+    from repro_torch.kernels import flash_attention as fa
+    plan_backward = fa.plan_backward
+    fa.plan_backward = lambda *shape: fa.backward_schedule(variant,
+                                                           *shape[:6])
+    try:
+        yield
+    finally:
         fa.plan_backward = plan_backward
+
+
+def require_wgmma_backward(counts, what) -> None:
+    """Every flash backward launch of a bf16 path went to ``wgmma``."""
+    require(counts["wgmma"] > 0 and sum(counts.values()) == counts["wgmma"],
+            f"{what}: flash backward launches off wgmma {counts}")
 
 
 def _wrappers():
@@ -568,18 +597,31 @@ def require_wgmma(variants, what) -> None:
             f"{what}: bf16 launches on the CUDA-core variant {variants}")
 
 
-def time_row(torch, fns, iters, bound_ms_by, what, card, per_call=None):
+def time_row(torch, fns, iters, bound_ms_by, what, card, per_call=None,
+             passes=None):
     """Device and event time of each named call, beside the bound.  A name
     that starts with ``simt`` is timed with its wrappers planned onto the
-    CUDA-core variants.  ``per_call`` maps a name to the kernels one call
-    launches (see ``device_ms``)."""
+    CUDA-core variants, one that starts with ``mma`` with the flash
+    backward on its ``mma`` schedule.  ``per_call`` maps a name to the
+    kernels one call launches (see ``device_ms``); ``passes`` maps a name to
+    the kernel names whose device ms per call the row also keeps, under
+    ``<name>_passes``."""
     row = {}
     for name, fn in fns:
-        with simt_only() if name.startswith("simt") else nullcontext():
+        forced = (simt_only() if name.startswith("simt") else
+                  backward_on("mma") if name.startswith("mma") else
+                  nullcontext())
+        by_name = {}
+        with forced:
             row[name] = device_ms(torch, fn, iters,
+                                  by_name=by_name,
                                   per_call=(per_call or {}).get(name))
             require(row[name] is not None, f"profiler device time, {name}")
             row[name.replace("ms", "wall_ms")] = event_ms(torch, fn, iters)
+        if name in (passes or {}):
+            row[f"{name}_passes"] = {
+                part: sum(ms for n, (ms, _) in by_name.items() if part in n)
+                for part in passes[name]}
     row["bound_ms"], row["bound_by"] = bound_ms_by
     print(f"phase 5: {what}: " + ", ".join(
         f"{k}={v!r}" for k, v in row.items()) + f" [{card}]")
@@ -1117,15 +1159,20 @@ def flash_train_times(torch, card, gen) -> dict:
         f"saving the LSE (library: SDPA forward)", card, {"ms": 1})}
     bwd = (lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
                                           causal=True))
+    require(fa.plan_backward(*FLASH_TRAIN[:6], torch.bfloat16)["variant"]
+            == "wgmma", "the train shape's backward planned on wgmma")
     rows["bwd"] = time_row(torch, (
-        ("ms", bwd), ("simt_ms", bwd),
+        ("ms", bwd), ("mma_ms", bwd), ("simt_ms", bwd),
         ("plain_ms", lambda: ref.flash_backward_reference(
             q, k, v, out, lse, do, causal=True)),
         ("library_ms", lambda: torch.autograd.grad(
             lib_out, xs, do, retain_graph=True))), 5,
         flash_bwd_bound_ms(FLASH_TRAIN, 2),
-        f"flash_attention_bwd {list(FLASH_TRAIN[:6])} bf16 (library: "
-        f"SDPA's backward alone)", card, {"ms": 3, "simt_ms": 3})
+        f"flash_attention_bwd {list(FLASH_TRAIN[:6])} bf16 (ms: wgmma; "
+        f"mma_ms: the previous design; library: SDPA's backward alone)",
+        card, {"ms": 4, "mma_ms": 3, "simt_ms": 3},
+        {"ms": FLASH_STEP_KERNELS["flash_attention_bwd"],
+         "mma_ms": FLASH_MMA_BWD_KERNELS})
     del q, k, v, do, out, lse, xs, lib_out
     gc.collect()
     torch.cuda.empty_cache()
@@ -1227,6 +1274,8 @@ def qwen_train_phases(torch, card) -> dict:
                 f"launches with remat {remat}: {n}")
         require_wgmma({k_: var[k_] for k_ in FLASH_STEP_KERNELS},
                       f"phase 6, {ARCH} with remat {remat}")
+        require_wgmma_backward(var["flash_attention_bwd"],
+                               f"phase 6, {ARCH} with remat {remat}")
         require(float(loss) == base[0], f"loss with remat {remat}")
         require(rel <= TRAIN_PARITY_F32, f"gradients with remat {remat}")
         del loss, grads
@@ -1282,6 +1331,8 @@ def qwen_train_phases(torch, card) -> dict:
     for _, v in per_step:
         require_wgmma({k_: v[k_] for k_ in FLASH_STEP_KERNELS},
                       f"phase 6, {ARCH} train loop")
+        require_wgmma_backward(v["flash_attention_bwd"],
+                               f"phase 6, {ARCH} train loop")
     main_launches = {k: sum(c[k] for c, _ in per_step)
                      for k in FLASH_STEP_KERNELS}
     bwd_variants = {var: sum(v["flash_attention_bwd"][var]
@@ -1865,10 +1916,13 @@ def main() -> int:
                  "through XLA"),
         "launches": qwen_train["launches"]["flash_attention_bwd"],
         "max_abs_err": flash_train_err["bwd"], "ms": tb["ms"],
+        "passes_ms": tb["ms_passes"],
         "in_step_ms": qwen_train["inside"]["flash_attention_bwd"],
         "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
-        "previous_ms": tb["simt_ms"]}, {
+        "previous_ms": tb["mma_ms"],
+        "previous_passes_ms": tb["mma_ms_passes"],
+        "simt_ms": tb["simt_ms"]}, {
         "name": "moe_gemm", "route": "cuda",
         "variant": ran_variant(moe_variants["moe_gemm"]),
         "source": "src/repro_torch/kernels/csrc/moe_gemm.cu",

@@ -17,44 +17,86 @@
 //   dQ  = dS K / sqrt(D),  dK = sum over the G heads of dS^T Q / sqrt(D)
 //
 // P is recomputed from the forward's own lse (the wgmma forward rounds P to
-// bf16 only as the operand of P.V).  Three passes, each deterministic (no
-// atomics: every output element is summed by one thread in a fixed order,
-// so a repeat gives the same bits):
-//   1. `delta`: one warp per query row, D_i.
-//   2. `dkdv`: one block per (key tile, b, kv head); it walks the G query
-//      heads of its kv head and, per head, the query tiles that see any of
-//      its keys under the causal mask and the window, and keeps the tile's
-//      dK and dV in registers.
-//   3. `dq`: one block per (query tile, b, q head), heaviest causal tiles
-//      first; it walks the key tiles its rows see.
+// bf16 only as the operand of P.V).  Every pass is deterministic: no
+// atomics, and every output element is summed in a fixed order, so a repeat
+// gives the same bits.
 //
-// What bounds it: five score-area products, 2 * D FLOPs each per visible
-// (query, key) pair, against the bf16 tensor-core peak.  Two variants,
-// chosen by the wrapper's plan:
+// What bounds it: five score-area products (S, dP, dV, dK, dQ), 2 * D FLOPs
+// each per visible (query, key) pair and query head.  At qwen2's train
+// shape, q [4, 14, 2048, 64] bf16 under a causal mask, that is 75.2 GFLOP,
+// 0.076 ms at the bf16 tensor-core peak of 989 TFLOP/s, against 67.6 MB of
+// inputs and outputs (0.020 ms at 3.35 TB/s): the tensor cores bound it.
+// Three variants, chosen by the wrapper's plan:
 //
-// `mma` (bf16, D = 64, 16-byte-aligned tensors): the products on the tensor
-// cores with mma.sync m16n8k16 (bf16 operands, f32 sums).  dK/dV blocks own
-// 64 keys, a warp 16 of them, and step over 32 queries; dQ blocks own 64
-// rows, a warp 16, and step over 32 keys.  The block's own K and V (dQ: Q
-// and dO) stay in registers as A fragments for the whole block; the other
-// side is staged in shared memory, row-major and transposed, rows padded by
-// 8 so the fragments' 32-bit loads hit distinct banks.  S and dP come out in
-// the accumulator layout, which is the A-fragment layout of the next
-// product, so P and dS go from registers to the tensor cores rounded to
-// bf16, as the operands of dV += P^T dO, dK += dS^T Q and dQ += dS K.
+// `wgmma` (bf16, D = 64; 16-byte-aligned tensors, as TMA needs): four
+// passes.  Each tile block is one warpgroup of 128 threads whose thread 0
+// also issues the copies: no producer warp, so that its registers (the
+// dK/dV block needs about 164 a thread) leave room for three blocks an SM
+// (the dQ block, about 128, four); a producer warp held both at two.
+//   1. `rowstat`: eight threads per query row, D_i and lse * log2(e), into
+//      f32 rows padded to whole 64-row tiles (rows past Sq hold 0), so a
+//      tile's 64 values are one 256-byte bulk copy.
+//   2. `dkdv`: one block per (b, q head, 64-key tile), the key tile on the
+//      grid's slow axis so that tile 0, which sees the most queries under a
+//      causal mask, starts first.  Splitting the G query heads of a kv head
+//      over G blocks is the balance: at the train shape 1792 blocks of at
+//      most 32 query steps, where `mma` ran 256 blocks of up to 448 (7
+//      heads x 64 steps of 32) in one wave that lasted as long as its
+//      heaviest block.  K and V stay in shared memory (TMA, once); thread
+//      0 streams each 64-query tile of Q and dO (TMA) with its 64 lse and
+//      D values (bulk copies) into a two-stage ring on mbarriers, refilling
+//      a stage as soon as all 128 threads have released it, so the next
+//      tile's loads fly while this tile's products run.  S^T =
+//      K Q^T and dP^T = V dO^T are two m64n64k16 wgmma chains from shared
+//      memory (both K-major); P^T = exp2(S^T scale log2(e) - lse log2(e))
+//      is formed on the first accumulator while the second chain runs,
+//      then dS^T = P^T (dP^T - D); both are rounded to bf16 in registers,
+//      where the accumulator layout is already the A-fragment layout, for
+//      dV += P^T dO and dK += dS^T Q, with dO and Q read again as MN-major
+//      B operands from the same swizzled tiles.  The block writes its f32
+//      partial dK and dV for one head.
+//   3. `reduce`: dK = scale * sum over g = 0 .. G-1 of the partials, dV the
+//      same unscaled, in that order, to bf16.  Partials in scratch, not a
+//      cluster of G blocks reduced through distributed shared memory: a
+//      cluster must be resident at once on one GPC and ties the grid to G
+//      (7 for qwen2), while the scratch keeps every block independent for
+//      2 x 29.4 MB written and read once at the train shape (about 35 us
+//      at 3.35 TB/s).
+//   4. `dq`: one block per (b, q head, 64-row tile), heaviest causal tiles
+//      first; Q and dO stay in shared memory, K and V tiles stream through
+//      the same kind of ring; S = Q K^T and dP = dO V^T as above, then dQ
+//      += dS K with dS as the register A operand and K as the MN-major B.
+//   Query tiles of a dK/dV block start at a multiple of 64 below the first
+//   query that sees its keys, key tiles of a dQ block at a multiple of 64
+//   below the first visible key (kernels/flash_attention.py,
+//   `bwd_query_range` and `bwd_key_range`); TMA fills rows past Sq or Skv
+//   with zeros, and the mask gives their P exactly 0.  Tiles every pair of
+//   which is visible skip the mask.
 //
-// `simt` (f32, and bf16 shapes `mma` does not take): the first design.
-// 32 x 32 tiles, 128 threads; S and dP as f32 FMAs over D read as 16-byte
-// vectors from shared memory (K/V rows padded to D + 4 words), P and dS in
-// shared memory, and each thread then accumulates a 4 x 4 (x D/64) block of
-// dK and dV (or dQ).  P and dS stay f32.
+// `mma` (bf16, D = 64, the previous design; reached only by a forced
+// schedule): three passes, `delta`, then dK/dV blocks of 64 keys per (key
+// tile, b, kv head) walking all G heads in 32-query steps, then dQ blocks
+// of 64 rows stepping over 32 keys.  The products on mma.sync m16n8k16
+// (bf16 operands, f32 sums); the block's own K and V (dQ: Q and dO) stay
+// in registers as A fragments, the other side is staged by the threads in
+// padded shared memory, row-major and transposed, with no overlap of the
+// next tile's loads.
 //
-// Not yet: wgmma, TMA, a pipeline that overlaps one tile's loads and
-// softmax with the next tile's products (FA3).
+// `simt` (f32, and bf16 shapes the tensor-core variants do not take): the
+// first design.  The same three passes on 32 x 32 tiles, 128 threads; S and
+// dP as f32 FMAs over D read as 16-byte vectors from shared memory (K/V
+// rows padded to D + 4 words), P and dS in shared memory, and each thread
+// then accumulates a 4 x 4 (x D/64) block of dK and dV (or dQ).  P and dS
+// stay f32.
+//
+// Not yet: warp specialisation with setmaxnreg and two consumer
+// warpgroups, dQ fused into the dK/dV pass, D = 128 on the tensor cores.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -826,53 +868,602 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
                         stream);
 }
 
+
+// ---- the wgmma variant (bf16, D = 64) --------------------------------------
+
+constexpr int WB = 64;          // keys of a dK/dV block; rows of a dQ block
+constexpr int WT = 64;          // queries of a dK/dV step; keys of a dQ step
+constexpr int W_STAGES = 2;
+constexpr int W_TILE = 64 * hopper::ROW_BYTES;  // 64 rows x 64 bf16, swizzled
+constexpr int W_THREADS = 128;     // one warpgroup; thread 0 also copies
+constexpr int W_STATS = 2 * WT;      // floats of a stage's lse and D rows
+constexpr int W_BARS = 1 + 2 * W_STAGES;
+// Shared memory of each tile kernel: two resident tiles, a ring of two
+// tiles a stage, the dK/dV ring's row statistics, the barriers, and the
+// slack that aligns the base to 1024 bytes.
+constexpr int W_SMEM = 2 * W_TILE + 2 * W_STAGES * W_TILE +
+                       W_STAGES * W_STATS * 4 + W_BARS * 8 + 1024;
+constexpr double LOG2E = 1.4426950408889634;
+
+struct WgArgs {
+  const float* lse2;          // [B * Hq, sq_pad]: lse * log2(e)
+  const float* delta;         // [B * Hq, sq_pad]: rowsum(dO * O)
+  float* part_k;              // [B * Hq, Skv, 64]: each head's dK / scale
+  float* part_v;              // [B * Hq, Skv, 64]: each head's dV
+  __nv_bfloat16* dq;
+  int Hq, Hkv, Sq, Skv, sq_pad, causal, window, q_tiles;
+  float scale;                // 1/sqrt(D)
+  float scale_log2;           // 1/sqrt(D) * log2(e)
+};
+
+// The scratch (floats) the wgmma variant needs: the padded lse and D rows,
+// then the partial dK and dV of every query head.
+long long wgmma_scratch_floats(int B, int Hq, int Sq, int Skv) {
+  const long long sq_pad = (Sq + WT - 1) / WT * WT;
+  return 2ll * B * Hq * sq_pad + 2ll * B * Hq * Skv * 64;
+}
+
+// D and lse * log2(e) of each padded row: eight threads a row, 16 bytes
+// of O and of dO each.  rows_pad is a multiple of THREADS / 8.
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_rowstat_kernel(const __nv_bfloat16* __restrict__ o,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         float* __restrict__ lse2, float* __restrict__ delta,
+                         long long rows_pad, int Sq, int sq_pad) {
+  const long long row =
+      (static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x) >> 3;
+  const int part = threadIdx.x & 7;
+  if (row >= rows_pad) return;
+  const long long bh = row / sq_pad;
+  const int i = static_cast<int>(row - bh * sq_pad);
+  float acc = 0.f;
+  if (i < Sq) {
+    const size_t at = (static_cast<size_t>(bh) * Sq + i) * 64 + 8 * part;
+    uint4 ou = *reinterpret_cast<const uint4*>(o + at);
+    uint4 du = *reinterpret_cast<const uint4*>(dout + at);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ou);
+    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&du);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float2 a = __bfloat1622float2(o2[u]);
+      const float2 b = __bfloat1622float2(d2[u]);
+      acc = fmaf(a.y, b.y, fmaf(a.x, b.x, acc));
+    }
+  }
+#pragma unroll
+  for (int m = 4; m > 0; m >>= 1) acc += __shfl_xor_sync(FULL, acc, m);
+  if (part == 0) {
+    delta[row] = acc;
+    lse2[row] = i < Sq ? lse[bh * Sq + i] * static_cast<float>(LOG2E) : 0.f;
+  }
+}
+
+// Is the pair (query i, key j) visible?  Query i sits at key i + offs.
+__device__ __forceinline__ bool visible(int i, int j, int Sq, int Skv,
+                                        int offs, int causal, int window) {
+  bool vis = i < Sq && j < Skv;
+  if (causal) {
+    vis = vis && j <= i + offs;
+    if (window > 0) vis = vis && i + offs - j < window;
+  }
+  return vis;
+}
+
+// Is every pair of queries [i0, i0 + 64) and keys [j0, j0 + 64) visible?
+__device__ __forceinline__ bool whole_tile(int i0, int j0, int Sq, int Skv,
+                                           int offs, int causal,
+                                           int window) {
+  return i0 + 63 < Sq && j0 + 63 < Skv &&
+         (!causal || (j0 + 63 <= i0 + offs &&
+                      (window == 0 || i0 + 63 + offs - j0 < window)));
+}
+
+// The 64 x 64 product of two K-major tiles (64 rows of 64 bf16 each),
+// d = a b^T, overwriting d: four k-steps of 16 along the rows.
+__device__ __forceinline__ void wg_nt(float (&d)[32], const uint8_t* a,
+                                      const uint8_t* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hopper::Wgmma<64>::ss<0, 0>(d, hopper::smem_desc(a + kk * 32, 16, 1024),
+                                hopper::smem_desc(b + kk * 32, 16, 1024),
+                                kk > 0);
+}
+
+// A 64 x 64 accumulator tile rounded to bf16 as the A fragments of four
+// k-steps: in the accumulator layout, keys (or queries) 16 kt .. 16 kt + 15
+// of a thread's rows are f[8 kt .. 8 kt + 7].
+__device__ __forceinline__ void to_a(uint32_t (&fa)[4][4],
+                                     const float (&f)[32]) {
+#pragma unroll
+  for (int kt = 0; kt < 4; ++kt)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      fa[kt][u] = hopper::pack_bf16(f[8 * kt + 2 * u], f[8 * kt + 2 * u + 1]);
+}
+
+// d += A b, A from registers (to_a), b an MN-major tile (64 rows of the
+// contraction, 64 bf16 columns each).
+__device__ __forceinline__ void wg_acc(float (&d)[32],
+                                       const uint32_t (&fa)[4][4],
+                                       const uint8_t* b) {
+#pragma unroll
+  for (int kt = 0; kt < 4; ++kt)
+    hopper::Wgmma<64>::rs<1>(
+        d, fa[kt],
+        hopper::smem_desc(b + kt * 16 * hopper::ROW_BYTES, W_TILE, 1024), 1);
+}
+
+__global__ void __launch_bounds__(W_THREADS)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap domap,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap,
+                            const WgArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* k_s = hopper::align_1024(smem_raw);
+  uint8_t* v_s = k_s + W_TILE;
+  uint8_t* q_ring = v_s + W_TILE;
+  uint8_t* do_ring = q_ring + W_STAGES * W_TILE;
+  float* stats = reinterpret_cast<float*>(do_ring + W_STAGES * W_TILE);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(stats + W_STAGES * W_STATS);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + W_STAGES;
+
+  const int group = a.Hq / a.Hkv;
+  const int bh = blockIdx.x;              // b * Hq + q head
+  const int bkv = bh / group;             // b * Hkv + its kv head
+  const int j0 = blockIdx.y * WB;         // tile 0, the heaviest, first
+  const int n_keys = min(WB, a.Skv - j0);
+  const int offs = a.Skv - a.Sq;
+  int q_lo = 0;                           // bwd_query_range
+  int q_hi = a.Sq;
+  if (a.causal) {
+    q_lo = max(0, j0 - offs);
+    if (a.window > 0)
+      q_hi = min(a.Sq, j0 + n_keys - 1 + a.window - offs);
+  }
+  const int i_first = q_lo / WT * WT;
+  const int steps = q_hi > q_lo ? (q_hi - i_first + WT - 1) / WT : 0;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < W_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 128);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Thread 0 issues every copy: K and V once, then query tile n into stage
+  // n % W_STAGES as soon as all 128 threads have released it.
+  int ps = 0;
+  uint32_t pphase = 0;
+  auto issue = [&](int n) {
+    const int i0 = i_first + n * WT;
+    hopper::mbar_wait(&empty[ps], pphase ^ 1);
+    hopper::mbar_expect_tx(&full[ps], 2 * W_TILE + W_STATS * 4);
+    hopper::tma_load_3d(q_ring + ps * W_TILE, &qmap, &full[ps], 0, i0, bh);
+    hopper::tma_load_3d(do_ring + ps * W_TILE, &domap, &full[ps], 0, i0, bh);
+    const size_t row = static_cast<size_t>(bh) * a.sq_pad + i0;
+    hopper::bulk_load(stats + ps * W_STATS, a.lse2 + row, WT * 4, &full[ps]);
+    hopper::bulk_load(stats + ps * W_STATS + WT, a.delta + row, WT * 4,
+                      &full[ps]);
+    if (++ps == W_STAGES) { ps = 0; pphase ^= 1; }
+  };
+  if (threadIdx.x == 0) {
+    hopper::mbar_expect_tx(kv_full, 2 * W_TILE);
+    hopper::tma_load_3d(k_s, &kmap, kv_full, 0, j0, bkv);
+    hopper::tma_load_3d(v_s, &vmap, kv_full, 0, j0, bkv);
+    for (int n = 0; n < min(W_STAGES, steps); ++n) issue(n);
+  }
+  __syncwarp();  // warp 0 converges before the warpgroup's wgmma
+
+  // Thread tid holds key rows r and r + 8 of the tile (r = 16 warp +
+  // lane / 4) and query columns 8 jj + 2 quad + {0, 1}.
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int quad = lane % 4;
+  const int r_own = 16 * (tid / 32) + lane / 4;
+  float acc_k[32], acc_v[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) { acc_k[i] = 0.f; acc_v[i] = 0.f; }
+
+  hopper::mbar_wait(kv_full, 0);
+  int s = 0;
+  uint32_t phase = 0;
+  for (int n = 0; n < steps; ++n) {
+    const int i0 = i_first + n * WT;
+    hopper::mbar_wait(&full[s], phase);
+    const uint8_t* q_s = q_ring + s * W_TILE;
+    const uint8_t* do_s = do_ring + s * W_TILE;
+    const float* lse_s = stats + s * W_STATS;
+    const float* delta_s = lse_s + WT;
+
+    // S^T = K Q^T and dP^T = V dO^T, two groups; P^T forms on the first
+    // while the second runs.
+    float st[32], dpt[32];
+    hopper::wgmma_fence();
+    wg_nt(st, k_s, q_s);
+    hopper::wgmma_commit();
+    wg_nt(dpt, v_s, do_s);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(st);
+    const bool whole = whole_tile(i0, j0, a.Sq, a.Skv, offs, a.causal,
+                                  a.window);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int c = 8 * jj + 2 * quad;
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x =
+            st[4 * jj + e] * a.scale_log2 - ((e & 1) ? l2.y : l2.x);
+        const bool vis = whole || visible(i0 + c + (e & 1),
+                                          j0 + r_own + 8 * (e >> 1), a.Sq,
+                                          a.Skv, offs, a.causal, a.window);
+        st[4 * jj + e] = vis ? exp2f(x) : 0.f;
+      }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dpt);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 dl =
+          *reinterpret_cast<const float2*>(delta_s + 8 * jj + 2 * quad);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dpt[4 * jj + e] =
+            st[4 * jj + e] * (dpt[4 * jj + e] - ((e & 1) ? dl.y : dl.x));
+    }
+
+    // dV += P^T dO and dK += dS^T Q over the tile's 64 queries; both A
+    // operands are packed before either product is issued.
+    uint32_t pa[4][4], da[4][4];
+    to_a(pa, st);
+    to_a(da, dpt);
+    hopper::wgmma_fence();
+    wg_acc(acc_v, pa, do_s);
+    wg_acc(acc_k, da, q_s);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc_v);
+    hopper::fence_regs(acc_k);
+    hopper::mbar_arrive(&empty[s]);
+    if (tid == 0 && n + W_STAGES < steps) issue(n + W_STAGES);
+    __syncwarp();
+    if (++s == W_STAGES) { s = 0; phase ^= 1; }
+  }
+
+  // This head's f32 partials; `reduce` sums the G heads of a kv head.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = j0 + r_own + 8 * h;
+    if (j >= a.Skv) continue;
+    const size_t at = (static_cast<size_t>(bh) * a.Skv + j) * 64;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int col = 8 * jj + 2 * quad;
+      *reinterpret_cast<float2*>(a.part_k + at + col) =
+          make_float2(acc_k[4 * jj + 2 * h], acc_k[4 * jj + 2 * h + 1]);
+      *reinterpret_cast<float2*>(a.part_v + at + col) =
+          make_float2(acc_v[4 * jj + 2 * h], acc_v[4 * jj + 2 * h + 1]);
+    }
+  }
+}
+
+// dK and dV of each kv head: the G heads' partials summed in head order,
+// four columns a thread.
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_reduce_kernel(const float* __restrict__ part_k,
+                        const float* __restrict__ part_v,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, long long n4,
+                        int group, int Skv, float scale) {
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  if (idx >= n4) return;
+  const long long per_head = static_cast<long long>(Skv) * 16;
+  const long long bkv = idx / per_head;
+  const long long rem = idx - bkv * per_head;
+  float4 sk = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 sv = sk;
+  for (int g = 0; g < group; ++g) {
+    const long long at = (bkv * group + g) * per_head + rem;
+    const float4 pk = reinterpret_cast<const float4*>(part_k)[at];
+    const float4 pv = reinterpret_cast<const float4*>(part_v)[at];
+    sk.x += pk.x; sk.y += pk.y; sk.z += pk.z; sk.w += pk.w;
+    sv.x += pv.x; sv.y += pv.y; sv.z += pv.z; sv.w += pv.w;
+  }
+  __nv_bfloat162* k2 = reinterpret_cast<__nv_bfloat162*>(dk + 4 * idx);
+  __nv_bfloat162* v2 = reinterpret_cast<__nv_bfloat162*>(dv + 4 * idx);
+  k2[0] = __floats2bfloat162_rn(sk.x * scale, sk.y * scale);
+  k2[1] = __floats2bfloat162_rn(sk.z * scale, sk.w * scale);
+  v2[0] = __floats2bfloat162_rn(sv.x, sv.y);
+  v2[1] = __floats2bfloat162_rn(sv.z, sv.w);
+}
+
+__global__ void __launch_bounds__(W_THREADS)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap domap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const WgArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = hopper::align_1024(smem_raw);
+  uint8_t* do_s = q_s + W_TILE;
+  uint8_t* k_ring = do_s + W_TILE;
+  uint8_t* v_ring = k_ring + W_STAGES * W_TILE;
+  uint64_t* q_full =
+      reinterpret_cast<uint64_t*>(v_ring + W_STAGES * W_TILE);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + W_STAGES;
+
+  const int group = a.Hq / a.Hkv;
+  const int bh = blockIdx.x;              // b * Hq + q head
+  const int bkv = bh / group;
+  // Row tiles in reverse: under a causal mask the last see the most keys,
+  // and they start first.
+  const int i0 = (a.q_tiles - 1 - static_cast<int>(blockIdx.y)) * WB;
+  const int n_rows = min(WB, a.Sq - i0);
+  const int offs = a.Skv - a.Sq;
+  int k_lo = 0;                           // bwd_key_range
+  int k_hi = a.Skv;
+  if (a.causal) {
+    k_hi = min(a.Skv, i0 + n_rows + offs);
+    if (a.window > 0) k_lo = max(0, i0 + offs - a.window + 1);
+  }
+  const int t_first = k_lo / WT * WT;
+  const int steps = k_hi > k_lo ? (k_hi - t_first + WT - 1) / WT : 0;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < W_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 128);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Thread 0 issues every copy: Q and dO once, then key tile n into stage
+  // n % W_STAGES as soon as all 128 threads have released it.
+  int ps = 0;
+  uint32_t pphase = 0;
+  auto issue = [&](int n) {
+    const int t0 = t_first + n * WT;
+    hopper::mbar_wait(&empty[ps], pphase ^ 1);
+    hopper::mbar_expect_tx(&full[ps], 2 * W_TILE);
+    hopper::tma_load_3d(k_ring + ps * W_TILE, &kmap, &full[ps], 0, t0, bkv);
+    hopper::tma_load_3d(v_ring + ps * W_TILE, &vmap, &full[ps], 0, t0, bkv);
+    if (++ps == W_STAGES) { ps = 0; pphase ^= 1; }
+  };
+  if (threadIdx.x == 0) {
+    hopper::mbar_expect_tx(q_full, 2 * W_TILE);
+    hopper::tma_load_3d(q_s, &qmap, q_full, 0, i0, bh);
+    hopper::tma_load_3d(do_s, &domap, q_full, 0, i0, bh);
+    for (int n = 0; n < min(W_STAGES, steps); ++n) issue(n);
+  }
+  __syncwarp();  // warp 0 converges before the warpgroup's wgmma
+
+  // Thread tid holds rows r and r + 8 (r = 16 warp + lane / 4), key
+  // columns 8 jj + 2 quad + {0, 1}.
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int quad = lane % 4;
+  const int r_own = 16 * (tid / 32) + lane / 4;
+  float l2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {   // rows past Sq read the padding's zeros
+    const size_t row = static_cast<size_t>(bh) * a.sq_pad + i0 + r_own +
+                       8 * h;
+    l2[h] = a.lse2[row];
+    dl[h] = a.delta[row];
+  }
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  hopper::mbar_wait(q_full, 0);
+  int s = 0;
+  uint32_t phase = 0;
+  for (int n = 0; n < steps; ++n) {
+    const int t0 = t_first + n * WT;
+    hopper::mbar_wait(&full[s], phase);
+    const uint8_t* k_s = k_ring + s * W_TILE;
+    const uint8_t* v_s = v_ring + s * W_TILE;
+
+    float sc[32], dp[32];
+    hopper::wgmma_fence();
+    wg_nt(sc, q_s, k_s);
+    hopper::wgmma_commit();
+    wg_nt(dp, do_s, v_s);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(sc);
+    const bool whole = whole_tile(i0, t0, a.Sq, a.Skv, offs, a.causal,
+                                  a.window);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const float x = sc[4 * jj + e] * a.scale_log2 - l2[h];
+        const bool vis = whole || visible(i0 + r_own + 8 * h,
+                                          t0 + 8 * jj + 2 * quad + (e & 1),
+                                          a.Sq, a.Skv, offs, a.causal,
+                                          a.window);
+        sc[4 * jj + e] = vis ? exp2f(x) : 0.f;
+      }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      dp[i] = sc[i] * (dp[i] - dl[(i >> 1) & 1]);
+
+    // dQ += dS K over the tile's 64 keys.
+    uint32_t da[4][4];
+    to_a(da, dp);
+    hopper::wgmma_fence();
+    wg_acc(acc, da, k_s);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::mbar_arrive(&empty[s]);
+    if (tid == 0 && n + W_STAGES < steps) issue(n + W_STAGES);
+    __syncwarp();
+    if (++s == W_STAGES) { s = 0; phase ^= 1; }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = i0 + r_own + 8 * h;
+    if (i >= a.Sq) continue;
+    __nv_bfloat16* q_row = a.dq + (static_cast<size_t>(bh) * a.Sq + i) * 64;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+      *reinterpret_cast<__nv_bfloat162*>(q_row + 8 * jj + 2 * quad) =
+          __floats2bfloat162_rn(acc[4 * jj + 2 * h] * a.scale,
+                                acc[4 * jj + 2 * h + 1] * a.scale);
+  }
+}
+
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const void* o, const float* lse, const void* dout,
+                         void* dq, void* dk, void* dv, float* scratch, int B,
+                         const BwdArgs& a, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  const int sq_pad = (a.Sq + WT - 1) / WT * WT;
+  const long long rows_pad = static_cast<long long>(B) * a.Hq * sq_pad;
+  float* lse2 = scratch;
+  float* delta = lse2 + rows_pad;
+  float* part_k = delta + rows_pad;
+  float* part_v = part_k + static_cast<long long>(B) * a.Hq * a.Skv * 64;
+  // q/dO [B * Hq, Sq, 64] and k/v [B * Hkv, Skv, 64], boxes of 64 rows.
+  constexpr uint64_t ROW = 64 * 2;
+  CUtensorMap qmap, domap, kmap, vmap;
+  const uint64_t bhq = static_cast<uint64_t>(B) * a.Hq;
+  const uint64_t bhkv = static_cast<uint64_t>(B) * a.Hkv;
+  cudaError_t err = hopper::tensor_map_3d(&qmap, q, 64, a.Sq, bhq, ROW,
+                                          ROW * a.Sq, WT);
+  if (err == cudaSuccess)
+    err = hopper::tensor_map_3d(&domap, dout, 64, a.Sq, bhq, ROW,
+                                ROW * a.Sq, WT);
+  if (err == cudaSuccess)
+    err = hopper::tensor_map_3d(&kmap, k, 64, a.Skv, bhkv, ROW,
+                                ROW * a.Skv, WT);
+  if (err == cudaSuccess)
+    err = hopper::tensor_map_3d(&vmap, v, 64, a.Skv, bhkv, ROW,
+                                ROW * a.Skv, WT);
+  if (err != cudaSuccess) return err;
+  static bool dkdv_smem[hopper::MAX_DEVICES] = {};
+  static bool dq_smem[hopper::MAX_DEVICES] = {};
+  err = hopper::allow_smem(
+      reinterpret_cast<const void*>(flash_bwd_dkdv_wgmma_kernel), W_SMEM,
+      dkdv_smem);
+  if (err != cudaSuccess) return err;
+  err = hopper::allow_smem(
+      reinterpret_cast<const void*>(flash_bwd_dq_wgmma_kernel), W_SMEM,
+      dq_smem);
+  if (err != cudaSuccess) return err;
+
+  flash_bwd_rowstat_kernel<<<static_cast<unsigned>(rows_pad / (THREADS / 8)),
+                             THREADS, 0, stream>>>(
+      static_cast<const bf*>(o), static_cast<const bf*>(dout), lse, lse2,
+      delta, rows_pad, a.Sq, sq_pad);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const WgArgs w{lse2, delta, part_k, part_v, static_cast<bf*>(dq),
+                 a.Hq, a.Hkv, a.Sq, a.Skv, sq_pad, a.causal, a.window,
+                 sq_pad / WB, a.scale,
+                 static_cast<float>(LOG2E * static_cast<double>(a.scale))};
+  const dim3 grid_kv(static_cast<unsigned>(bhq), (a.Skv + WB - 1) / WB);
+  flash_bwd_dkdv_wgmma_kernel<<<grid_kv, W_THREADS, W_SMEM, stream>>>(
+      qmap, domap, kmap, vmap, w);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long n4 = static_cast<long long>(bhkv) * a.Skv * 16;
+  flash_bwd_reduce_kernel<<<static_cast<unsigned>((n4 + THREADS - 1) /
+                                                  THREADS),
+                            THREADS, 0, stream>>>(
+      part_k, part_v, static_cast<bf*>(dk), static_cast<bf*>(dv), n4,
+      a.Hq / a.Hkv, a.Skv, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q(static_cast<unsigned>(bhq), sq_pad / WB);
+  flash_bwd_dq_wgmma_kernel<<<grid_q, W_THREADS, W_SMEM, stream>>>(
+      qmap, domap, kmap, vmap, w);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; q, k, v, o, dout, dq, dk, dv contiguous
 // and 16-byte aligned, D a multiple of 8 up to 128.  lse: the forward's f32
-// [B*Hq*Sq]; delta: f32 scratch of the same size.  variant: 0 = simt, 1 =
-// mma (bf16, D = 64).  block, step, dp: the wrapper's schedule (keys of a
-// dK/dV block and rows of a dQ block; queries of a dK/dV step and keys of a
-// dQ step; the padded head dim), which must be the variant's own: simt
-// BT, BT and 64 or 128, mma MB, MT and 64.  Three kernels on `stream`.
+// [B*Hq*Sq].  scratch: f32, `scratch_floats` of them, 16-byte aligned: D
+// (B*Hq*Sq floats) for simt and mma; for wgmma the padded lse and D rows
+// and each query head's partial dK and dV (wgmma_scratch_floats).  variant:
+// 0 = simt, 1 = mma (bf16, D = 64), 2 = wgmma (bf16, D = 64).  block, step,
+// dp: the wrapper's schedule (keys of a dK/dV block and rows of a dQ block;
+// queries of a dK/dV step and keys of a dQ step; the padded head dim),
+// which must be the variant's own: simt BT, BT and 64 or 128, mma MB, MT
+// and 64, wgmma WB, WT and 64.  Three kernels on `stream` (wgmma: four).
 // Returns a cudaError_t: 0 on a successful launch, cudaErrorInvalidValue
-// for a shape, variant or schedule the kernels do not take.
+// for a shape, variant, schedule, scratch or alignment the kernels do not
+// take.
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const float* lse, const void* dout,
-                        void* dq, void* dk, void* dv, float* delta, int B,
-                        int Hq, int Hkv, int Sq, int Skv, int D, int dtype,
-                        int causal, int window, int variant, int block,
-                        int step, int dp, void* stream) {
+                        void* dq, void* dk, void* dv, float* scratch,
+                        long long scratch_floats, int B, int Hq, int Hkv,
+                        int Sq, int Skv, int D, int dtype, int causal,
+                        int window, int variant, int block, int step, int dp,
+                        void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0 || Hq % Hkv ||
       D <= 0 || D % 8 || D > MAX_D || window < 0 || B * Hq > 65535 ||
-      (causal && Sq > Skv) || !lse || !delta)
+      (causal && Sq > Skv) || !lse || !scratch)
     return static_cast<int>(cudaErrorInvalidValue);
   const BwdArgs a{Hq, Hkv, Sq, Skv, D, causal, window,
                   static_cast<float>(1.0 / sqrt(static_cast<double>(D)))};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uintptr_t any = reinterpret_cast<uintptr_t>(q) |
+      reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
+      reinterpret_cast<uintptr_t>(o) | reinterpret_cast<uintptr_t>(dout) |
+      reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
+      reinterpret_cast<uintptr_t>(dv) | reinterpret_cast<uintptr_t>(scratch);
+  if (any % 16 || reinterpret_cast<uintptr_t>(lse) % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (variant == 2) {
+    // TMA reads q, dO, k and v as [rows, 64] bf16 (128-byte rows) from
+    // 16-byte-aligned bases; the grid's y axis holds the tiles.
+    if (dtype != 1 || D != 64 || block != WB || step != WT || dp != 64 ||
+        scratch_floats < wgmma_scratch_floats(B, Hq, Sq, Skv) ||
+        (Sq + WB - 1) / WB > 65535 || (Skv + WB - 1) / WB > 65535)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_wgmma(q, k, v, o, lse, dout, dq, dk, dv,
+                                         scratch, B, a, s));
+  }
+  if (scratch_floats < static_cast<long long>(B) * Hq * Sq)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (variant == 1) {
-    const uintptr_t any = reinterpret_cast<uintptr_t>(q) |
-        reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
-        reinterpret_cast<uintptr_t>(o) | reinterpret_cast<uintptr_t>(dout) |
-        reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
-        reinterpret_cast<uintptr_t>(dv);
-    if (dtype != 1 || D != MD || any % 16 || block != MB || step != MT ||
-        dp != MD)
+    if (dtype != 1 || D != MD || block != MB || step != MT || dp != MD)
       return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(launch_mma(q, k, v, o, lse, dout, dq, dk, dv,
-                                       delta, B, a, s));
+                                       scratch, B, a, s));
   }
   if (variant != 0 || block != BT || step != BT ||
       dp != (D <= 64 ? 64 : 128))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return static_cast<int>(launch_d<float>(q, k, v, o, lse, dout, dq, dk,
-                                            dv, delta, B, a, s));
+                                            dv, scratch, B, a, s));
   if (dtype == 1)
     return static_cast<int>(launch_d<__nv_bfloat16>(
-        q, k, v, o, lse, dout, dq, dk, dv, delta, B, a, s));
+        q, k, v, o, lse, dout, dq, dk, dv, scratch, B, a, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

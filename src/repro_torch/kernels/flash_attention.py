@@ -36,20 +36,20 @@ SMS = 132              # H100 SXM
 MAX_SPLITS = 8
 MAX_GRID_Y = 65535
 BWD_MAX_HEAD_DIM = 128
-BWD_VARIANTS = {"simt": 0, "mma": 1}
+BWD_VARIANTS = {"simt": 0, "mma": 1, "wgmma": 2}
 # (block, step) of each backward variant: keys of a dK/dV block and rows of
 # a dQ block; queries of a dK/dV step and keys of a dQ step.
-BWD_TILES = {"simt": (32, 32), "mma": (64, 32)}
+BWD_TILES = {"simt": (32, 32), "mma": (64, 32), "wgmma": (64, 64)}
 # q, k, v, kv_len, out, lse; B, Hq, Hkv, Sq, Skv, D, dtype, causal, window,
 # variant, splits; part_o, part_ml, tickets, stream
 _SIGNATURES = {"flash_attention_fwd": (
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 4,
     ctypes.c_int)}
-# q, k, v, o, lse, dout, dq, dk, dv, delta; B, Hq, Hkv, Sq, Skv, D, dtype,
-# causal, window, variant, block, step, dp; stream
+# q, k, v, o, lse, dout, dq, dk, dv, scratch; scratch_floats; B, Hq, Hkv,
+# Sq, Skv, D, dtype, causal, window, variant, block, step, dp; stream
 _BWD_SIGNATURES = {"flash_attention_bwd": (
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13 + [ctypes.c_void_p],
-    ctypes.c_int)}
+    [ctypes.c_void_p] * 10 + [ctypes.c_longlong] + [ctypes.c_int] * 13
+    + [ctypes.c_void_p], ctypes.c_int)}
 # Per (device, stream): int32 tickets of the split-kv combine, zero between
 # launches (the combining block resets its own).  Launches on one stream run
 # in order, so they never share a ticket while both are in flight.
@@ -118,33 +118,61 @@ def plan_backward(b: int, hq: int, hkv: int, sq: int, skv: int, d: int,
                   dtype: torch.dtype) -> dict:
     """The backward kernels' variant, tiles and grids for one call.
 
-    Three passes: one warp per query row for ``D = rowsum(dO * O)``; a dK/dV
-    pass of one block per (``block``-key tile, b, kv head), walking the G
-    query heads of its kv head and, per head, the query tiles of
-    :func:`bwd_query_range` in steps of ``step``; a dQ pass of one block per
-    (``block``-row query tile, b, q head), walking the key tiles of
-    :func:`bwd_key_range` in steps of ``step``.  bf16 with D 64 goes to
-    ``mma`` (tensor cores); the rest to ``simt`` (f32 FMAs on the CUDA
-    cores, head dims padded to ``dp``).  The tiles are each variant's
-    ``BWD_TILES``, compiled into the kernels, which refuse a launch whose
-    ``block``, ``step`` or ``dp`` differs.
+    bf16 with D 64 (qwen2's train path) goes to ``wgmma``: tensor cores
+    through ``wgmma``, tiles brought by TMA, and the dK/dV work split over
+    the G query heads of each kv head.  The rest (f32, other head dims,
+    mixtral's D 128 among them) goes to ``simt``.  ``mma``, the design
+    before ``wgmma``, is reached only through :func:`backward_schedule`.
     """
     if d % 8 or d > BWD_MAX_HEAD_DIM:
         raise ValueError(f"head dim {d}: the backward kernel takes multiples "
                          f"of 8 up to {BWD_MAX_HEAD_DIM}")
-    variant = "mma" if dtype == torch.bfloat16 and d == 64 else "simt"
+    variant = "wgmma" if dtype == torch.bfloat16 and d == 64 else "simt"
     return backward_schedule(variant, b, hq, hkv, sq, skv, d)
 
 
 def backward_schedule(variant: str, b: int, hq: int, hkv: int, sq: int,
                       skv: int, d: int) -> dict:
-    """``variant``'s tiles and grids for one backward call (see
-    :func:`plan_backward`)."""
+    """``variant``'s tiles, grids and scratch for one backward call.
+
+    Every variant first takes ``D = rowsum(dO * O)`` per query row, then
+    runs a dK/dV pass over ``block``-key tiles, each block walking the
+    query tiles of :func:`bwd_query_range` in steps of ``step``, and a dQ
+    pass over ``block``-row query tiles walking the key tiles of
+    :func:`bwd_key_range` in steps of ``step``.
+
+    - ``simt`` and ``mma`` (``split_heads`` False): one dK/dV block per
+      (key tile, b, kv head) walks all G query heads of its kv head;
+      ``grid_dkdv`` is (key tiles, b * hkv), ``grid_dq`` (query tiles,
+      b * hq); the walks start at the range's first row (key).
+    - ``wgmma`` (``split_heads`` True): one dK/dV block per (b, q head, key
+      tile), the tile on the grid's slow axis (heaviest causal tiles
+      first); each writes its head's f32 partial dK and dV, and a reduce
+      pass (``grid_reduce`` blocks of 128 threads, four columns a thread)
+      sums the G heads of a kv head in head order.  ``grid_dkdv`` is
+      (b * hq, key tiles) and ``grid_dq`` (b * hq, query tiles); the walks
+      start at the multiple of ``step`` at or below the range's first row
+      (key), and the row statistics are padded to ``sq_pad`` rows.
+
+    The tiles are each variant's ``BWD_TILES``, compiled into the kernels,
+    which refuse a launch whose ``block``, ``step``, ``dp`` or
+    ``scratch_floats`` differs from their own.
+    """
     block, step = BWD_TILES[variant]
-    return {"variant": variant, "block": block, "step": step,
-            "dp": 64 if d <= 64 else 128,
-            "grid_dkdv": (-(-skv // block), b * hkv),
-            "grid_dq": (-(-sq // block), b * hq)}
+    kv_tiles, q_tiles = -(-skv // block), -(-sq // block)
+    dp = 64 if d <= 64 else 128
+    s = {"variant": variant, "block": block, "step": step, "dp": dp,
+         "split_heads": variant == "wgmma"}
+    if variant == "wgmma":
+        sq_pad = q_tiles * block
+        s.update(grid_dkdv=(b * hq, kv_tiles), grid_dq=(b * hq, q_tiles),
+                 grid_reduce=-(-b * hkv * skv * dp // (4 * 128)),
+                 sq_pad=sq_pad,
+                 scratch_floats=2 * b * hq * sq_pad + 2 * b * hq * skv * dp)
+    else:
+        s.update(grid_dkdv=(kv_tiles, b * hkv), grid_dq=(q_tiles, b * hq),
+                 scratch_floats=b * hq * sq)
+    return s
 
 
 def _tickets(device, stream, n):
@@ -283,12 +311,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         raise ValueError("flash_attention_bwd: the kernels take contiguous, "
                          "16-byte-aligned tensors")
     p = plan_backward(b, hq, hkv, sq, skv, d, q.dtype)
-    delta = torch.empty(b * hq * sq, dtype=torch.float32, device=q.device)
+    scratch = torch.empty(p["scratch_floats"], dtype=torch.float32,
+                          device=q.device)
     lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd(
             *(t.data_ptr() for t in ptrs[:6]), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), delta.data_ptr(), b, hq, hkv, sq, skv, d,
+            dv.data_ptr(), scratch.data_ptr(), p["scratch_floats"], b, hq,
+            hkv, sq, skv, d,
             _DTYPES[q.dtype], int(causal), int(window),
             BWD_VARIANTS[p["variant"]], p["block"], p["step"], p["dp"],
             torch.cuda.current_stream(q.device).cuda_stream)

@@ -416,9 +416,11 @@ BWD_SHAPES = [  # chip_smoke.py phase 2's backward cases, then the smoke dim
     (2, 4, 1, 64, 96, 32, False, 0),       # no mask, D 32
     (2, 7, 1, 16, 16, 8, True, 0),         # qwen2 smoke heads, D 8
 ]
+# The cases the tensor-core variants take (bf16 at D 64).
+BWD_SHAPES_D64 = [s for s in BWD_SHAPES if s[5] == 64]
 # Each gradient within this share of its largest magnitude: f32 sums the
 # same products in another order; bf16 rounds dq/dk/dv once on both sides,
-# and the tensor-core variant also rounds P and dS to bf16 as operands.
+# and the tensor-core variants also round P and dS to bf16 as operands.
 BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -467,12 +469,30 @@ def test_flash_backward_simt_matches_plain_in_bf16(cuda, monkeypatch, b, hq,
     assert fa.flash_attention_bwd.variant_launches["simt"] == before + 1
 
 
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", BWD_SHAPES_D64)
+def test_flash_backward_mma_matches_plain_in_bf16(cuda, monkeypatch, b, hq,
+                                                  hkv, sq, skv, d, causal,
+                                                  window):
+    """bf16 on the ``mma`` backward (the design before ``wgmma``), which
+    ``chip_smoke.py`` times beside it."""
+    monkeypatch.setattr(fa, "plan_backward", lambda *shape: (
+        fa.backward_schedule("mma", *shape[:6])))
+    before = fa.flash_attention_bwd.variant_launches["mma"]
+    test_flash_backward_matches_plain(cuda, b, hq, hkv, sq, skv, d, causal,
+                                      window, torch.bfloat16)
+    assert fa.flash_attention_bwd.variant_launches["mma"] == before + 1
+
+
 @pytest.mark.parametrize("variant,tiles", [("simt", (64, 32)),
-                                           ("mma", (64, 64))])
+                                           ("mma", (64, 64)),
+                                           ("wgmma", (64, 32)),
+                                           ("wgmma", (32, 32))])
 def test_flash_backward_refuses_another_schedule(cuda, monkeypatch, variant,
                                                  tiles):
     """The kernels check the wrapper's tiles against their own: a schedule
-    the Python side changed alone is refused, and nothing is counted."""
+    the Python side changed alone is refused, and nothing is counted.  The
+    ``wgmma`` rows ask for the ``mma`` and the ``simt`` tiles under the
+    ``wgmma`` variant number."""
     q, k, v, out, lse, do = _flash_bwd_case(1, 14, 2, 100, 100, 64, True, 0,
                                             torch.bfloat16, cuda)
     monkeypatch.setitem(fa.BWD_TILES, variant, tiles)
@@ -482,6 +502,40 @@ def test_flash_backward_refuses_another_schedule(cuda, monkeypatch, variant,
     with pytest.raises(RuntimeError, match=variant):
         fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
     assert fa.flash_attention_bwd.launches == before
+
+
+@pytest.mark.parametrize("fault", ["misaligned q", "misaligned dk",
+                                   "scratch too small"])
+def test_flash_backward_entry_refuses(cuda, fault):
+    """The C entry point of the ``wgmma`` backward refuses bases TMA cannot
+    take (not 16-byte aligned) and a scratch smaller than its schedule's,
+    rather than running on them."""
+    q, k, v, out, lse, do = _flash_bwd_case(1, 14, 2, 100, 100, 64, True, 0,
+                                            torch.bfloat16, cuda)
+    p = fa.plan_backward(1, 14, 2, 100, 100, 64, torch.bfloat16)
+    assert p["variant"] == "wgmma"
+    grads = [torch.empty(t.numel() + 8, dtype=t.dtype, device=cuda)
+             for t in (q, k, v)]
+    scratch = torch.empty(p["scratch_floats"], dtype=torch.float32,
+                          device=cuda)
+    ptr = {"q": q.data_ptr(), "dk": grads[1].data_ptr(),
+           "n": p["scratch_floats"]}
+    if fault == "misaligned q":
+        ptr["q"] += 8
+    elif fault == "misaligned dk":
+        ptr["dk"] += 2
+    else:
+        ptr["n"] -= 1
+    lib = _build.load("flash_attention_bwd", fa._BWD_SIGNATURES)
+    err = lib.flash_attention_bwd(
+        ptr["q"], k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        do.data_ptr(), grads[0].data_ptr(), ptr["dk"], grads[2].data_ptr(),
+        scratch.data_ptr(), ptr["n"], 1, 14, 2, 100, 100, 64, 1, 1, 0,
+        fa.BWD_VARIANTS["wgmma"], p["block"], p["step"], p["dp"],
+        torch.cuda.current_stream(cuda).cuda_stream)
+    torch.cuda.synchronize()
+    assert err != 0
+    assert "invalid argument" in lib.repro_cuda_error_string(err).decode()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -523,6 +577,27 @@ def test_flash_autograd_on_card(cuda):
     want = torch.autograd.grad(ref.flash_reference(*xs, causal=True), xs, do)
     for g, w in zip(grads, want):
         assert (g - w).abs().max() <= BWD_REL[torch.float32] * w.abs().max()
+
+
+def test_flash_autograd_bf16_launches_wgmma_backward(cuda):
+    """Autograd through the wrapper on a bf16 D-64 call: one ``wgmma``
+    backward launch, gradients within ``BWD_REL`` of the plain backward's
+    on the same inputs (f32 arithmetic)."""
+    q, k, v = (t.requires_grad_() for t in _qkv(2, 14, 2, 256, 256, 64,
+                                                torch.bfloat16, cuda))
+    before = dict(fa.flash_attention_bwd.variant_launches)
+    out = flash_attention(q, k, v, causal=True)
+    do = torch.randn_like(out)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert fa.flash_attention_bwd.variant_launches == dict(
+        before, wgmma=before["wgmma"] + 1)
+    xs = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.flash_reference(*xs, causal=True), xs,
+                               do.float())
+    for g, w in zip(grads, want):
+        assert g.dtype == torch.bfloat16
+        err = (g.float() - w).abs().max()
+        assert err <= BWD_REL[torch.bfloat16] * w.abs().max(), err
 
 
 def test_qwen2_two_layer_step_kernel_vs_plain(cuda, monkeypatch):

@@ -2,9 +2,11 @@
 (``ref.flash_backward_reference``, step by step from the forward's output
 and row log-sum-exp) and autograd through its plain forward, against
 ``jax.vjp`` of the JAX package's ``kernels/ref.flash_reference``; the
-forward's LSE against a float64 log-sum-exp; the backward kernels' tile
-schedule (``plan_backward``, ``bwd_query_range``, ``bwd_key_range``)
-written out in plain PyTorch against the plain backward; and the blocked
+forward's LSE against a float64 log-sum-exp; each backward variant's tile
+schedule (``plan_backward``, ``backward_schedule``, ``bwd_query_range``,
+``bwd_key_range``; for ``wgmma`` the dK/dV work split over the query heads
+and the fixed-order sum of their partials) written out in plain PyTorch
+against the plain backward; and the blocked
 plain attention of long sequences against JAX.
 
 All in f32 on the CPU.  Tolerance: each gradient within 1e-5 of its largest
@@ -116,18 +118,24 @@ def _visible(i, j, sq, skv, causal, window):
     return j <= i + offs and (window == 0 or i + offs - j < window)
 
 
-def schedule_backward(q, k, v, o, lse, do, *, causal, window, dtype):
-    """The backward kernels' tile schedule for ``dtype``'s plan, in plain
-    PyTorch (f32): the D pass; dK/dV blocks per (key tile, b, kv head)
-    walking the G heads and the query tiles of ``bwd_query_range``; dQ
-    blocks per (query tile, b, q head) walking the key tiles of
-    ``bwd_key_range``.  Also returns the (query, key) pairs each pass visits
-    with a visible mask."""
+def schedule_backward(q, k, v, o, lse, do, *, causal, window, variant):
+    """``variant``'s tile schedule (``fa.backward_schedule``) in plain
+    PyTorch (f32): the D pass, the dK/dV blocks walking the query tiles of
+    ``bwd_query_range`` and the dQ blocks walking the key tiles of
+    ``bwd_key_range``.  ``simt`` and ``mma``: a dK/dV block per (key tile,
+    b, kv head) walks the G heads of its kv head, from the range's first
+    row.  ``wgmma``: a dK/dV block per (b, q head, key tile) writes its
+    head's partials, walking from the multiple of ``step`` at or below the
+    range's first row, and a reduce pass sums the G heads of each kv head
+    in head order; dQ blocks walk from the multiple of ``step`` at or below
+    the first key, the last row tile first.  Also returns the (b, head,
+    query, key) pairs each pass visits with a visible mask, as lists, so
+    that a pair visited twice shows."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     group = hq // hkv
-    p = fa.plan_backward(b, hq, hkv, sq, skv, d, dtype)
-    assert p["dp"] >= d
+    p = fa.backward_schedule(variant, b, hq, hkv, sq, skv, d)
+    assert p["dp"] >= d and p["split_heads"] == (variant == "wgmma")
     scale = 1.0 / math.sqrt(d)
     delta = (do * o).sum(-1)                              # [B,Hq,Sq]
     offs = skv - sq
@@ -146,46 +154,71 @@ def schedule_backward(q, k, v, o, lse, do, *, causal, window, dtype):
         pt = torch.where(vis, torch.exp(s - lse[bi, h, i0:i0 + nr, None]),
                          0.0)
         ds = pt * (dos @ vs.T - delta[bi, h, i0:i0 + nr, None])
-        pairs = {(int(a), int(c)) for a, c in
-                 zip(*torch.nonzero(vis, as_tuple=True))}
-        pairs = {(i0 + a, j0 + c) for a, c in pairs}
+        pairs = [(bi, h, i0 + int(a), j0 + int(c)) for a, c in
+                 zip(*torch.nonzero(vis, as_tuple=True))]
         return pt, ds, qs, dos, ks, pairs
 
     dq, dk, dv = (torch.zeros_like(x) for x in (q, k, v))
-    seen_kv, seen_q = set(), set()
-    kv_tiles, bk = p["grid_dkdv"]
-    assert bk == b * hkv
+    seen_kv, seen_q = [], []
     keys, step = p["block"], p["step"]
+    split = p["split_heads"]
+
+    def first(lo):
+        return lo // step * step if split else lo
+
+    if split:
+        bh, kv_tiles = p["grid_dkdv"]
+        assert bh == b * hq
+        part_k = torch.zeros(b, hq, skv, d)
+        part_v = torch.zeros(b, hq, skv, d)
+    else:
+        kv_tiles, bk = p["grid_dkdv"]
+        assert bk == b * hkv
     for kt in range(kv_tiles):
         j0 = kt * keys
         nk = min(keys, skv - j0)
         lo, hi = fa.bwd_query_range(j0, nk, sq, skv, causal, window)
         for bi in range(b):
-            for kh in range(hkv):
-                for g in range(group):
-                    h = kh * group + g
-                    for i0 in range(lo, hi, step):
-                        nr = min(step, hi - i0)
-                        pt, ds, qs, dos, _, pairs = tile(bi, h, kh, i0, nr,
-                                                         j0, nk)
+            for h in range(hq):
+                kh = h // group
+                for i0 in range(first(lo), hi if hi > lo else 0, step):
+                    nr = min(step, sq - i0)
+                    pt, ds, qs, dos, _, pairs = tile(bi, h, kh, i0, nr, j0,
+                                                     nk)
+                    if split:
+                        part_v[bi, h, j0:j0 + nk] += pt.T @ dos
+                        part_k[bi, h, j0:j0 + nk] += ds.T @ qs
+                    else:
                         dv[bi, kh, j0:j0 + nk] += pt.T @ dos
                         dk[bi, kh, j0:j0 + nk] += ds.T @ qs * scale
-                        seen_kv |= {(bi, h) + pr for pr in pairs}
-    q_tiles, bq = p["grid_dq"]
-    assert bq == b * hq
+                    seen_kv += pairs
+    if split:
+        assert p["grid_reduce"] * 128 * 4 >= b * hkv * skv * p["dp"]
+        for kh in range(hkv):
+            for g in range(group):                        # head order
+                dk[:, kh] += part_k[:, kh * group + g]
+                dv[:, kh] += part_v[:, kh * group + g]
+        dk *= scale
+        bh, q_tiles = p["grid_dq"]
+        assert bh == b * hq and q_tiles * keys == p["sq_pad"]
+        row_tiles = [q_tiles - 1 - y for y in range(q_tiles)]
+    else:
+        q_tiles, bq = p["grid_dq"]
+        assert bq == b * hq
+        row_tiles = range(q_tiles)
     rows = p["block"]
-    for qt in range(q_tiles):
+    for qt in row_tiles:
         i0 = qt * rows
         nr = min(rows, sq - i0)
         lo, hi = fa.bwd_key_range(i0, nr, sq, skv, causal, window)
         for bi in range(b):
             for h in range(hq):
-                for j0 in range(lo, hi, step):
-                    nk = min(step, hi - j0)
+                for j0 in range(first(lo), hi if hi > lo else 0, step):
+                    nk = min(step, skv - j0)
                     _, ds, _, _, ks, pairs = tile(bi, h, h // group, i0, nr,
                                                   j0, nk)
                     dq[bi, h, i0:i0 + nr] += ds @ ks * scale
-                    seen_q |= {(bi, h) + pr for pr in pairs}
+                    seen_q += pairs
     return (dq, dk, dv), seen_kv, seen_q
 
 
@@ -199,32 +232,45 @@ def schedule_backward(q, k, v, o, lse, do, *, causal, window, dtype):
     ("mma", 1, 4, 2, 45, 130, 64, True, 0),
     ("mma", 1, 4, 1, 150, 150, 64, True, 40),
     ("mma", 1, 2, 2, 37, 70, 64, False, 0),
+    ("wgmma", 1, 14, 2, 100, 100, 64, True, 0),
+    ("wgmma", 1, 4, 2, 45, 130, 64, True, 0),
+    ("wgmma", 1, 4, 1, 150, 150, 64, True, 40),
+    ("wgmma", 1, 14, 2, 77, 131, 64, True, 33),
+    ("wgmma", 1, 2, 2, 37, 70, 64, False, 0),
 ], ids=["causal-70", "sq<skv", "window-33", "full", "qwen2-heads",
-        "mma-qwen2-heads", "mma-sq<skv", "mma-window-40", "mma-full"])
+        "mma-qwen2-heads", "mma-sq<skv", "mma-window-40", "mma-full",
+        "wgmma-qwen2-heads", "wgmma-sq<skv", "wgmma-window-40",
+        "wgmma-window-33-sq<skv", "wgmma-full"])
 def test_backward_schedule_matches_plain(variant, b, hq, hkv, sq, skv, d,
                                          causal, window):
-    dtype = torch.bfloat16 if variant == "mma" else torch.float32
-    assert fa.plan_backward(b, hq, hkv, sq, skv, d, dtype)["variant"] \
-        == variant
+    """The schedule the plan picks (``simt`` for f32, ``wgmma`` for bf16 at
+    D 64), and ``mma`` as the forced schedule ``chip_smoke.py`` times."""
+    if variant != "mma":
+        dtype = torch.bfloat16 if variant == "wgmma" else torch.float32
+        assert fa.plan_backward(b, hq, hkv, sq, skv, d, dtype)["variant"] \
+            == variant
     q, k, v, do = map(torch.from_numpy, _inputs(b, hq, hkv, sq, skv, d,
                                                 seed=2))
     o, lse = ref.flash_reference_lse(q, k, v, causal=causal, window=window)
     got, seen_kv, seen_q = schedule_backward(q, k, v, o, lse, do,
                                              causal=causal, window=window,
-                                             dtype=dtype)
+                                             variant=variant)
     want = ref.flash_backward_reference(q, k, v, o, lse, do, causal=causal,
                                         window=window)
     _assert_grads(got, [w.numpy() for w in want], "schedule")
-    # Each pass visits every visible (b, head, query, key) pair once, and
-    # the tile ranges skip no visible pair.
+    # Each pass visits every visible (b, head, query, key) pair exactly
+    # once, and the tile ranges skip no visible pair.
     every = {(bi, h, i, j) for bi in range(b) for h in range(hq)
              for i in range(sq) for j in range(skv)
              if _visible(i, j, sq, skv, causal, window)}
-    assert seen_kv == every and seen_q == every
+    for seen in (seen_kv, seen_q):
+        assert len(seen) == len(set(seen)) and set(seen) == every
 
 
 @pytest.mark.parametrize("shape,dtype,planned,variant,dp,grid_dkdv,grid_dq", [
-    ((4, 14, 2, 2048, 2048, 64), torch.bfloat16, True, "mma", 64, (32, 8),
+    ((4, 14, 2, 2048, 2048, 64), torch.bfloat16, True, "wgmma", 64,
+     (56, 32), (56, 32)),
+    ((4, 14, 2, 2048, 2048, 64), torch.bfloat16, False, "mma", 64, (32, 8),
      (32, 56)),
     ((4, 14, 2, 2048, 2048, 64), torch.bfloat16, False, "simt", 64,
      (64, 8), (64, 56)),
@@ -234,16 +280,43 @@ def test_backward_schedule_matches_plain(variant, b, hq, hkv, sq, skv, d,
      (3, 32)),
     ((2, 4, 1, 33, 70, 8), torch.bfloat16, True, "simt", 64, (3, 2),
      (2, 8)),
+    ((1, 14, 2, 77, 131, 64), torch.bfloat16, True, "wgmma", 64, (14, 3),
+     (14, 2)),
 ])
 def test_plan_backward(shape, dtype, planned, variant, dp, grid_dkdv,
                        grid_dq):
-    """The planned schedule, or (``planned`` False) the CUDA-core one that
-    is timed beside ``mma``."""
-    p = (fa.plan_backward(*shape, dtype) if planned
-         else fa.backward_schedule("simt", *shape))
+    """The planned schedule, or (``planned`` False) the forced ones that
+    ``chip_smoke.py`` times beside it: ``mma``, the design before
+    ``wgmma``, and the CUDA-core ``simt``."""
+    if planned:
+        assert fa.plan_backward(*shape, dtype) == \
+            fa.backward_schedule(variant, *shape)
+    p = fa.backward_schedule(variant, *shape)
     assert p["variant"] == variant and p["dp"] == dp
     assert (p["block"], p["step"]) == fa.BWD_TILES[variant]
     assert p["grid_dkdv"] == grid_dkdv and p["grid_dq"] == grid_dq
+
+
+@pytest.mark.parametrize("variant,scratch,extra", [
+    ("wgmma", 2 * 56 * 2048 + 2 * 56 * 2048 * 64,
+     {"split_heads": True, "sq_pad": 2048, "grid_reduce": 2048}),
+    ("mma", 56 * 2048, {"split_heads": False}),
+    ("simt", 56 * 2048, {"split_heads": False}),
+])
+def test_backward_scratch(variant, scratch, extra):
+    """The f32 scratch each variant's entry point checks: D per query row
+    (``simt``, ``mma``); for ``wgmma`` the lse and D rows padded to whole
+    64-row tiles and each query head's partial dK and dV (2 x 29.4 MB at
+    qwen2's train shape), which the reduce pass sums."""
+    p = fa.backward_schedule(variant, 4, 14, 2, 2048, 2048, 64)
+    assert p["scratch_floats"] == scratch
+    assert {k_: p[k_] for k_ in extra} == extra
+    ragged = fa.backward_schedule(variant, 1, 14, 2, 77, 131, 64)
+    if variant == "wgmma":
+        assert ragged["sq_pad"] == 128
+        assert ragged["scratch_floats"] == 2 * 14 * 128 + 2 * 14 * 131 * 64
+    else:
+        assert ragged["scratch_floats"] == 14 * 77
 
 
 @pytest.mark.parametrize("d", [12, 136])
