@@ -27,8 +27,10 @@ Phases; any failure exits non-zero before the last line is printed:
    ``flash_backward_reference`` on the same output and LSE, f32 (``simt``)
    and bf16 (``wgmma`` where planned, at D 64, with the earlier ``mma``
    design forced beside it, and ``simt``), GQA 14/2 and 32/8, ragged
-   lengths, a window, qwen2's train shape ``[4,14,2048,64]``, and a second
-   call's bits on every variant.
+   lengths, a window, the train shapes of qwen2 ``[4,14,2048,64]``,
+   llama3.2-1b ``[4,32,2048,64]`` (kv 8 heads, G = 4) and smollm-135m
+   ``[8,9,1024,64]`` (kv 3 heads, G = 3), and a second call's bits on every
+   variant.
 3. Each serve path at full width, with seeded random weights, 8 requests
    over 4 slots, 16 tokens each, ``--capture``: qwen2-0.5b (24 layers),
    then mixtral-8x7b with its depth cut to 4 layers (the 32-layer model
@@ -62,10 +64,11 @@ Phases; any failure exits non-zero before the last line is printed:
    call inside it).
 
    Then qwen2-0.5b training (after rwkv6 frees its tensors): the flash
-   forward (saving the LSE) and backward at the train shape beside their
-   bounds, the plain versions and SDPA's forward and backward timed apart,
-   the backward on ``wgmma`` with its passes' device times, beside ``mma``
-   and ``simt`` on the same inputs;
+   forward (saving the LSE) and backward at each model's train shape
+   (qwen2, llama3.2-1b, smollm-135m) beside their bounds, the plain
+   versions and SDPA's forward and backward timed apart, the backward on
+   ``wgmma`` with its passes' device times, at qwen2's beside ``mma`` and
+   ``simt`` on the same inputs;
    at full width cut to 2 layers, batch 4 x 2048, loss and gradients
    through the kernels against the plain path in f32 and bf16; all 24
    layers under remat none, full, dots and dtr (flash launches 24 + 24,
@@ -106,12 +109,37 @@ Phases; any failure exits non-zero before the last line is printed:
    Then the full-width qwen2-0.5b train-step capture: its peak beside the
    card's step under remat none, ``check_log`` and scan == index at 0.9.
 
+9. The training driver and the paper's experiments (its own wall time
+   printed).  (a) The train launcher at its defaults (llama3.2-1b, remat
+   dtr, AdamW) at full width: 16 layers, batch 4 x 2048, bf16 activations,
+   3 steps through ``train_loop`` without a checkpoint manager; flash
+   launches 32 + 16 a step, all on ``wgmma``; the step's wall, device
+   busy, idle share, tokens/s and the flash kernels inside it;
+   ``max_memory_allocated`` and the ``MemoryMonitor`` summary (the caching
+   allocator's largest free block); one loss-and-grads call under remat
+   none and under dtr, gradients bit-identical, dtr's peak lower.  (b)
+   smollm-135m (30 layers, batch 8 x 1024) through the launcher with
+   checkpoints every 4 steps into a temp dir, interrupted from ``on_step``
+   before step 7; a fresh launcher restores step 4: parameters and
+   optimizer state bit-identical to the ones saved, the losses of the
+   steps both runs took bit-identical, exactly ``keep`` checkpoints and no
+   temp dir left; one step's breakdown.  (c) The examples on the card:
+   ``quickstart``'s three parts, ``train_lm`` (60 steps, f32 on ``simt``)
+   learning, ``dynamic_treelstm`` (loss falls, remats, ``live_bytes()``
+   within the budget and one op's output after every op).  (d) Table 1's
+   eager rows at dim 128 and 16384 (a 1 GiB weight) with the plain peak
+   measured (``max_memory_allocated``) beside the reference's formula,
+   ``max_dtr > max_plain``; one whole simulated case against the JAX
+   package's row; Fig. 4's planner times.  The rows as a JSON line.
+
 Phase 4 also holds layer 0 alone in bf16 (attention output, MLP or MoE
 output), kernel against plain on the same inputs, to the kernels' own
 tolerances.  The qwen2 phases run first and free their tensors before
 mixtral's 36 GB (f32 weights and their bf16 copy) arrive; rwkv6 comes
-next, the eager executor last.  Then one JSON line per kernel table, the
-card line, and ``{"ok": true, "device": {...}}`` as the last line.
+next, then the eager executor, the planner and phase 9.  Then the JSON
+line of phase 9's rows, one JSON line per kernel table (the flash rows
+with each train shape's launches, times, bound and SDPA's time), the card
+line, and ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
@@ -225,11 +253,24 @@ SERVE_FRACTIONS = (0.9, 0.6)
 # shape.  Each of dq/dk/dv within this share of its max|.|: f32 sums the
 # same products in another order; bf16 rounds each gradient once.
 FLASH_TRAIN = (4, 14, 2, 2048, 2048, 64, True, 0)
+# The train shapes of phase 9's models: llama3.2-1b at batch 4 x 2048, GQA
+# 32/8 (G = 4); smollm-135m at batch 8 x 1024, GQA 9/3 (G = 3, an odd head
+# count).
+FLASH_LLAMA = (4, 32, 8, 2048, 2048, 64, True, 0)
+FLASH_SMOLLM = (8, 9, 3, 1024, 1024, 64, True, 0)
+# Phase 9c's f32 attention, on `simt`: the quickstart's llama3.2-1b smoke
+# (batch 4 x 64, 8/2 heads of 8) and train_lm's widened smoke (batch 16 x
+# 128, 8/4 heads of 32).
+FLASH_QUICKSTART = (4, 8, 2, 64, 64, 8, True, 0)
+FLASH_TRAIN_LM = (16, 8, 4, 128, 128, 32, True, 0)
+FLASH_TRAIN_SHAPES = {"qwen2-0.5b": FLASH_TRAIN, "llama3.2-1b": FLASH_LLAMA,
+                      "smollm-135m": FLASH_SMOLLM}
 FLASH_BWD_CASES = [(2, 4, 2, 128, 128, 64, True, 0),
                    (1, 14, 2, 100, 100, 64, True, 0),
                    (1, 14, 2, 77, 131, 64, True, 33),
                    (1, 32, 8, 96, 96, 128, True, 0),
-                   (2, 4, 1, 64, 96, 32, False, 0), FLASH_TRAIN]
+                   (2, 4, 1, 64, 96, 32, False, 0), FLASH_TRAIN, FLASH_LLAMA,
+                   FLASH_SMOLLM, FLASH_QUICKSTART, FLASH_TRAIN_LM]
 FLASH_BWD_REL = {"float32": 1e-4, "bfloat16": 2e-2}
 # The forward's row log-sum-exp, f32 on both sides.
 LSE_TOL = 1e-4
@@ -257,6 +298,29 @@ PLAN_MLP = dict(d=4096, layers=8, batch=8192)
 PLAN_FRACTIONS = (0.8, 0.7)
 PLAN_INFEASIBLE = (0.6, 0.4)
 CAPTURE_FRACTION = 0.9
+# Phase 9: the training driver and the paper's experiments.  9a: the
+# launcher at its defaults (llama3.2-1b, remat dtr, AdamW) at full width,
+# batch 4 x 2048, 3 steps, without checkpoints (step 0 would write its
+# 14.8 GB of parameters and moments).  9b: smollm-135m at batch 8 x 1024,
+# 13 steps, checkpoints every 4 (the CLI keeps 2), interrupted before step
+# 11 and resumed from step 8: the first run saves 0, 4, 8 and deletes 0,
+# the second saves 12 and deletes 4, and both take steps 9 and 10.  9c: the
+# examples; train_lm for 60 steps.  9d: Table 1's eager rows at the
+# reference's width (dim 128) and at one whose weight is 1 GiB (vectors of
+# 64 KiB), and Fig. 4's planner.
+LLAMA_ARCH = "llama3.2-1b"
+LLAMA_BATCH, LLAMA_SEQ, LLAMA_STEPS = 4, 2048, 3
+SMOLLM_ARCH = "smollm-135m"
+SMOLLM_BATCH, SMOLLM_SEQ = 8, 1024
+RESUME = dict(steps=13, every=4, interrupt=11, keep=2)
+TRAIN_LM_STEPS = 60
+TREELSTM_DIMS = (128, 16384)
+# Phase 9d: one whole case of Table 1's simulation (run_simulated, the
+# engine only), held to the row the JAX package's engine gives on the CPU
+# (pinned by tests/test_torch_examples.py).
+TABLE1_CASE = "mlp"
+TABLE1_ROW = {"bench": "sim", "model": "mlp", "budget": 26882,
+              "max_plain": 1, "max_dtr": 4, "gain": 4.0}
 WKV_STEP_KERNELS = {
     "rwkv6_fwd": ("span_kernel<64, false>", "scan_kernel<false>",
                   "fwd_kernel<64>"),
@@ -429,12 +493,13 @@ def flash_bwd_checks(torch, gen) -> float:
     against ``flash_reference_lse``, the backward kernels against
     ``flash_backward_reference`` on the same output and LSE, and a second
     call's bits; bf16 on the planned variant, on ``mma`` where it takes the
-    shape (D 64) and on ``simt``.  Returns the bf16 train shape's max abs
-    errors, forward and backward (both ``wgmma``)."""
+    shape (D 64) and on ``simt``.  Returns each bf16 train shape's max abs
+    errors, forward and backward (both ``wgmma``), by its model."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     print("phase 2: flash_attention_bwd against flash_backward_reference")
-    train_err = None
+    train_err = {}
+    arch_of = {case: arch for arch, case in FLASH_TRAIN_SHAPES.items()}
     for dtype_name, dtype in (("float32", torch.float32),
                               ("bfloat16", torch.bfloat16)):
         for case in FLASH_BWD_CASES:
@@ -494,13 +559,15 @@ def flash_bwd_checks(torch, gen) -> float:
                       f"bits: {same} {'ok' if ok else 'FAIL'}")
                 require(ok, f"flash backward kernel against plain: "
                         f"{dtype_name} {case} {variant}")
-                if (case == FLASH_TRAIN and dtype_name == "bfloat16"
+                if (case in arch_of and dtype_name == "bfloat16"
                         and variant == "wgmma"):
                     require(fwd_variant == "wgmma",
-                            "bf16 train forward on wgmma")
-                    train_err = {"fwd": out_err, "bwd": err}
+                            f"bf16 train forward on wgmma {case}")
+                    train_err[arch_of[case]] = {"fwd": out_err, "bwd": err}
                 del grads, again
             del q, k, v, do, out, lse, expect, want_out
+    require(train_err.keys() == FLASH_TRAIN_SHAPES.keys(),
+            f"every train shape on wgmma: {sorted(train_err)}")
     return train_err
 
 
@@ -584,6 +651,22 @@ def read_variants() -> dict:
     return {name: dict(fn.variant_launches)
             for name, fn in _wrappers().items()
             if hasattr(fn, "variant_launches")}
+
+
+def counting_steps(per_step, hook=None):
+    """An ``on_step`` that keeps each finished step's launches (in all and
+    per variant) and resets the counts before the next; ``hook(step)``, if
+    given, runs after."""
+    started = []
+
+    def on_step(step):
+        if started:
+            per_step.append((read_launches(), read_variants()))
+        started.append(step)
+        reset_launches()
+        if hook is not None:
+            hook(step)
+    return on_step
 
 
 def ran_variant(counts) -> str:
@@ -1022,17 +1105,13 @@ def rwkv_train_phases(torch, card, gen) -> dict:
             "--arch", RWKV_ARCH, "--steps", str(steps), "--batch",
             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--remat", remat])
         per_step = []
-
-        def on_step(i, per_step=per_step):
-            if i:
-                per_step.append((read_launches(), read_variants()))
-            reset_launches()
-
         torch.cuda.reset_peak_memory_stats()
         res = train.train_loop(train.config_from_args(args), params, args,
-                               verbose=False, on_step=on_step)
+                               verbose=False,
+                               on_step=counting_steps(per_step))
         per_step.append((read_launches(), read_variants()))
-        runs[remat] = (res, per_step)
+        # The record only: the next run's peak holds no moments of this one.
+        runs[remat] = (res.drop_state(), per_step)
         fwd_per = (2 if remat == "full" else 1) * cfg.n_layers
         print(f"phase 6: {RWKV_ARCH} ({cfg.n_layers} layers) train, remat "
               f"{remat}, batch {TRAIN_BATCH}x{TRAIN_SEQ}: losses "
@@ -1134,48 +1213,58 @@ def _step_kernels_ms(names, parts, calls):
 
 
 def flash_train_times(torch, card, gen) -> dict:
-    """Phase 5 for the flash kernels at qwen2's train shape, before any
-    large profile: the forward that saves the LSE and the backward, beside
-    their bounds, their plain versions and SDPA's forward and backward
-    (timed apart)."""
+    """Phase 5 for the flash kernels at each model's train shape, before
+    any large profile: the forward that saves the LSE and the backward
+    (with each pass's device time), beside their bounds, their plain
+    versions and SDPA's forward and backward (timed apart); at qwen2's
+    shape also the backward's earlier designs, ``mma`` and ``simt``.
+    Returns the rows by model."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
-    b, hq, hkv, sq, skv, d, _, _ = FLASH_TRAIN
-    shape = dict(b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, d=d, kv_len=None)
-    q, k, v, _ = inputs(torch, shape, torch.bfloat16, gen)
-    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
-    out, lse = fa._forward(q, k, v, True, 0, None, save_lse=True)
-    xs = [t.detach().requires_grad_() for t in (q, k, v)]
-    lib_out = F.scaled_dot_product_attention(*xs, is_causal=True,
-                                             enable_gqa=True)
-    rows = {"fwd": time_row(torch, (
-        ("ms", lambda: fa._forward(q, k, v, True, 0, None, save_lse=True)),
-        ("plain_ms", lambda: ref.flash_reference_lse(q, k, v, causal=True)),
-        ("library_ms", lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True))), 10,
-        attention_bound_ms(shape, True, 2, "bfloat16"),
-        f"flash_attention train forward {list(FLASH_TRAIN[:6])} bf16, "
-        f"saving the LSE (library: SDPA forward)", card, {"ms": 1})}
-    bwd = (lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
-                                          causal=True))
-    require(fa.plan_backward(*FLASH_TRAIN[:6], torch.bfloat16)["variant"]
-            == "wgmma", "the train shape's backward planned on wgmma")
-    rows["bwd"] = time_row(torch, (
-        ("ms", bwd), ("mma_ms", bwd), ("simt_ms", bwd),
-        ("plain_ms", lambda: ref.flash_backward_reference(
-            q, k, v, out, lse, do, causal=True)),
-        ("library_ms", lambda: torch.autograd.grad(
-            lib_out, xs, do, retain_graph=True))), 5,
-        flash_bwd_bound_ms(FLASH_TRAIN, 2),
-        f"flash_attention_bwd {list(FLASH_TRAIN[:6])} bf16 (ms: wgmma; "
-        f"mma_ms: the previous design; library: SDPA's backward alone)",
-        card, {"ms": 4, "mma_ms": 3, "simt_ms": 3},
-        {"ms": FLASH_STEP_KERNELS["flash_attention_bwd"],
-         "mma_ms": FLASH_MMA_BWD_KERNELS})
-    del q, k, v, do, out, lse, xs, lib_out
-    gc.collect()
-    torch.cuda.empty_cache()
+    rows = {}
+    for arch, case in FLASH_TRAIN_SHAPES.items():
+        b, hq, hkv, sq, skv, d, _, _ = case
+        shape = dict(b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, d=d, kv_len=None)
+        q, k, v, _ = inputs(torch, shape, torch.bfloat16, gen)
+        do = torch.randn(q.shape, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        out, lse = fa._forward(q, k, v, True, 0, None, save_lse=True)
+        xs = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*xs, is_causal=True,
+                                                 enable_gqa=True)
+        fwd = time_row(torch, (
+            ("ms", lambda: fa._forward(q, k, v, True, 0, None,
+                                       save_lse=True)),
+            ("plain_ms", lambda: ref.flash_reference_lse(q, k, v,
+                                                         causal=True)),
+            ("library_ms", lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))), 10,
+            attention_bound_ms(shape, True, 2, "bfloat16"),
+            f"flash_attention train forward, {arch} {list(case[:6])} bf16, "
+            f"saving the LSE (library: SDPA forward)", card, {"ms": 1})
+        bwd = (lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                              causal=True))
+        require(fa.plan_backward(*case[:6], torch.bfloat16)["variant"]
+                == "wgmma", f"{arch}'s train backward planned on wgmma")
+        earlier = ((("mma_ms", bwd), ("simt_ms", bwd))
+                   if case == FLASH_TRAIN else ())
+        rows[arch] = {"fwd": fwd, "bwd": time_row(torch, (
+            ("ms", bwd), *earlier,
+            ("plain_ms", lambda: ref.flash_backward_reference(
+                q, k, v, out, lse, do, causal=True)),
+            ("library_ms", lambda: torch.autograd.grad(
+                lib_out, xs, do, retain_graph=True))), 5,
+            flash_bwd_bound_ms(case, 2),
+            f"flash_attention_bwd, {arch} {list(case[:6])} bf16 (ms: "
+            f"wgmma{'; mma_ms: the previous design' if earlier else ''}; "
+            f"library: SDPA's backward alone)",
+            card, {"ms": 4, "mma_ms": 3, "simt_ms": 3},
+            {"ms": FLASH_STEP_KERNELS["flash_attention_bwd"],
+             "mma_ms": FLASH_MMA_BWD_KERNELS})}
+        del q, k, v, do, out, lse, xs, lib_out
+        gc.collect()
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1307,15 +1396,10 @@ def qwen_train_phases(torch, card) -> dict:
         "--arch", ARCH, "--steps", "3", "--batch", str(QWEN_BATCH),
         "--seq", str(QWEN_SEQ), "--remat", "none"])
     per_step = []
-
-    def on_step(i):
-        if i:
-            per_step.append((read_launches(), read_variants()))
-        reset_launches()
-
     torch.cuda.reset_peak_memory_stats()
     res = train.train_loop(train.config_from_args(args), params, args,
-                           verbose=False, on_step=on_step)
+                           verbose=False,
+                           on_step=counting_steps(per_step)).drop_state()
     per_step.append((read_launches(), read_variants()))
     print(f"phase 6: {ARCH} ({cfg.n_layers} layers) train loop, AdamW, "
           f"remat none, batch {QWEN_BATCH}x{QWEN_SEQ}: losses {res.losses}, "
@@ -1387,9 +1471,10 @@ def qwen_train_phases(torch, card) -> dict:
     torch.cuda.empty_cache()
 
     # -- 6.5 the train CLI, a policy by name and Adafactor -------------------
-    train.main(["--arch", ARCH, "--steps", "1", "--batch", "1", "--seq",
-                str(QWEN_SEQ), "--remat", "names:attn_out,ffn_out",
-                "--optimizer", "adafactor"])
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        train.main(["--arch", ARCH, "--steps", "1", "--batch", "1", "--seq",
+                    str(QWEN_SEQ), "--remat", "names:attn_out,ffn_out",
+                    "--optimizer", "adafactor", "--ckpt-dir", ckpt_dir])
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": main_launches, "variants": bwd_variants,
@@ -1725,6 +1810,407 @@ def planner_phase(torch, card, train_peak) -> None:
     require(rep["ok"], "8: scan and index replays of the train capture")
 
 
+class Interrupt(Exception):
+    """Raised from a train loop's ``on_step`` to cut a run short."""
+
+
+def host_state(res) -> dict:
+    """A host copy of a train run's parameters and optimizer state."""
+    from repro_torch.models.params import tree_items
+    out = {f"params.{p}": t.cpu().clone() for p, t in tree_items(res.params)}
+    out.update({f"opt.{p}": t.cpu().clone()
+                for p, t in tree_items(res.opt_state.inner)})
+    out["opt.step"] = res.opt_state.step
+    return out
+
+
+def same_state(a: dict, b: dict) -> bool:
+    import torch
+    return a.keys() == b.keys() and all(
+        torch.equal(x, b[k]) if isinstance(x, torch.Tensor) else x == b[k]
+        for k, x in a.items())
+
+
+def check_flash_steps(per_step, cfg, fwd_per_layer, what) -> dict:
+    """Every step launched the flash forward ``fwd_per_layer`` times a layer
+    and the backward once, all on ``wgmma``; returns the sums."""
+    for counts, variants in per_step:
+        require(counts["flash_attention"] == fwd_per_layer * cfg.n_layers
+                and counts["flash_attention_bwd"] == cfg.n_layers,
+                f"{what}: flash launches per step {counts}")
+        require_wgmma({k: variants[k] for k in FLASH_STEP_KERNELS}, what)
+        require_wgmma_backward(variants["flash_attention_bwd"], what)
+    return {k: sum(c[k] for c, _ in per_step) for k in FLASH_STEP_KERNELS}
+
+
+def loop_stamps(per_step, hook=None):
+    """:func:`counting_steps` that also keeps the host clock at each step's
+    start; returns the ``on_step`` and the list of clock readings."""
+    stamps = []
+
+    def stamp(step):
+        stamps.append(time.perf_counter())
+        if hook is not None:
+            hook(step)
+    return counting_steps(per_step, stamp), stamps
+
+
+def loop_walls_ms(stamps, end) -> list:
+    """The loop's wall per step from its start stamps and the clock at the
+    loop's end: the step, its host syncs, its telemetry and checkpoint,
+    and the next step's batch."""
+    return [round((b - a) * 1e3, 1) for a, b in zip(stamps, stamps[1:]
+                                                   + [end])]
+
+
+def guarded_step(cfg, opt):
+    """The launcher's step: ``make_train_step`` with a fresh divergence
+    guard, as ``train_loop`` builds it (its loss and gradient norm reach
+    the host before the update).  Returns ``one(params, state, batch)``
+    and the list of the guard's actions."""
+    from repro_torch.distributed.monitor import DivergenceGuard
+    from repro_torch.launch.steps import make_train_step
+    step_fn = make_train_step(cfg, opt, guard=DivergenceGuard())
+    actions = []
+
+    def one(params, state, batch):
+        actions.append(step_fn(params, state, batch)[2]["action"])
+    return one, actions
+
+
+def step_breakdown(torch, card, what, one_step, tokens, calls) -> dict:
+    """One step's device busy time (profiler), wall (CUDA events), idle
+    share and tokens/s, and the flash kernels' device ms per call inside
+    it (``calls``: each kernel's launches in the step)."""
+    print(f"phase 9: {what}, kernels by device time:")
+    names = {}
+    busy_ms = device_ms(torch, one_step, 1, top=8, by_name=names)
+    require(busy_ms is not None, f"profiler device time, {what}")
+    inside = {}
+    for name, parts in FLASH_STEP_KERNELS.items():
+        inside[name], each = _step_kernels_ms(names, parts, calls[name])
+        print(f"  {name} inside the step: {inside[name]!r} ms per call "
+              f"({calls[name]} calls; {each}) [{card}]")
+    wall_ms = event_ms(torch, one_step, 2)
+    row = {"wall_ms": wall_ms, "busy_ms": busy_ms,
+           "idle_share": 1 - busy_ms / wall_ms,
+           "tokens_per_s": tokens / (wall_ms / 1e3), "inside": inside}
+    print(f"phase 9: {what}: wall {wall_ms!r} ms, device busy {busy_ms!r} "
+          f"ms, idle share {row['idle_share']!r}, {row['tokens_per_s']!r} "
+          f"tokens/s [{card}]")
+    return row
+
+
+def launcher_phase(torch, card) -> dict:
+    """Phase 9a: the train launcher at its defaults on llama3.2-1b at full
+    width; then one loss-and-grads call under remat none and under dtr.
+    Returns the loop's flash launches and the step's breakdown."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_items, tree_map
+    from repro_torch.optim import adamw, cosine_schedule
+    args = train.parse_args(["--steps", str(LLAMA_STEPS), "--batch",
+                             str(LLAMA_BATCH), "--seq", str(LLAMA_SEQ)])
+    require((args.arch, args.remat, args.optimizer)
+            == (LLAMA_ARCH, "dtr", "adamw"), f"launcher defaults {args}")
+    cfg = train.config_from_args(args)
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    n = sum(t.numel() for _, t in tree_items(params))
+    print(f"phase 9a: {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, vocab "
+          f"{cfg.vocab}, tied {cfg.tie_embeddings}: {n} parameters; the "
+          f"launcher's defaults (remat {args.remat}, {args.optimizer}), "
+          f"batch {args.batch}x{args.seq}, {args.steps} steps, no "
+          f"checkpoints")
+    per_step = []
+    on_step, stamps = loop_stamps(per_step)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train.train_loop(cfg, params, args, on_step=on_step)
+    end = time.perf_counter()
+    per_step.append((read_launches(), read_variants()))
+    launches = check_flash_steps(per_step, cfg, 2, "phase 9a, train loop")
+    mem = res.memory
+    walls = loop_walls_ms(stamps, end)
+    print(f"phase 9a: {cfg.name} train loop: losses {res.losses}, grad "
+          f"norms {res.grad_norms}, step ms "
+          f"{[round(t * 1e3, 1) for t in res.step_seconds]}, the loop's wall "
+          f"per step (telemetry and the next batch included) {walls} "
+          f"({end - t0:.1f} s with set-up), flash launches per step "
+          f"{[(c['flash_attention'], c['flash_attention_bwd']) for c, _ in per_step]}"
+          f" per variant {[(v['flash_attention'], v['flash_attention_bwd']) for _, v in per_step]}"
+          f", max_memory_allocated {res.peak_bytes / 2**30:.3f} GiB; "
+          f"MemoryMonitor summary {mem} [{card}]")
+    require(all(math.isfinite(x) for x in res.losses)
+            and res.actions == ["ok"] * LLAMA_STEPS, "9a: finite steps")
+    require(mem["min_largest_free"] is not None and mem["peak_bytes"] > 0,
+            "9a: the allocator's telemetry")
+
+    opt = adamw(lr=cosine_schedule(args.lr, warmup=20, total=args.steps))
+    one, actions = guarded_step(cfg, opt)
+    state = res.opt_state
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq, batch=args.batch,
+                       seed=args.seed)
+    batch = {"tokens": torch.from_numpy(
+        data.batch_at(args.steps)["tokens"]).cuda()}
+    row = step_breakdown(
+        torch, card, f"9a {cfg.name} full-width train step as the launcher "
+        f"runs it (the guard's host sync before the update), batch "
+        f"{args.batch}x{args.seq}, bf16, AdamW, remat dtr",
+        lambda: one(params, state, batch), args.batch * args.seq,
+        {"flash_attention": 2 * cfg.n_layers,
+         "flash_attention_bwd": cfg.n_layers})
+    require(set(actions) == {"ok"}, f"9a: the guard passed {actions}")
+    bare = make_train_step(cfg, opt)
+    row["wall_ms_unguarded"] = event_ms(
+        torch, lambda: bare(params, state, batch), 2)
+    device = torch.device("cuda")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        train.device_memory(device)
+    row["telemetry_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    row["loop_wall_ms"] = walls
+    print(f"phase 9a: the same step without the guard: wall "
+          f"{row['wall_ms_unguarded']!r} ms; the launcher's per-step "
+          f"telemetry (device_memory: memory_snapshot and mem_get_info) "
+          f"{row['telemetry_ms']!r} ms on the host [{card}]")
+    row["peak_bytes"] = res.peak_bytes
+    del opt, one, bare, state, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    base, peaks = None, {}
+    for remat in ("none", "dtr"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        loss, grads = loss_and_grads(cfg.replace(remat=remat), params,
+                                     batch)
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated()
+        n_launch = read_launches()
+        if base is None:
+            base = (float(loss), tree_map(lambda t: t.cpu(), grads))
+            same = True
+        else:
+            same = float(loss) == base[0] and all(
+                torch.equal(a.cpu(), b_) for (_, a), (_, b_) in
+                zip(tree_items(grads), tree_items(base[1])))
+        print(f"phase 9a: {cfg.name} loss and grads, remat {remat}: loss "
+              f"{float(loss)!r}, flash launches fwd "
+              f"{n_launch['flash_attention']} bwd "
+              f"{n_launch['flash_attention_bwd']}, max_memory_allocated "
+              f"{peaks[remat] / 2**30:.3f} GiB; bit-identical to none: "
+              f"{same} [{card}]")
+        require(same, f"9a: remat {remat} changes no number")
+        del loss, grads
+    require(peaks["dtr"] < peaks["none"], "9a: dtr holds less than none")
+    row["peaks"] = peaks
+    del params, batch, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step": row}
+
+
+def resume_phase(torch, card) -> dict:
+    """Phase 9b: checkpoint and resume at full width on smollm-135m: a
+    launcher run interrupted before step ``RESUME['interrupt']``, then a
+    fresh launcher with the same arguments, which restores the last
+    checkpoint.  Returns the first run's flash launches and a step's
+    breakdown."""
+    import os
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw, cosine_schedule
+    cfg = configs.get(SMOLLM_ARCH).replace(remat="dtr")
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        argv = ["--arch", SMOLLM_ARCH, "--steps", str(RESUME["steps"]),
+                "--batch", str(SMOLLM_BATCH), "--seq", str(SMOLLM_SEQ),
+                "--ckpt-every", str(RESUME["every"]), "--ckpt-dir", ckpt_dir]
+        first, saved, per_step = train.TrainResult(), {}, []
+        resumed_at = RESUME["interrupt"] // RESUME["every"] * RESUME["every"]
+
+        def kept_after(n_steps):
+            return [f"step_{s_:010d}" for s_ in
+                    range(0, n_steps, RESUME["every"])][-RESUME["keep"]:]
+
+        def stop(step):
+            if step == resumed_at + 1:
+                saved.update(host_state(first))
+            if step == RESUME["interrupt"]:
+                raise Interrupt
+
+        on_step, stamps = loop_stamps(per_step, stop)
+        t0 = time.perf_counter()
+        try:
+            train.main(argv, on_step=on_step, result=first)
+        except Interrupt:
+            pass
+        else:
+            require(False, "9b: the run was not interrupted")
+        end = time.perf_counter()
+        first_s = end - t0
+        first.drop_state()
+        # The interrupt is raised at the start of the last stamped step.
+        walls = loop_walls_ms(stamps[:-1], stamps[-1])
+        launches = check_flash_steps(per_step, cfg, 2, "phase 9b, first run")
+        kept = sorted(os.listdir(ckpt_dir))
+        second, restored = train.TrainResult(), {}
+
+        def check(step):
+            if step == resumed_at + 1:
+                restored["same"] = same_state(host_state(second), saved)
+
+        t0 = time.perf_counter()
+        train.main(argv, on_step=check, result=second)
+        second_s = time.perf_counter() - t0
+        after = sorted(os.listdir(ckpt_dir))
+        both = [s_ for s_ in second.steps if s_ in first.steps]
+        same_losses = both and all(
+            first.losses[first.steps.index(s_)]
+            == second.losses[second.steps.index(s_)] for s_ in both)
+        print(f"phase 9b: {SMOLLM_ARCH} ({cfg.n_layers} layers, d "
+              f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads), batch "
+              f"{SMOLLM_BATCH}x{SMOLLM_SEQ}, bf16, AdamW, remat dtr: first "
+              f"run steps {first.steps} losses {first.losses} "
+              f"({first_s:.1f} s with set-up), the loop's wall per step "
+              f"(checkpoints at steps 0, {RESUME['every']}, ... included) "
+              f"{walls}, interrupted before step {RESUME['interrupt']}; "
+              f"checkpoints {kept}; the resumed "
+              f"run started at {second.start_step} ({second_s:.1f} s), "
+              f"restored parameters and optimizer state bit-identical to "
+              f"the ones saved: {restored.get('same')}; steps {second.steps}"
+              f" losses {second.losses}; steps {both} bit-identical to the "
+              f"first run's: {same_losses}; directories after {after}; "
+              f"flash launches per step "
+              f"{[(c['flash_attention'], c['flash_attention_bwd']) for c, _ in per_step]}"
+              f" [{card}]")
+        require(second.start_step == resumed_at + 1, "9b: resumed step")
+        require(restored.get("same") is True, "9b: restored state")
+        require(same_losses and len(both) == RESUME["interrupt"]
+                - resumed_at - 1, "9b: resumed losses")
+        require(kept == kept_after(RESUME["interrupt"])
+                and after == kept_after(RESUME["steps"]),
+                f"9b: the kept checkpoints {kept}, {after}")
+
+        opt = adamw(lr=cosine_schedule(3e-4, warmup=20,
+                                       total=RESUME["steps"]))
+        one, actions = guarded_step(cfg, opt)
+        batch = {"tokens": torch.from_numpy(SyntheticLM(
+            vocab=cfg.vocab, seq_len=SMOLLM_SEQ, batch=SMOLLM_BATCH,
+            seed=0).batch_at(RESUME["steps"])["tokens"]).cuda()}
+        row = step_breakdown(
+            torch, card, f"9b {SMOLLM_ARCH} full-width train step as the "
+            f"launcher runs it (the guard's host sync before the update), "
+            f"batch {SMOLLM_BATCH}x{SMOLLM_SEQ}, bf16, AdamW, remat dtr",
+            lambda: one(second.params, second.opt_state, batch),
+            SMOLLM_BATCH * SMOLLM_SEQ,
+            {"flash_attention": 2 * cfg.n_layers,
+             "flash_attention_bwd": cfg.n_layers})
+        require(set(actions) == {"ok"}, f"9b: the guard passed {actions}")
+        bare = make_train_step(cfg, opt)
+        row["wall_ms_unguarded"] = event_ms(
+            torch, lambda: bare(second.params, second.opt_state, batch), 2)
+        print(f"phase 9b: the same step without the guard: wall "
+              f"{row['wall_ms_unguarded']!r} ms [{card}]")
+        row["loop_wall_ms"] = walls
+        del first, second, saved, one, bare, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step": row}
+
+
+def examples_phase(torch, card) -> None:
+    """Phase 9c: the three examples on the card."""
+    from repro_torch.examples import dynamic_treelstm, quickstart, train_lm
+    reset_launches()
+    t0 = time.perf_counter()
+    qs = quickstart.main([])
+    sim, ctx, losses = qs["simulated"], qs["eager"], qs["losses"]
+    print(f"phase 9c: quickstart ({time.perf_counter() - t0:.1f} s): "
+          f"simulated ok {[r.ok for r in sim]}, evictions "
+          f"{[r.evictions for r in sim]}; eager chain evictions "
+          f"{ctx.rt.evictions}, remats {ctx.remat_runs}; llama3.2-1b smoke "
+          f"losses {losses}; flash launches per variant "
+          f"{read_variants()['flash_attention']} "
+          f"{read_variants()['flash_attention_bwd']}")
+    require([r.ok for r in sim] == [True, True, False], "9c: simulated")
+    require(ctx.rt.evictions > 0 and ctx.remat_runs > 0, "9c: eager chain")
+    require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            "9c: quickstart losses fall")
+    del qs, sim, ctx
+    reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        lm = train_lm.main(["--steps", str(TRAIN_LM_STEPS),
+                            "--ckpt-dir", ckpt_dir])
+    print(f"phase 9c: train_lm ({time.perf_counter() - t0:.1f} s): "
+          f"{lm['verdict']}, losses {lm['losses'][:3]} ... "
+          f"{lm['losses'][-3:]}, step-time ewma "
+          f"{lm['monitor'].ewma * 1e3!r} ms; flash launches per variant "
+          f"{read_variants()['flash_attention']} "
+          f"{read_variants()['flash_attention_bwd']}")
+    require(lm["verdict"] == "LEARNING", "9c: train_lm learns")
+    t0 = time.perf_counter()
+    tl = dynamic_treelstm.main([])
+    losses, ctx = tl["losses"], tl["ctx"]
+    first, last = statistics.mean(losses[:15]), statistics.mean(losses[-15:])
+    print(f"phase 9c: dynamic_treelstm ({time.perf_counter() - t0:.1f} s): "
+          f"loss {first!r} -> {last!r}, evictions {ctx.rt.evictions}, "
+          f"remats {ctx.remat_runs}, live bytes at most "
+          f"{tl['over_budget']} B above the budget {tl['budget']} B beyond "
+          f"each op's largest output")
+    require(last < first and ctx.remat_runs > 0 and tl["over_budget"] <= 0,
+            "9c: dynamic_treelstm")
+    del tl, ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def paper_phase(torch, card) -> list:
+    """Phase 9d: Table 1's eager rows on the card (the plain side
+    measured), one whole simulated case, and Fig. 4's planner timing.
+    Returns the rows."""
+    from repro_torch.benchmarks import fig4_overhead, table1_maxinput
+    rows = []
+    for dim in TREELSTM_DIMS:
+        t0 = time.perf_counter()
+        row = table1_maxinput.run_eager_treelstm(dim=dim, device="cuda")[0]
+        print(f"phase 9d: Table 1 eager treelstm, dim {dim}, budget "
+              f"{row['budget']} B ({time.perf_counter() - t0:.1f} s): "
+              f"max_plain {row['max_plain']} (measured; by the formula "
+              f"{row['formula_max_plain']}), max_dtr {row['max_dtr']}, gain "
+              f"{row['gain']}; plain peaks by depth, measured "
+              f"{row['plain_peaks']}, formula {row['formula_peaks']} "
+              f"[{card}]")
+        peaks = [row["plain_peaks"][d] for d in sorted(row["plain_peaks"])]
+        require(peaks == sorted(peaks), f"9d: plain peaks grow with depth "
+                f"at dim {dim}")
+        require(row["max_dtr"] > row["max_plain"],
+                f"9d: DTR trains a larger tree at dim {dim}")
+        rows.append(row)
+    t0 = time.perf_counter()
+    sim = table1_maxinput.run_simulated(models=(TABLE1_CASE,))
+    print(f"phase 9d: Table 1 simulated, {TABLE1_CASE} "
+          f"({time.perf_counter() - t0:.1f} s): {sim} (the JAX package's "
+          f"row: {TABLE1_ROW})")
+    require(sim == [TABLE1_ROW], "9d: the simulated row")
+    rows += sim
+    plan = fig4_overhead.run_planner_wallclock("cuda")
+    print(f"phase 9d: Fig. 4 planner on the tagged MLP (d 128, 8 layers, "
+          f"batch 256): {[(r['budget'], r['ok'], r['value']) for r in plan]}"
+          f" (budget, feasible, planning ms on the host)")
+    require(plan[0]["ok"], "9d: a feasible plan at 0.8")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows + plan
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1887,9 +2373,37 @@ def main() -> int:
     # -- 8. the planner on real bytes -----------------------------------------
     planner_phase(torch, card, qwen_train["peaks"]["none"])
 
+    # -- 9. the training driver and the paper's experiments -----------------
+    t9 = time.perf_counter()
+    llama = launcher_phase(torch, card)
+    smollm = resume_phase(torch, card)
+    examples_phase(torch, card)
+    paper_rows = paper_phase(torch, card)
+    print(f"phase 9: {time.perf_counter() - t9:.1f} s of wall time")
+
     d = times["decode"]
-    tf, tb = flash_train["fwd"], flash_train["bwd"]
+    tf, tb = flash_train[ARCH]["fwd"], flash_train[ARCH]["bwd"]
     g = gemm_times["decode wi"]
+    phase9 = {LLAMA_ARCH: llama, SMOLLM_ARCH: smollm}
+
+    def shapes(kernel, direction):
+        """The flash rows at phase 9's train shapes."""
+        out = {}
+        for arch, run in phase9.items():
+            row = flash_train[arch][direction]
+            out[arch] = {
+                "shape": list(FLASH_TRAIN_SHAPES[arch][:6]),
+                "launches": run["launches"][kernel],
+                "max_abs_err": flash_train_err[arch][direction],
+                "ms": row["ms"], "in_step_ms": run["step"]["inside"][kernel],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"]}
+            if direction == "bwd":
+                out[arch]["passes_ms"] = row["ms_passes"]
+        return out
+
+    print(json.dumps({"paper_rows": paper_rows}, allow_nan=False))
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "variant": ran_variant(qwen_variants["flash_attention"]),
@@ -1901,12 +2415,13 @@ def main() -> int:
         "bound_by": d["bound_by"], "library_ms": d["library_ms"],
         "previous_ms": d["simt_ms"],
         "train_launches": qwen_train["launches"]["flash_attention"],
-        "train_max_abs_err": flash_train_err["fwd"],
+        "train_max_abs_err": flash_train_err[ARCH]["fwd"],
         "train_ms": tf["ms"], "train_in_step_ms":
             qwen_train["inside"]["flash_attention"],
         "train_plain_ms": tf["plain_ms"], "train_bound_ms": tf["bound_ms"],
         "train_bound_by": tf["bound_by"],
-        "train_library_ms": tf["library_ms"]}, {
+        "train_library_ms": tf["library_ms"],
+        "train_shapes": shapes("flash_attention", "fwd")}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "variant": ran_variant(qwen_train["variants"]),
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -1915,14 +2430,15 @@ def main() -> int:
                  "_sdpa / _sdpa_blocked (src/repro/models/layers.py:96-172) "
                  "through XLA"),
         "launches": qwen_train["launches"]["flash_attention_bwd"],
-        "max_abs_err": flash_train_err["bwd"], "ms": tb["ms"],
+        "max_abs_err": flash_train_err[ARCH]["bwd"], "ms": tb["ms"],
         "passes_ms": tb["ms_passes"],
         "in_step_ms": qwen_train["inside"]["flash_attention_bwd"],
         "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
         "previous_ms": tb["mma_ms"],
         "previous_passes_ms": tb["mma_ms_passes"],
-        "simt_ms": tb["simt_ms"]}, {
+        "simt_ms": tb["simt_ms"],
+        "train_shapes": shapes("flash_attention_bwd", "bwd")}, {
         "name": "moe_gemm", "route": "cuda",
         "variant": ran_variant(moe_variants["moe_gemm"]),
         "source": "src/repro_torch/kernels/csrc/moe_gemm.cu",

@@ -8,6 +8,8 @@ from __future__ import annotations
 import importlib
 
 ARCHS = [
+    "smollm_135m",
+    "llama3_2_1b",
     "qwen2_0_5b",
     "mixtral_8x7b",
     "rwkv6_1_6b",
@@ -16,6 +18,8 @@ ARCHS = [
 # CLI ids (dashes) -> module names
 ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 ALIASES.update({
+    "smollm-135m": "smollm_135m",
+    "llama3.2-1b": "llama3_2_1b",
     "qwen2-0.5b": "qwen2_0_5b",
     "mixtral-8x7b": "mixtral_8x7b",
     "rwkv6-1.6b": "rwkv6_1_6b",

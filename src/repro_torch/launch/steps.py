@@ -45,9 +45,17 @@ def loss_and_grads(cfg: ModelConfig, params, batch):
 
 
 def make_train_step(cfg: ModelConfig, opt: Optimizer, grad_accum: int = 1,
-                    max_grad_norm: float = 1.0):
+                    max_grad_norm: float = 1.0, guard=None):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``.  Parameters and optimizer state are updated in place.
+
+    ``guard`` (a ``distributed.monitor.DivergenceGuard``), if given, checks
+    each step's loss and gradient norm before the update, and
+    ``metrics["action"]`` is its verdict: on any but ``"ok"`` the
+    parameters and optimizer state are left as they were, as the
+    reference's loop drops the new state it returned (an update made in
+    place cannot be dropped afterwards).  Without a guard the action is
+    ``"ok"``.
 
     With ``grad_accum > 1`` the batch splits into that many microbatches
     along its first axis; losses and f32 gradients are summed over them and
@@ -72,9 +80,13 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, grad_accum: int = 1,
             loss, grads = loss_and_grads(cfg, params, batch)
 
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        metrics = {"loss": loss.float(), "grad_norm": gnorm, "action": "ok"}
+        if guard is not None:
+            metrics["action"] = guard.check(float(loss), float(gnorm))
+            if metrics["action"] != "ok":
+                return params, opt_state, metrics
         updates, opt_state = opt.update(grads, opt_state, params)
         params = apply_updates(params, updates)
-        metrics = {"loss": loss.float(), "grad_norm": gnorm}
         return params, opt_state, metrics
 
     return train_step

@@ -390,7 +390,8 @@ def test_rwkv6_rejects(cuda, case):
 def test_smoke_train_step_launches(cuda, remat, fwd_per_layer):
     """One smoke train step on the card: each rwkv layer launched the
     forward kernel once (twice with remat "full") and the backward once."""
-    args = train.parse_args(["--smoke", "--steps", "1", "--batch", "2",
+    args = train.parse_args(["--arch", "rwkv6-1.6b", "--smoke", "--steps",
+                             "1", "--batch", "2",
                              "--seq", "32", "--remat", remat])
     cfg = train.config_from_args(args)
     params = M.init_params(cfg, torch.Generator(cuda).manual_seed(0))
@@ -415,6 +416,8 @@ BWD_SHAPES = [  # chip_smoke.py phase 2's backward cases, then the smoke dim
     (1, 32, 8, 96, 96, 128, True, 0),      # mixtral heads, D 128
     (2, 4, 1, 64, 96, 32, False, 0),       # no mask, D 32
     (2, 7, 1, 16, 16, 8, True, 0),         # qwen2 smoke heads, D 8
+    (4, 32, 8, 2048, 2048, 64, True, 0),   # llama3.2-1b's train shape, G 4
+    (8, 9, 3, 1024, 1024, 64, True, 0),    # smollm-135m's: G 3, odd heads
 ]
 # The cases the tensor-core variants take (bf16 at D 64).
 BWD_SHAPES_D64 = [s for s in BWD_SHAPES if s[5] == 64]
@@ -562,6 +565,19 @@ def test_flash_backward_is_deterministic(cuda, dtype):
     assert all(torch.equal(a, b) for a, b in zip(one, two))
 
 
+@pytest.mark.parametrize("hq,hkv", [(32, 8), (9, 3)])
+def test_flash_backward_is_deterministic_at_new_gqa_ratios(cuda, hq, hkv):
+    """Two bf16 calls at llama3.2-1b's (G 4) and smollm-135m's (G 3) heads
+    give the same bits: the G partials are summed in head order."""
+    args = _flash_bwd_case(2, hq, hkv, 512, 512, 64, True, 0,
+                           torch.bfloat16, cuda)
+    assert fa.plan_backward(2, hq, hkv, 512, 512, 64,
+                            torch.bfloat16)["variant"] == "wgmma"
+    one = fa.flash_attention_bwd(*args, causal=True)
+    two = fa.flash_attention_bwd(*args, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
 def test_flash_autograd_on_card(cuda):
     """Autograd through the wrapper on the card: the forward kernel once,
     the backward kernel once, the plain backward's gradients."""
@@ -697,3 +713,55 @@ def test_eager_context_defaults_to_the_card(cuda):
     ctx = DTRContext(float("inf"))
     x = ctx.wrap(np.ones(4, np.float32))
     assert x.value.device.type == "cuda"
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "smollm-135m"])
+def test_new_configs_smoke_train_step_launches(cuda, arch):
+    """One smoke train step of each new config under remat dtr: the flash
+    forward twice a layer and the backward once, in f32 on ``simt``."""
+    args = train.parse_args(["--arch", arch, "--smoke", "--steps", "1",
+                             "--batch", "2", "--seq", "32"])
+    cfg = train.config_from_args(args)
+    params = M.init_params(cfg, torch.Generator(cuda).manual_seed(0))
+
+    def reset(step):
+        fa.flash_attention.launches = fa.flash_attention_bwd.launches = 0
+
+    res = train.train_loop(cfg, params, args, verbose=False, on_step=reset)
+    assert np.isfinite(res.losses[0]) and res.actions == ["ok"]
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches) \
+        == (2 * cfg.n_layers, cfg.n_layers)
+
+
+def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    """Tensors on the card go to the host and come back to the device and
+    dtype of ``like``, bf16 bit for bit."""
+    from repro_torch.ckpt import restore_latest, save_checkpoint
+    from repro_torch.optim import OptState
+    g = torch.Generator(cuda).manual_seed(0)
+    tree = {"w": torch.randn(64, 32, generator=g, device=cuda),
+            "h": torch.randn(7, generator=g, device=cuda).to(torch.bfloat16),
+            "opt": OptState(4, {"m": torch.randn(5, generator=g,
+                                                 device=cuda)})}
+    save_checkpoint(str(tmp_path), 4, tree)
+    like = {"w": torch.zeros_like(tree["w"]),
+            "h": torch.zeros_like(tree["h"]),
+            "opt": OptState(0, {"m": torch.zeros_like(tree["opt"].inner["m"])})}
+    step, got, _ = restore_latest(str(tmp_path), like)
+    assert step == 4 and got["opt"].step == 4
+    for a, b in ((got["w"], tree["w"]), (got["opt"].inner["m"],
+                                         tree["opt"].inner["m"])):
+        assert a.device == b.device and torch.equal(a, b)
+    assert got["h"].dtype == torch.bfloat16 and got["h"].is_cuda
+    assert torch.equal(got["h"].view(torch.int16), tree["h"].view(torch.int16))
+
+
+def test_device_memory_reads_the_caching_allocator(cuda):
+    """The launcher's telemetry on the card: the peak, and a largest free
+    block no larger than the free bytes."""
+    x = torch.empty(1 << 20, device=cuda)
+    peak, frag = train.device_memory(torch.device(cuda))
+    assert peak >= x.numel() * 4 and frag is not None
+    assert frag.used >= x.numel() * 4 and frag.capacity > frag.used
+    assert 0 < frag.largest_free <= frag.free
+    assert 0.0 <= frag.frag_ratio < 1.0

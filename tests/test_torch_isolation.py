@@ -72,6 +72,9 @@ def _without_imports(text: str) -> list:
 COPIES = [
     "core/graph.py", "models/config.py", "configs/qwen2_0_5b.py",
     "configs/mixtral_8x7b.py", "configs/rwkv6_1_6b.py",
+    "configs/llama3_2_1b.py", "configs/smollm_135m.py",
+    # The training loop's health monitors.
+    "distributed/monitor.py",
     # The DTR engine the eager executor drives, and what it imports.
     "core/unionfind.py", "core/evict_index.py", "core/heuristics.py",
     "core/runtime.py", "core/simulator.py", "core/graphs.py",
@@ -100,5 +103,9 @@ def test_registry_holds_ported_architectures_only():
     assert configs.get_smoke("mixtral_8x7b").window == 8
     assert configs.get("rwkv6-1.6b").pattern == ("rwkv",)
     assert configs.get_smoke("rwkv6_1_6b").rwkv_head_dim == 32
+    assert configs.get("llama3.2-1b").n_kv_heads == 8
+    assert configs.get_smoke("llama3_2_1b").head_dim == 8
+    assert configs.get("smollm-135m").n_heads == 9
+    assert configs.get_smoke("smollm_135m").dtype == "float32"
     with pytest.raises(KeyError, match="not yet ported"):
-        configs.get("llama3.2-1b")
+        configs.get("gemma3-1b")

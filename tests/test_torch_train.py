@@ -224,10 +224,10 @@ def test_optimizer_updates_match_jax():
                                        atol=1e-7, err_msg=f"{name} {path}")
 
 
-def test_train_cli_qwen2_dtr_adafactor(capsys):
+def test_train_cli_qwen2_dtr_adafactor(capsys, tmp_path):
     train.main(["--arch", QWEN, "--smoke", "--device", "cpu", "--remat",
                 "dtr", "--optimizer", "adafactor", "--steps", "2",
-                "--batch", "2", "--seq", "16"])
+                "--batch", "2", "--seq", "16", "--ckpt-dir", str(tmp_path)])
     out = capsys.readouterr().out
     assert "arch=qwen2-0.5b" in out and "remat=dtr" in out
     assert "step     1 loss" in out and out.strip().endswith("done")
@@ -358,16 +358,18 @@ def test_train_steps_match_jax(jcfg, cfg, jparams, grad_accum):
                                    err_msg=path)
 
 
-def test_train_cli_on_cpu(capsys):
+def test_train_cli_on_cpu(capsys, tmp_path):
     train.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "3",
-                "--batch", "2", "--seq", "32"])
+                "--batch", "2", "--seq", "32", "--remat", "none",
+                "--ckpt-dir", str(tmp_path)])
     out = capsys.readouterr().out
     assert "arch=rwkv6-1.6b" in out and "step     2 loss" in out
     assert out.strip().endswith("done")
 
 
 def test_train_loop_reports_every_step(cfg):
-    args = train.parse_args(["--smoke", "--device", "cpu", "--steps", "2",
+    args = train.parse_args(["--arch", ARCH, "--smoke", "--device", "cpu",
+                             "--steps", "2",
                              "--batch", "4", "--seq", "16",
                              "--grad-accum", "2", "--remat", "full"])
     params = M.init_params(train.config_from_args(args),
@@ -385,4 +387,5 @@ def test_train_cli_needs_a_card_unless_asked_for_cpu():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
     with pytest.raises(RuntimeError, match="--device cpu"):
-        train.main(["--arch", ARCH, "--smoke", "--steps", "1"])
+        train.main(["--arch", ARCH, "--smoke", "--steps", "1", "--remat",
+                    "none"])
