@@ -132,14 +132,34 @@ Phases; any failure exits non-zero before the last line is printed:
    ``max_dtr > max_plain``; one whole simulated case against the JAX
    package's row; Fig. 4's planner times.  The rows as a JSON line.
 
+10. The serve surface (its own wall time printed).  (a) rwkv6, qwen2 and
+    mixtral smoke configs serve 8 requests over 4 slots, 8 tokens each, at
+    ``--max-len 32 --kv-budget 0.3 --chaos-shrink 0.5 --chaos-period 16``
+    with ``--capture``, on the card and on the CPU: the same tokens,
+    admission counters, events and captured log; preemptions, none
+    rejected; flash launches once a layer and step (mixtral's grouped GEMM
+    three times), rwkv6 none.  (b) rwkv6-1.6b at full width (24 layers, d
+    2048, bf16 activations) serves 8 requests over 4 slots, 16 tokens each,
+    launching no kernel; one decode step's wall, device busy and idle share
+    beside the weights' byte bound; one request's 32 decode steps against
+    forward over the same tokens through the WKV kernel, f32 on ``simt`` at
+    2 and 24 layers, and layer 0's time-mix in bf16 on ``mma``.  (c)
+    qwen2-0.5b at full width under (a)'s flags with ``--offload-sweep``:
+    8/8 served with preemptions and no rejection, every flash launch on
+    ``wgmma``, the capture through ``check_log`` and scan == index; the
+    requests admission never preempted against a run without a budget
+    (printed).  (d) ``repro_torch.examples.serve`` (one shared position
+    clock) on the card and on the CPU: the same tokens.  (e) ``python -m
+    repro_torch.trace report`` on (c)'s capture, into a temp dir.
+
 Phase 4 also holds layer 0 alone in bf16 (attention output, MLP or MoE
 output), kernel against plain on the same inputs, to the kernels' own
 tolerances.  The qwen2 phases run first and free their tensors before
 mixtral's 36 GB (f32 weights and their bf16 copy) arrive; rwkv6 comes
-next, then the eager executor, the planner and phase 9.  Then the JSON
-line of phase 9's rows, one JSON line per kernel table (the flash rows
-with each train shape's launches, times, bound and SDPA's time), the card
-line, and ``{"ok": true, "device": {...}}`` as the last line.
+next, then the eager executor, the planner, phase 9 and phase 10.  Then
+the JSON line of phase 9's rows, one JSON line per kernel table (the flash
+rows with each train shape's launches, times, bound and SDPA's time), the
+card line, and ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
@@ -321,6 +341,34 @@ TREELSTM_DIMS = (128, 16384)
 TABLE1_CASE = "mlp"
 TABLE1_ROW = {"bench": "sim", "model": "mlp", "budget": 26882,
               "max_plain": 1, "max_dtr": 4, "gain": 4.0}
+# Phase 10: the serve surface.  10a and 10c serve 8 requests over 4 slots, 8
+# tokens each, at --max-len 32 under a KV budget of 0.3 of the cache,
+# squeezed to half of that for 16 of every 32 steps: each request's projected
+# KV then fills most of a slot, so admission preempts (at the default
+# --max-len 128 a 0.3 budget holds more than 4 requests and only the
+# squeezes would).  10b serves rwkv6-1.6b at the launcher's lengths.
+SURFACE_FLAGS = ["--requests", "8", "--slots", "4", "--gen", "8",
+                 "--max-len", "32", "--kv-budget", "0.3", "--chaos-shrink",
+                 "0.5", "--chaos-period", "16"]
+SURFACE_ARCHS = ("rwkv6-1.6b", "qwen2-0.5b", "mixtral-8x7b")
+# 10b: one request's 32 decode steps against forward over the same tokens
+# through the WKV kernel, f32 (``simt``).  At RWKV_PARITY_LAYERS layers each
+# row within RWKV_DECODE_F32 of max|logits| (the recurrence one token at a
+# time against the kernel's sums; 1.5e-6 to 1.9e-6 of it on an H100 80GB
+# HBM3 at 700 W).  At 24 random layers the first token's logits are
+# ill-conditioned: there the WKV output is (r.(u*k)) v alone, and the head
+# norm of a head whose dot product nearly cancels amplifies rounding.
+# Forward against itself at another matmul row count (over the first 16
+# tokens against over 32) differs there by 5.6e-4 to 1.1e-3, and decode
+# (one-row matmuls) by 4.2e-4 to 1.4e-3, with max|logits| 0.82 to 0.95;
+# from row 8 on decode is within 2.1e-4 (PERF.md, PR 20).  So at 24 layers
+# the 32 rows are held as a whole, ||decode - forward|| / ||forward||
+# within RWKV_DECODE_F32, the norm phase 6 holds f32 gradients to; the
+# rows' max|d| are printed.  bf16 layer 0's time-mix output within the WKV
+# kernel's bf16 tolerance (WKV_TOL) of its max, before 24 random layers
+# amplify it.
+RWKV_DECODE_STEPS = 32
+RWKV_DECODE_F32 = 1e-3
 WKV_STEP_KERNELS = {
     "rwkv6_fwd": ("span_kernel<64, false>", "scan_kernel<false>",
                   "fwd_kernel<64>"),
@@ -1665,8 +1713,8 @@ def eager_mlp_phases(torch, card) -> None:
     require(n["host_bytes"] <= cfg.host_budget, "7c: host bytes in budget")
 
 
-def serve_log_replay(log) -> None:
-    """Phase 7d: the captured qwen2-0.5b serve log through the copied
+def serve_log_replay(log, phase="7d") -> None:
+    """Phase 7d (10c): a captured qwen2-0.5b serve log through the copied
     engine: the static checker, then scan == index replay."""
     from repro_torch.check import check_log
     from repro_torch.trace.replay import verify_oracle_equivalence
@@ -1674,14 +1722,14 @@ def serve_log_replay(log) -> None:
     check_log(log)
     rep = verify_oracle_equivalence(log, fractions=SERVE_FRACTIONS)
     runs = rep["index_results"].values()
-    print(f"phase 7d: {log.name} ({log.op_count()} ops): check_log ok; "
+    print(f"phase {phase}: {log.name} ({log.op_count()} ops): check_log ok; "
           f"scan == index over {rep['cells']} cells at {SERVE_FRACTIONS} of "
           f"the baseline peak {rep['baseline_peak']!r}: {rep['ok']} "
           f"(mismatches {rep['mismatches']}); evictions "
           f"{sum(r.evictions for r in runs)}, remats "
           f"{sum(r.remat_ops for r in runs)}; "
           f"{time.perf_counter() - t0:.1f} s")
-    require(rep["ok"], "7d: scan and index replays differ")
+    require(rep["ok"], f"{phase}: scan and index replays differ")
 
 
 def planner_phase(torch, card, train_peak) -> None:
@@ -2211,6 +2259,287 @@ def paper_phase(torch, card) -> list:
     return rows + plan
 
 
+def surface_smoke(torch, tmp) -> None:
+    """Phase 10a: each smoke model served under admission and chaos on the
+    card and on the CPU, from the same parameters: the same tokens,
+    counters, events and captured log; the card run's launches."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_map
+    for arch in SURFACE_ARCHS:
+        cfg = configs.get_smoke(arch)
+        params = M.init_params(cfg, torch.Generator().manual_seed(0))
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            args = serve.parse_args(["--arch", arch, "--smoke",
+                                     *SURFACE_FLAGS, "--capture",
+                                     f"{tmp}/{arch}-{dev}.log"])
+            on = params if dev == "cpu" else tree_map(lambda t: t.cuda(),
+                                                      params)
+            torch.cuda.synchronize()
+            reset_launches()
+            res = serve.serve_loop(cfg, on, args)
+            runs[dev] = (res, read_launches(),
+                         Path(args.capture).read_bytes())
+        (cpu, _, cpu_log), (card, launches, card_log) = (runs["cpu"],
+                                                         runs["cuda"])
+        attn = 0 if cfg.pattern == ("rwkv",) else cfg.n_layers
+        moe = 3 * cfg.n_layers if cfg.moe else 0
+        print(f"phase 10a: {arch} smoke, {' '.join(SURFACE_FLAGS)}: "
+              f"served {len(card.completed)}/8 in {card.steps} steps, "
+              f"{card.counters}; card == CPU: tokens "
+              f"{card.completed == cpu.completed}, counters and events "
+              f"{(card.counters, card.events) == (cpu.counters, cpu.events)}"
+              f", log {card_log == cpu_log}; launches {launches}")
+        require(card.completed == cpu.completed,
+                f"10a {arch}: card {card.completed} cpu {cpu.completed}")
+        require((card.counters, card.events) == (cpu.counters, cpu.events),
+                f"10a {arch}: admission differs")
+        require(card_log == cpu_log, f"10a {arch}: captured logs differ")
+        require(sorted(card.completed) == list(range(8))
+                and card.counters["preemptions"] > 0
+                and card.counters["rejected"] == 0,
+                f"10a {arch}: {card.counters}")
+        require(launches["flash_attention"] == card.steps * attn
+                and launches["moe_gemm"] == card.steps * moe
+                and launches["rwkv6_fwd"] == 0,
+                f"10a {arch}: launches {launches} for {card.steps} steps")
+
+
+def surface_rwkv(torch, card, gen) -> dict:
+    """Phase 10b: rwkv6-1.6b at full width (24 layers, d 2048, bf16
+    activations) serves 8 requests over 4 slots, 16 tokens each, with no
+    kernel; one decode step's wall and device busy; then 32 decode steps
+    against forward through the WKV kernel (f32, 24 layers on ``simt``;
+    bf16 layer 0's time-mix on ``mma``)."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models import rwkv as RW
+    from repro_torch.models.params import tree_items, tree_map
+    cfg = configs.get(RWKV_ARCH)
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    args = serve.parse_args(["--arch", RWKV_ARCH, "--requests", "8",
+                             "--slots", "4", "--gen", "16"])
+    torch.cuda.synchronize()
+    reset_launches()
+    res = serve.serve_loop(cfg, params, args)
+    launches = read_launches()
+    tokens = sum(len(t) for t in res.completed.values())
+    require(sorted(res.completed) == list(range(8))
+            and all(len(t) == 16 and all(0 <= x < cfg.vocab for x in t)
+                    for t in res.completed.values()),
+            f"10b: completed {res.completed}")
+    require(sum(launches.values()) == 0, f"10b: rwkv decode launched "
+            f"{launches}")
+
+    prepared = M.prepare_params(cfg, params)
+    cache = M.init_cache(cfg, 4, 128, "cuda")
+    tok = torch.randint(0, cfg.vocab, (4, 1), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    pos = torch.tensor([3, 10, 20, 40], dtype=torch.int32, device="cuda")
+
+    def run():
+        with torch.inference_mode():
+            M.decode_step(cfg, prepared, tok, cache, pos)
+
+    step_ms = event_ms(torch, run, 20)
+    busy_ms = device_ms(torch, run, 5, top=5)
+    weight_bytes = sum(t.nbytes for _, t in tree_items(prepared))
+    row = {"loop_ms_per_step": res.seconds * 1e3 / res.steps,
+           "tokens_per_s": tokens / res.seconds, "step_wall_ms": step_ms,
+           "step_busy_ms": busy_ms, "idle_share": 1 - busy_ms / step_ms,
+           "weight_bytes": weight_bytes,
+           "byte_bound_ms": weight_bytes / MEM_BYTES_PER_S * 1e3}
+    print(f"phase 10b: {RWKV_ARCH} ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.dtype}) served {len(res.completed)}/8 requests, "
+          f"{res.steps} decode steps, {row['loop_ms_per_step']!r} ms/step, "
+          f"{row['tokens_per_s']!r} tokens/s, launches {launches}; one "
+          f"decode step at 4 slots: wall {step_ms!r} ms, device busy "
+          f"{busy_ms!r} ms, idle share {row['idle_share']!r}, "
+          f"{weight_bytes} weight bytes, byte bound "
+          f"{row['byte_bound_ms']!r} ms [{card}]")
+
+    # 32 decode steps against forward over the same tokens, f32: each row
+    # at 2 layers, the whole at 24 (see RWKV_DECODE_F32).
+    c32 = cfg.replace(dtype="float32")
+    p32 = M.prepare_params(c32, params)
+    toks = torch.randint(0, cfg.vocab, (1, RWKV_DECODE_STEPS), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    half = RWKV_DECODE_STEPS // 2
+    for layers in (RWKV_PARITY_LAYERS, cfg.n_layers):
+        cut = c32.replace(n_layers=layers)
+        pl = {**p32, "groups": tree_map(lambda t: t[:layers], p32["groups"])}
+        reset_launches()
+        with torch.inference_mode():
+            full = M.forward(cut, pl, toks).float()
+            fwd = read_variants()["rwkv6_fwd"]
+            prefix = M.forward(cut, pl, toks[:, :half]).float()
+            with plain_kernels(ops, ref):
+                plain = M.forward(cut, pl, toks).float()
+            cache = M.init_cache(cut, 1, RWKV_DECODE_STEPS, "cuda")
+            rows = []
+            for t in range(RWKV_DECODE_STEPS):
+                logits, cache = M.decode_step(
+                    cut, pl, toks[:, t:t + 1], cache,
+                    torch.tensor(t, dtype=torch.int32, device="cuda"))
+                rows.append(logits[:, 0].float())
+        dec = torch.stack(rows, 1)
+        by_row = (dec - full).abs().amax(-1)[0]
+        worst = by_row.max().item()
+        rel = ((dec - full).norm() / full.norm()).item()
+        d_plain = (plain - full).abs().max().item()
+        d_prefix = (prefix - full[:, :half]).abs().max().item()
+        scale = full.abs().max().item()
+        print(f"phase 10b: {RWKV_ARCH} f32, {layers} layers, "
+              f"{RWKV_DECODE_STEPS} decode steps against forward (WKV "
+              f"launches per variant {fwd}): worst row max|d|={worst!r} "
+              f"(max|logits|={scale!r}), rows 0, 8, 16, 24: "
+              f"{by_row[::8].tolist()}, ||d||/||logits||={rel!r}; decode "
+              f"against the plain forward "
+              f"{(dec - plain).abs().max().item()!r}; forward: kernel "
+              f"against plain {d_plain!r}, over {half} tokens against over "
+              f"{RWKV_DECODE_STEPS} {d_prefix!r}")
+        require(fwd["simt"] == layers and sum(fwd.values()) == layers,
+                f"10b: f32 forward WKV launches {fwd}")
+        if layers < cfg.n_layers:
+            require(math.isfinite(worst) and worst <= RWKV_DECODE_F32 * scale,
+                    f"10b: f32 decode vs forward at {layers} layers: "
+                    f"{worst} > {RWKV_DECODE_F32} x {scale}")
+        else:
+            require(math.isfinite(rel) and rel <= RWKV_DECODE_F32,
+                    f"10b: f32 decode vs forward at {layers} layers: "
+                    f"||d||/||logits|| {rel} > {RWKV_DECODE_F32}")
+        row[f"f32_{layers}_layers"] = {
+            "worst": worst, "rel_norm": rel, "kernel_vs_plain": d_plain,
+            "prefix_vs_full": d_prefix, "scale": scale}
+    del p32, pl, full, prefix, plain, cache
+
+    # Layer 0's time-mix in bf16: the one-token branch against the kernel.
+    mix = {k: v[0] for k, v in prepared["groups"]["slot0"]["mix"].items()}
+    h, dh = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    x = torch.randn(1, RWKV_DECODE_STEPS, cfg.d_model, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    reset_launches()
+    with torch.inference_mode():
+        y_full = RW.rwkv_time_mix(cfg, mix, x).float()
+        fwd = read_variants()["rwkv6_fwd"]
+        state = {"state": torch.zeros(1, h, dh, dh, device="cuda"),
+                 "x_att": torch.zeros(1, cfg.d_model, device="cuda",
+                                      dtype=torch.bfloat16)}
+        ys = []
+        for t in range(RWKV_DECODE_STEPS):
+            y, state = RW.rwkv_time_mix(cfg, mix, x[:, t:t + 1], cache=state)
+            ys.append(y)
+        err = (torch.cat(ys, 1).float() - y_full).abs().max().item()
+    scale16 = y_full.abs().max().item()
+    tol = WKV_TOL["bfloat16"]
+    print(f"phase 10b: {RWKV_ARCH} layer 0 time-mix, bf16, "
+          f"{RWKV_DECODE_STEPS} one-token steps against the WKV kernel "
+          f"(launches per variant {fwd}): max|d|={err!r} (limit {tol} x "
+          f"max|y|={scale16!r})")
+    require(fwd["mma"] == 1 and sum(fwd.values()) == 1,
+            f"10b: bf16 WKV launches {fwd}")
+    require(math.isfinite(err) and err <= tol * scale16,
+            f"10b: bf16 time-mix {err} > {tol} x {scale16}")
+    row.update(bf16_layer0_err=err, bf16_layer0_scale=scale16)
+    return row
+
+
+def surface_qwen(torch, card, tmp) -> dict:
+    """Phase 10c: qwen2-0.5b at full width under admission and chaos, with
+    the capture and the offload sweep; its log through the copied engine;
+    then the same requests with no budget, for the requests admission never
+    preempted."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    cfg = configs.get(ARCH)
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    args = serve.parse_args(["--arch", ARCH, *SURFACE_FLAGS, "--capture",
+                             f"{tmp}/qwen.log", "--offload-sweep"])
+    torch.cuda.synchronize()
+    reset_launches()
+    res = serve.serve_loop(cfg, params, args)
+    launches, variants = read_launches(), read_variants()
+    serve.report(args, res, torch.device("cuda"))
+    c = res.counters
+    print(f"phase 10c: {ARCH} ({cfg.n_layers} layers), "
+          f"{' '.join(SURFACE_FLAGS)}: {res.seconds * 1e3 / res.steps!r} "
+          f"ms/step, {c}, flash launches {launches['flash_attention']} per "
+          f"variant {variants['flash_attention']} [{card}]")
+    require(sorted(res.completed) == list(range(8)) and c["preemptions"] > 0
+            and c["rejected"] == 0, f"10c: {c}")
+    require(launches["flash_attention"] == res.steps * cfg.n_layers,
+            f"10c: {launches['flash_attention']} flash launches for "
+            f"{res.steps} steps x {cfg.n_layers}")
+    require_wgmma(variants, "phase 10c, qwen2 serve under admission")
+    serve_log_replay(res.log, "10c")
+
+    free = serve.parse_args(["--arch", ARCH, *SURFACE_FLAGS[:8]])
+    unbudgeted = serve.serve_loop(cfg, params, free).completed
+    preempted = {e["rid"] for e in res.events
+                 if e["kind"] == "preempt_requeue"}
+    kept = sorted(set(res.completed) - preempted)
+    same = [r for r in kept if res.completed[r] == unbudgeted[r]]
+    print(f"phase 10c: requests never preempted {kept}; tokens equal to the "
+          f"run without a budget: {same}")
+    return {"launches": launches["flash_attention"],
+            "variants": variants["flash_attention"], "counters": c,
+            "ms_per_step": res.seconds * 1e3 / res.steps,
+            "capture": args.capture}
+
+
+def surface_phase(torch, card, gen) -> dict:
+    """Phase 10: the serve surface, (a)-(e); prints its own wall time."""
+    from repro_torch import configs
+    from repro_torch.examples import serve as example
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_map
+    from repro_torch.trace import __main__ as trace_cli
+    t10 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        surface_smoke(torch, tmp)
+        rwkv = surface_rwkv(torch, card, gen)
+        gc.collect()
+        torch.cuda.empty_cache()
+        qwen = surface_qwen(torch, card, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- 10d. the scalar-clock example, card against CPU ----------------
+        cfg = configs.get_smoke("llama3_2_1b")
+        params = M.init_params(cfg, torch.Generator().manual_seed(0))
+        on_cpu, _ = example.serve_batch(cfg, params)
+        reset_launches()
+        on_card, secs = example.serve_batch(
+            cfg, tree_map(lambda t: t.cuda(), params))
+        launches, variants = read_launches(), read_variants()
+        steps = max(example.PROMPT_LENS) + example.GEN_LEN - 1
+        print(f"phase 10d: examples.serve (llama3.2-1b smoke, f32, one "
+              f"shared clock, {steps} steps): card == CPU "
+              f"{on_card == on_cpu}, {secs * 1e3 / steps:.2f} ms/step, flash "
+              f"launches {launches['flash_attention']} per variant "
+              f"{variants['flash_attention']}")
+        require(on_card == on_cpu, f"10d: card {on_card} cpu {on_cpu}")
+        require(launches["flash_attention"] == steps * cfg.n_layers
+                and variants["flash_attention"]["simt"] ==
+                launches["flash_attention"],
+                f"10d: flash launches {launches} {variants}")
+
+        # -- 10e. the budget-curve report on 10c's capture -------------------
+        out = f"{tmp}/report.json"
+        require(trace_cli.main(["report", "--traces", qwen["capture"],
+                                "--out", out]) == 0, "10e: trace report")
+        report = json.loads(Path(out).read_text())
+        require(report["equivalence_failures"] == 0
+                and len(report["curves"]) == 3, "10e: report")
+    print(f"phase 10: {time.perf_counter() - t10:.1f} s of wall time")
+    return {"rwkv": rwkv, "qwen": qwen}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2380,6 +2709,11 @@ def main() -> int:
     examples_phase(torch, card)
     paper_rows = paper_phase(torch, card)
     print(f"phase 9: {time.perf_counter() - t9:.1f} s of wall time")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 10. the serve surface ------------------------------------------------
+    surface = surface_phase(torch, card, gen)
 
     d = times["decode"]
     tf, tb = flash_train[ARCH]["fwd"], flash_train[ARCH]["bwd"]
@@ -2414,6 +2748,7 @@ def main() -> int:
         "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
         "bound_by": d["bound_by"], "library_ms": d["library_ms"],
         "previous_ms": d["simt_ms"],
+        "admission_launches": surface["qwen"]["launches"],
         "train_launches": qwen_train["launches"]["flash_attention"],
         "train_max_abs_err": flash_train_err[ARCH]["fwd"],
         "train_ms": tf["ms"], "train_in_step_ms":

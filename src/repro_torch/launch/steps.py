@@ -93,9 +93,12 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, grad_accum: int = 1,
 
 
 def make_serve_step(cfg: ModelConfig):
-    """One-token decode step with greedy argmax over the last position."""
+    """One-token decode step with greedy argmax over the last position.
+    ``pos`` is one shared position clock (a scalar, a Python int too) or a
+    ``[B]`` vector of per-slot clocks."""
 
     def serve_step(params, cache, token, pos):
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=token.device)
         logits, cache = M.decode_step(cfg, params, token, cache, pos)
         next_tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
         return next_tok, cache

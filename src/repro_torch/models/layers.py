@@ -4,11 +4,12 @@ pieces of ``repro.models.layers`` in PyTorch (qwen2, mixtral).
 Every block ships a ``*_defs(cfg)`` returning a ParamInfo tree and a
 ``*_apply(cfg, params, ...)`` function on tensors.  Attention supports
 GQA/MQA, RoPE, a causal mask with an optional sliding window, QKV bias, and
-single-token decode with per-slot position clocks, against a dense KV cache
-or, for a windowed layer (mixtral's ``attn_local``), a ring-buffer cache of
-the window's length.  It goes through ``kernels.ops.attention``: the Hopper
-kernel for CUDA tensors, its plain version for CPU tensors.  Embeddings are
-tied (the token table unembeds) or untied (an ``unembed`` leaf).
+single-token decode with one shared position clock or one per slot, against
+a dense KV cache or, for a windowed layer (mixtral's ``attn_local``), a
+ring-buffer cache of the window's length.  It goes through
+``kernels.ops.attention``: the Hopper kernel for CUDA tensors, its plain
+version for CPU tensors.  Embeddings are tied (the token table unembeds)
+or untied (an ``unembed`` leaf).
 """
 from __future__ import annotations
 
@@ -114,8 +115,9 @@ def attention_apply(cfg: ModelConfig, p, x, *, positions, window: int = 0,
     ``window`` positions.
 
     Train (cache None): full-sequence causal (+window) attention.
-    Decode (cache dict with k [B,L,KV,D], v, pos [B]): x is [B,1,D]; each
-    slot writes its new key/value at its own position and attends over the
+    Decode (cache dict with k [B,L,KV,D], v, pos): x is [B,1,D]; ``pos`` is
+    one shared position clock (a scalar) or one per slot (``[B]``).  Each
+    slot writes its new key/value at its position and attends over the
     positions up to it.  With a window the cache is a ring of length
     L <= window: slot b writes row pos[b] mod L.  The cache is updated in
     place (JAX returns a new one and donates the old); the returned dict
@@ -131,21 +133,28 @@ def attention_apply(cfg: ModelConfig, p, x, *, positions, window: int = 0,
         out = ops.attention(q, k, v, window=window)
     else:
         pos = cache["pos"]
-        if pos.dim() != 1 or s != 1:
-            raise ValueError("decode takes one token per slot and a [B] "
-                             "vector of position clocks")
+        if pos.dim() > 1 or s != 1:
+            raise ValueError("decode takes one token per slot and a scalar "
+                             "or [B] position clock")
         k_all, v_all = cache["k"], cache["v"]
         length = k_all.shape[1]
         rows = torch.arange(b, device=pos.device)
+        slot_pos = pos.expand(b) if pos.dim() == 0 else pos
         if window > 0:
             if length > window:
                 raise ValueError(f"a windowed cache is a ring of at most "
                                  f"window={window} rows, got {length}")
             # Ring buffer: row j holds absolute position
             # pos - ((pos - j) mod L), so every write lands in range.
-            at = torch.remainder(pos, length)
+            at = torch.remainder(slot_pos, length)
             k_all[rows, at] = k[:, 0]
             v_all[rows, at] = v[:, 0]
+        elif pos.dim() == 0:
+            # JAX's dynamic_update_slice clamps its start into range: a
+            # shared clock at or past L overwrites row L - 1.
+            at = pos.clamp(max=length - 1)
+            k_all[:, at] = k[:, 0]
+            v_all[:, at] = v[:, 0]
         else:
             # JAX drops a scatter whose index is out of range (an idle slot
             # whose clock ran to max_len); a torch index would raise.  Write
@@ -159,7 +168,7 @@ def attention_apply(cfg: ModelConfig, p, x, *, positions, window: int = 0,
         # until the ring wraps, then all of them, which lie inside the
         # window).  Softmax does not depend on the order of the keys, so
         # the ring needs no window inside the kernel.
-        kv_len = (pos + 1).clamp(max=length).to(torch.int32)
+        kv_len = (slot_pos + 1).clamp(max=length).to(torch.int32)
         out = ops.attention(q, k_all, v_all, kv_len=kv_len)
         new_cache = {"k": k_all, "v": v_all, "pos": pos + 1}
 

@@ -15,9 +15,10 @@ a Python loop over that leading axis.  Every remat policy of the reference
 (:func:`remat_policy`, the JAX ``checkpoint_policies`` on the scan body);
 ``core.remat.tag``, the counterpart of ``checkpoint_name``, marks each
 block's ``attn_out`` and ``ffn_out`` (a copy only where a policy reads the
-names: ``dtr``, ``names:``, and the planner's trace).  Decode keeps per-slot
-position clocks; a windowed layer's KV cache is a ring buffer; rwkv has no
-decode yet.
+names: ``dtr``, ``names:``, and the planner's trace).  Decode takes one
+shared position clock (a scalar ``pos``) or per-slot clocks (``[B]``); a
+windowed layer's KV cache is a ring buffer; an rwkv block's cache is its
+f32 recurrent state and the two token-shift rows, which carry no position.
 """
 from __future__ import annotations
 
@@ -56,10 +57,6 @@ def _check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: {', '.join(bad)} not ported yet (the port runs "
             f"homogeneous attn or attn_local stacks with SwiGLU or routed "
             f"MoE FFNs, and rwkv stacks)")
-
-
-_NO_RWKV_DECODE = ("rwkv decode (the recurrent state cache) is not ported "
-                   "yet: ROADMAP Queue 1 item 12")
 
 
 def _block_defs(cfg: ModelConfig, kind: str, moe_layer: bool) -> dict:
@@ -166,13 +163,18 @@ def block_apply(cfg: ModelConfig, kind: str, p, x, *, positions,
     (time-mix) and FFN (channel-mix) outputs are tagged ``attn_out`` and
     ``ffn_out``."""
     if kind == "rwkv":
-        if cache is not None:
-            raise NotImplementedError(_NO_RWKV_DECODE)
+        mix_cache = None if cache is None else cache.get("mix")
         h = L.rmsnorm_apply(cfg, p["norm1"], x)
-        x = x + R.tag(RW.rwkv_time_mix(cfg, p["mix"], h), "attn_out")
+        if mix_cache is None:
+            x = x + R.tag(RW.rwkv_time_mix(cfg, p["mix"], h), "attn_out")
+            h2 = L.rmsnorm_apply(cfg, p["norm2"], x)
+            return x + R.tag(RW.rwkv_channel_mix(cfg, p["mix"], h2),
+                             "ffn_out"), None
+        t, c2 = RW.rwkv_time_mix(cfg, p["mix"], h, cache=mix_cache)
+        x = x + R.tag(t, "attn_out")
         h2 = L.rmsnorm_apply(cfg, p["norm2"], x)
-        return x + R.tag(RW.rwkv_channel_mix(cfg, p["mix"], h2),
-                         "ffn_out"), None
+        f, c3 = RW.rwkv_channel_mix(cfg, p["mix"], h2, cache=mix_cache)
+        return x + R.tag(f, "ffn_out"), {"mix": {**c2, **c3}}
     h = L.rmsnorm_apply(cfg, p["norm1"], x)
     window = cfg.window if kind == "attn_local" else 0
     attn_cache = None if cache is None else cache.get("attn")
@@ -228,7 +230,7 @@ def loss_fn(cfg: ModelConfig, params, batch):
 def _block_cache_defs(cfg: ModelConfig, kind: str, batch: int,
                       max_len: int) -> dict:
     if kind == "rwkv":
-        raise NotImplementedError(_NO_RWKV_DECODE)
+        return {"mix": RW.rwkv_cache_defs(cfg, batch)}
     window = cfg.window if kind == "attn_local" else 0
     return {"attn": L.attn_cache_defs(cfg, batch, max_len, window)}
 
@@ -249,20 +251,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def decode_step(cfg: ModelConfig, params, token, cache, pos):
-    """One-token decode: token [B,1] at per-slot positions pos [B].
+    """One-token decode: token [B,1] at position ``pos``, a scalar (one
+    shared position clock) or a ``[B]`` vector (per-slot clocks, continuous
+    batching: each slot's request sits at its own position).
 
-    Returns (logits, cache).  Continuous batching: each slot's request sits
-    at its own position.  The cache is updated in place and returned.
+    Returns (logits, cache).  The cache is updated in place and returned;
+    ``pos`` reaches the attention caches only (recurrent state carries no
+    position).
     """
     x = L.embed_apply(cfg, params["embed"], token)
-    positions = pos[:, None]    # rope wants [B, S] with S = 1
+    # rope wants positions broadcastable to [B, S] with S = 1.
+    positions = pos[None] if pos.dim() == 0 else pos[:, None]
     for g in range(cfg.n_groups):
         slot_params = _group(params["groups"], g)
         slot_cache = _group(cache["groups"], g)
         for i, kind in enumerate(cfg.pattern):
             blk = slot_cache[f"slot{i}"]
-            x, _ = block_apply(cfg, kind, slot_params[f"slot{i}"], x,
-                               positions=positions, moe_layer=cfg.moe,
-                               cache={"attn": {**blk["attn"], "pos": pos}})
+            blk_cache = {k: {**v, "pos": pos} if "k" in v else v
+                         for k, v in blk.items()}
+            x, new = block_apply(cfg, kind, slot_params[f"slot{i}"], x,
+                                 positions=positions, moe_layer=cfg.moe,
+                                 cache=blk_cache)
+            if "mix" in blk:      # the recurrent state is returned anew
+                for k, t in blk["mix"].items():
+                    t.copy_(new["mix"][k])
     x = L.rmsnorm_apply(cfg, params["final_norm"], x)
     return L.unembed_apply(cfg, params["embed"], x), cache

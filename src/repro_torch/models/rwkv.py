@@ -10,10 +10,17 @@ The dtype order is the reference's: projections and the decay LoRA in the
 activation dtype, the LoRA then widened; the log-decay
 ``-exp(clip(w0 + lora, -8, 4))``, the bonus ``u`` and the head norm in f32.
 Sequences must be a multiple of 16 long, as the reference's chunked form
-requires.  The one-token decode branch (a recurrent state cache) is not
-ported yet: ROADMAP Queue 1 item 12.
+requires.
+
+Decode (``cache=`` given, one token a slot) is the reference's one-token
+branch in plain PyTorch: the token shift takes the previous token from the
+cache, and the recurrence updates the ``[B,H,D,D]`` f32 state once
+(``out = r·(S + u⊙kᵀv)``, ``S ← S⊙w + kᵀv``); it reaches no WKV kernel.
+With a cache each mix returns ``(y, new_cache)``, without one ``y``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -53,9 +60,23 @@ def rwkv_defs(cfg: ModelConfig) -> dict:
     }
 
 
-def _shift(x):
-    """x_{t-1} along the sequence, zeros at t = 0."""
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+def rwkv_cache_defs(cfg: ModelConfig, batch: int) -> dict:
+    d = cfg.d_model
+    h, dh = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    return {
+        "state": ParamInfo((batch, h, dh, dh), "float32",
+                           ("batch", "heads", None, None)),
+        "x_att": ParamInfo((batch, d), cfg.dtype, ("batch", None)),
+        "x_ffn": ParamInfo((batch, d), cfg.dtype, ("batch", None)),
+    }
+
+
+def _shift(x, prev=None):
+    """x_{t-1} along the sequence; ``prev`` fills t = 0 (decode carries
+    it), zeros without one."""
+    if prev is None:
+        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return torch.cat([prev[:, None, :], x[:, :-1]], dim=1)
 
 
 def _mix(x, xs, mu):
@@ -71,15 +92,16 @@ def _head_norm(cfg: ModelConfig, p, x):
     return y.reshape(b, s, h * d) * (1.0 + p["ln_x"].float())
 
 
-def rwkv_time_mix(cfg: ModelConfig, p, x):
-    """Time-mix over a full sequence x [B,S,d] -> [B,S,d]."""
+def rwkv_time_mix(cfg: ModelConfig, p, x, *, cache: Optional[dict] = None):
+    """Time-mix over a full sequence x [B,S,d] -> [B,S,d]; with ``cache``
+    (state, x_att) one token a slot -> (y, {state, x_att})."""
     dt = adtype(cfg)
     b, s, d = x.shape
-    if s % _CHUNK:
+    if cache is None and s % _CHUNK:
         raise ValueError(f"seq {s} not divisible by chunk {_CHUNK} (the "
                          f"reference's chunked recurrence needs it)")
     h, dh = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
-    xs = _shift(x)
+    xs = _shift(x, None if cache is None else cache["x_att"])
     mu = p["mu"].to(dt)
     xr, xk, xv, xw, xg = (_mix(x, xs, mu[i]) for i in range(5))
 
@@ -92,17 +114,32 @@ def rwkv_time_mix(cfg: ModelConfig, p, x):
     logw = -torch.exp(torch.clamp(p["w0"].float() + lora.float(), -8.0, 4.0))
     logw = logw.reshape(b, s, h, dh)
 
-    out = ops.rwkv_mix(r, k, v, logw, p["u"])
+    if cache is None:
+        out = ops.rwkv_mix(r, k, v, logw, p["u"])
+    else:
+        state = cache["state"]                                 # [B,H,D,D]
+        r1, k1, v1 = r[:, 0].float(), k[:, 0].float(), v[:, 0].float()
+        w1 = torch.exp(logw[:, 0])
+        kv = k1[..., :, None] * v1[..., None, :]               # kᵀv
+        bonus = state + p["u"].float()[None, :, :, None] * kv
+        out = torch.einsum("bhd,bhde->bhe", r1, bonus)[:, None]
+        state = state * w1[..., None] + kv
     y = _head_norm(cfg, p, out).to(dt) * g
-    return y @ p["wout"].to(dt)
+    y = y @ p["wout"].to(dt)
+    if cache is None:
+        return y
+    return y, {"state": state, "x_att": x[:, -1]}
 
 
-def rwkv_channel_mix(cfg: ModelConfig, p, x):
-    """Channel-mix (squared-ReLU FFN with a sigmoid receptance gate)."""
+def rwkv_channel_mix(cfg: ModelConfig, p, x, *,
+                     cache: Optional[dict] = None):
+    """Channel-mix (squared-ReLU FFN with a sigmoid receptance gate); with
+    ``cache`` (x_ffn) -> (y, {x_ffn})."""
     dt = adtype(cfg)
-    xs = _shift(x)
+    xs = _shift(x, None if cache is None else cache["x_ffn"])
     mu = p["mu_c"].to(dt)
     xk, xr = _mix(x, xs, mu[0]), _mix(x, xs, mu[1])
     r = torch.sigmoid(xr @ p["wr_c"].to(dt))
     k = torch.square(torch.relu(xk @ p["wk_c"].to(dt)))
-    return r * (k @ p["wv_c"].to(dt))
+    y = r * (k @ p["wv_c"].to(dt))
+    return y if cache is None else (y, {"x_ffn": x[:, -1]})

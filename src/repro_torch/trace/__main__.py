@@ -17,13 +17,19 @@
   python -m repro_torch.trace replay serve.log --fractions 0.5 0.3
   python -m repro_torch.trace replay serve.log --verify
 
-The counterpart of ``python -m repro.trace``'s ``capture`` and ``replay``;
-``serve-step`` and ``train-step`` trace aten graphs with ``make_fx`` where
-the JAX package traces jaxprs.
+  # Budget-curve report (JSON) over given traces or the smoke trace set.
+  # --out defaults to BENCH_serving.json, the JAX package's report in the
+  # repository root: name another file unless replacing it is meant.
+  python -m repro_torch.trace report --traces serve.log --out /tmp/r.json
+
+The counterpart of ``python -m repro.trace``; ``serve-step`` and
+``train-step`` trace aten graphs with ``make_fx`` where the JAX package
+traces jaxprs.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 from ..check.trace_lint import check_log
@@ -31,10 +37,11 @@ from ..core.graph import Log
 from . import capture as C
 from . import replay as R
 
-SOURCES = ("serve", "serve-step", "train-step", "eager-mlp", "treelstm")
+SOURCES = ("serve", "serve-step", "train-step", "eager-mlp", "treelstm",
+           "random-dag")
 
-#: replay heuristic trio when --heuristics is not given (--verify instead
-#: defaults to every separable heuristic).
+#: replay/report heuristic trio when --heuristics is not given (--verify
+#: instead defaults to every separable heuristic).
 DEFAULT_HEURISTICS = ("h_dtr", "h_dtr_eq", "h_lru")
 
 
@@ -57,6 +64,9 @@ def _capture(args) -> Log:
     if args.source == "treelstm":
         from ..core import graphs
         return graphs.treelstm(depth=4, width=32, seed=args.seed)
+    if args.source == "random-dag":
+        from ..core import graphs
+        return graphs.random_dag(120, seed=args.seed)
     raise SystemExit(f"unknown source {args.source}")
 
 
@@ -109,6 +119,73 @@ def cmd_replay(args) -> int:
     return 0
 
 
+def _smoke_trace_set(args) -> list[Log]:
+    """The standard report set: serve at two slot widths + a train step."""
+    model = C.step_model_from_config(args.arch, smoke=True)
+    return [
+        C.capture_serve_trace(model, slots=2, requests=8, gen=12,
+                              seed=args.seed, name="serve_smoke_s2"),
+        C.capture_serve_trace(model, slots=4, requests=12, gen=16,
+                              seed=args.seed, name="serve_smoke_s4"),
+        C.capture_train_step(args.arch, smoke=True, batch=2, seq=16,
+                             cost_model="flops"),
+    ]
+
+
+def cmd_report(args) -> int:
+    args.heuristics = list(args.heuristics or DEFAULT_HEURISTICS)
+    if args.traces:
+        logs = []
+        for path in args.traces:
+            with open(path) as f:
+                logs.append(Log.loads(f.read()))
+    else:
+        logs = _smoke_trace_set(args)
+    # Equivalence gate over the reported heuristics; the verify pass already
+    # replayed every index cell, so the budget curves are assembled from its
+    # results instead of simulating the grid again.
+    verified = [R.verify_oracle_equivalence(
+        log, heuristics=tuple(args.heuristics),
+        fractions=tuple(args.fractions),
+        thrash_factor=args.thrash_factor) for log in logs]
+    curves = []
+    for log, rep in zip(logs, verified):
+        index_results = rep.pop("index_results")
+        for h in args.heuristics:
+            runs = [index_results[(h, f)] for f in args.fractions]
+            curves.append({
+                "trace": log.name,
+                "heuristic": h,
+                "baseline_peak": rep["baseline_peak"],
+                "min_feasible_fraction": min(
+                    (r.budget for r in runs if r.ok), default=None),
+                "last_ok_before_thrash": min(
+                    (r.budget for r in runs if r.ok and r.slowdown < 2.0),
+                    default=None),
+                "runs": [R.run_to_dict(r) for r in runs],
+            })
+    report = {
+        "traces": [{"name": log.name, "ops": log.op_count(),
+                    "instructions": len(log), "meta": log.meta}
+                   for log in logs],
+        "equivalence": verified,
+        "equivalence_failures": sum(len(r["mismatches"]) for r in verified),
+        "curves": curves,
+    }
+    with open(args.out, "w") as f:
+        # allow_nan=False: strict JSON only.  Failed runs carry ok=False
+        # with nulled slowdown/overhead (run_to_dict), never ``Infinity``.
+        json.dump(report, f, indent=1, sort_keys=True, allow_nan=False)
+    ok = report["equivalence_failures"] == 0
+    print(f"report: {len(logs)} traces x {len(args.heuristics)} heuristics "
+          f"x {len(args.fractions)} fractions -> {args.out} "
+          f"(equivalence {'OK' if ok else 'FAILED'})")
+    for c in curves:
+        print(f"  {c['trace']} {c['heuristic']}: "
+              f"min_feasible={c['min_feasible_fraction']}")
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.trace")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -153,6 +230,15 @@ def main(argv=None) -> int:
                      help="use the linear-scan oracle instead of the index")
     rep.add_argument("--verify", action="store_true")
     rep.set_defaults(fn=cmd_replay)
+
+    rpt = sub.add_parser("report", help="budget-curve report (JSON)")
+    common(rpt)
+    rpt.add_argument("--traces", nargs="*", default=None,
+                     help="trace files; default: capture the smoke set")
+    rpt.add_argument("--out", default="BENCH_serving.json",
+                     help="where the JSON goes (the default is the JAX "
+                          "package's committed report: name another file)")
+    rpt.set_defaults(fn=cmd_report)
 
     args = ap.parse_args(argv)
     return args.fn(args)

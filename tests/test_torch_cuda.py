@@ -232,8 +232,8 @@ def test_smoke_serve_on_card_matches_cpu(cuda):
     version) serve the same greedy tokens, and every decode step launched
     the kernel once per layer."""
     cfg = configs.get_smoke("qwen2-0.5b")
-    args = serve.parse_args(["--smoke", "--requests", "6", "--slots", "2",
-                             "--gen", "8"])
+    args = serve.parse_args(["--arch", "qwen2-0.5b", "--smoke", "--requests",
+                             "6", "--slots", "2", "--gen", "8"])
     params = M.init_params(cfg, torch.Generator().manual_seed(0))
     on_cpu = serve.serve_loop(cfg, params, args)
     before = flash_attention.launches
@@ -261,6 +261,39 @@ def test_smoke_mixtral_on_card_matches_cpu(cuda):
     assert flash_attention.launches - flash_before == \
         on_card.steps * cfg.n_layers
     assert moe_gemm.launches - moe_before == on_card.steps * 3 * cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "qwen2-0.5b"])
+def test_smoke_admission_on_card_matches_cpu(cuda, arch):
+    """Under a KV budget and chaos squeezes, the card and the CPU serve the
+    same tokens with the same preemptions; rwkv6 decode launches no
+    kernel, qwen2's one flash call per layer and step."""
+    cfg = configs.get_smoke(arch)
+    args = serve.parse_args(["--arch", arch, "--smoke", "--requests", "8",
+                             "--slots", "4", "--gen", "8", "--max-len", "32",
+                             "--kv-budget", "0.3", "--chaos-shrink", "0.5",
+                             "--chaos-period", "16"])
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    on_cpu = serve.serve_loop(cfg, params, args)
+    before = flash_attention.launches
+    on_card = serve.serve_loop(cfg, tree_map(lambda t: t.to(cuda), params),
+                               args)
+    assert on_card.completed == on_cpu.completed
+    assert (on_card.counters, on_card.events) == \
+        (on_cpu.counters, on_cpu.events)
+    assert on_card.counters["preemptions"] > 0
+    per_step = 0 if arch == "rwkv6-1.6b" else cfg.n_layers
+    assert flash_attention.launches - before == on_card.steps * per_step
+
+
+def test_scalar_clock_example_on_card_matches_cpu(cuda):
+    from repro_torch.examples import serve as example
+    cfg = configs.get_smoke("llama3_2_1b")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    on_cpu, _ = example.serve_batch(cfg, params)
+    on_card, _ = example.serve_batch(cfg, tree_map(lambda t: t.to(cuda),
+                                                   params))
+    assert on_card == on_cpu
 
 
 def _wkv_inputs(bh, s, d, logw, dtype, device):

@@ -86,6 +86,8 @@ COPIES = [
     "trace/record.py", "trace/replay.py",
     "static/__init__.py", "static/chain.py", "static/executor.py",
     "static/lpbound.py", "static/panel.py", "static/solvers.py",
+    # The serve loop's admission control.
+    "launch/admission.py",
 ]
 
 

@@ -244,5 +244,13 @@ def test_time_mix_refuses_ragged_sequence(cfg, params):
 
 
 def test_rwkv_decode_is_not_ported_yet(cfg):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        M.cache_defs(cfg, 2, 32)
+    """Named when rwkv had no decode; it has one now, so this holds its
+    cache to the reference's: the f32 recurrent state and the two
+    token-shift rows, stacked per group
+    (``tests/test_torch_rwkv_decode.py`` holds the values)."""
+    mix = M.cache_defs(cfg, 2, 32)["groups"]["slot0"]["mix"]
+    h, dh = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    assert {k: (v.shape, v.dtype) for k, v in mix.items()} == {
+        "state": ((cfg.n_groups, 2, h, dh, dh), "float32"),
+        "x_att": ((cfg.n_groups, 2, cfg.d_model), cfg.dtype),
+        "x_ffn": ((cfg.n_groups, 2, cfg.d_model), cfg.dtype)}

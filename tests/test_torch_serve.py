@@ -217,8 +217,8 @@ def test_serve_stops_at_max_len():
     """A request that reaches --max-len retires before --gen tokens."""
     cfg = configs.get_smoke(ARCH)
     params = M.init_params(cfg, torch.Generator().manual_seed(0))
-    args = serve.parse_args(["--smoke", "--requests", "3", "--slots", "2",
-                             "--gen", "50", "--max-len", "16"])
+    args = serve.parse_args(["--arch", ARCH, "--smoke", "--requests", "3",
+                             "--slots", "2", "--gen", "50", "--max-len", "16"])
     res = serve.serve_loop(cfg, params, args)
     assert sorted(res.completed) == [0, 1, 2]
     for toks in res.completed.values():
