@@ -30,7 +30,12 @@ Phases; any failure exits non-zero before the last line is printed:
    lengths, a window, the train shapes of qwen2 ``[4,14,2048,64]``,
    llama3.2-1b ``[4,32,2048,64]`` (kv 8 heads, G = 4) and smollm-135m
    ``[8,9,1024,64]`` (kv 3 heads, G = 3), and a second call's bits on every
-   variant.
+   variant.  The grouped GEMM's backward (``moe_gemm_bwd``: dX and dW, on
+   ``wgmma`` reading w, x and dY in place) against autograd through the
+   plain version, each gradient within 1e-4 (f32, ``simt``) or 3e-2 (bf16)
+   of its largest magnitude, and a second call's bits, on the sweep and at
+   phase 11's shapes (mixtral's train step, deepseek's decode and train
+   step), where the forward is also held to its plain version.
 3. Each serve path at full width, with seeded random weights, 8 requests
    over 4 slots, 16 tokens each, ``--capture``: qwen2-0.5b (24 layers),
    then mixtral-8x7b with its depth cut to 4 layers (the 32-layer model
@@ -152,14 +157,42 @@ Phases; any failure exits non-zero before the last line is printed:
     clock) on the card and on the CPU: the same tokens.  (e) ``python -m
     repro_torch.trace report`` on (c)'s capture, into a temp dir.
 
+11. MoE training, autotune and deepseek-v3 (its own wall time printed).
+    The grouped GEMM's rows at phase 11's shapes (timed beside phase 5's
+    decode rows, before the train phases' large profiles): the forward and
+    the backward beside ``simt``, the plain versions, ``torch.bmm`` and the
+    bound, the backward also beside its design on transposed copies.  (a)
+    mixtral-8x7b at full width cut to 2 layers, batch 2 x 2048: loss and
+    every gradient through the kernels against the plain path in f32 (worst
+    leaf within 1e-3) and with bf16 activations (within the plain path's own
+    bf16-against-f32 distance).  (b) 3 AdamW steps (f32 parameters, bf16
+    activations): launches a step per variant (grouped GEMMs 3 + 6 a layer,
+    all ``wgmma``; flash forward on ``wgmma``, its D 128 backward on
+    ``simt``), losses, ``max_memory_allocated``; then one step's wall,
+    device busy, idle share, tokens/s and the kernels' device time inside
+    it; one loss-and-grads call at phase 3's 4 layers (finite gradients,
+    launches, peak).  (c) ``core.autotune`` on phase 8's MLP (traced on fake tensors):
+    the chosen fraction and its estimate; the step's capture under
+    ``cost_model="hlo"``, whose FLOPs must be its matrix products exactly.
+    (d) deepseek-v3: the smoke config card against CPU (forward at S 16 and
+    2048, MLA's two branches; 8 requests served, the same tokens); then
+    full width cut to one dense and one MoE layer with bf16 parameters: 8
+    requests served over 4 slots (every grouped GEMM on ``wgmma``, no flash
+    launch: MLA's attention is plain PyTorch), one decode step's wall and
+    busy, and one loss-and-grads call at batch 1 x 2048 (loss and every
+    gradient finite, launches, peak).  Its rows join the JSON lines.
+
 Phase 4 also holds layer 0 alone in bf16 (attention output, MLP or MoE
 output), kernel against plain on the same inputs, to the kernels' own
 tolerances.  The qwen2 phases run first and free their tensors before
 mixtral's 36 GB (f32 weights and their bf16 copy) arrive; rwkv6 comes
-next, then the eager executor, the planner, phase 9 and phase 10.  Then
-the JSON line of phase 9's rows, one JSON line per kernel table (the flash
-rows with each train shape's launches, times, bound and SDPA's time), the
-card line, and ``{"ok": true, "device": {...}}`` as the last line.
+next, then phase 11 (MoE training and deepseek-v3), the eager executor,
+the planner, phase 9 and phase 10.  Then
+the JSON line of phase 9's rows, phase 11's JSON line, one JSON line per
+kernel table (the flash rows with each train shape's launches, times,
+bound and SDPA's time; the grouped GEMM's rows at phase 11's shapes, and
+its backward's), the card line, and ``{"ok": true, "device": {...}}`` as
+the last line.
 """
 from __future__ import annotations
 
@@ -172,6 +205,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from contextlib import contextmanager, nullcontext
 from functools import partial
 from pathlib import Path
@@ -218,6 +252,44 @@ GEMM_SWEEP = [  # (e, c, d, f): tests/test_kernels.py's sweep, then ragged
 GEMM_DECODE = {"wi": (8, 32, 4096, 14336), "wo": (8, 32, 14336, 4096)}
 # One 2048-token request: capacity ceil(2048 * 2 / 8 * 1.25) = 640.
 GEMM_PREFILL = (8, 640, 4096, 14336)
+# Phase 11: MoE training and deepseek-v3.  Mixtral at full width, depth
+# cut to 2 of 32 layers (at AdamW's 16 B a parameter a layer holds 23.2 GB
+# and the untied embeddings 4.2 GB), batch 2 x 2048: capacity 640 a row,
+# so the grouped GEMMs run at [8, 1280, 4096] @ [8, 4096, 14336] with the
+# batch folded into capacity.
+MIX_TRAIN_LAYERS = 2
+MIX_BATCH, MIX_SEQ = 2, 2048
+MIX_STEPS = 3
+# deepseek-v3 at full width, cut to one dense and one MoE layer, bf16
+# parameters (13.9 B: in f32 they would leave no room for gradients).
+DS_ARCH = "deepseek-v3-671b"
+DS_CUT = dict(n_layers=2, n_dense_layers=1, param_dtype="bfloat16")
+DS_BATCH, DS_SEQ = 1, 2048
+# Smoke logits, card against CPU, f32: summation order only.
+DS_SMOKE_TOL = 1e-4
+# The grouped GEMM at phase 11's shapes: mixtral's train step (C = 1280),
+# deepseek's decode (4 slots x capacity 8) and train step (capacity 80).  A
+# MoE layer runs the wi shape twice (gate and up) and the wo shape once
+# (down), forward and backward.
+GEMM_TRAIN = {"mixtral train wi": (8, 1280, 4096, 14336),
+              "mixtral train wo": (8, 1280, 14336, 4096),
+              "deepseek decode wi": (256, 32, 7168, 2048),
+              "deepseek decode wo": (256, 32, 2048, 7168),
+              "deepseek train wi": (256, 80, 7168, 2048),
+              "deepseek train wo": (256, 80, 2048, 7168)}
+# The share of a MoE layer's grouped-GEMM launches at each shape.
+GEMM_SHARE = {"wi": 2 / 3, "wo": 1 / 3}
+# Shapes that joined phase 2 after the later phases' inputs were fixed:
+# they draw from generators of their own (``own_gen``).
+GEMM_FRESH = ("deepseek decode wo", "deepseek train wo")
+# The backward against autograd through the plain version, each gradient
+# relative to its largest magnitude: the forward's tolerances (f32 order of
+# summation; bf16 one rounding of each gradient on both sides).
+GEMM_BWD_REL = {"float32": 1e-4, "bfloat16": 3e-2}
+# The grouped-GEMM kernels one step launches, by the profiler's names.
+GEMM_STEP_KERNELS = ("moe_gemm_wgmma_kernel",)
+FLASH_SIMT_BWD_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
+                          "flash_bwd_dq_kernel")
 RWKV_ARCH = "rwkv6-1.6b"
 # rwkv6-1.6b's train shape, batch 4 x 32 heads over 1024 steps of 64.
 WKV_TRAIN = (128, 1024, 64)
@@ -409,6 +481,16 @@ def gemm_inputs(torch, shape, dtype, gen):
     return x, w
 
 
+def own_gen(torch, what, gen, fresh):
+    """``gen``, or for a shape named in ``fresh`` a generator of its own, so
+    that a shape added to a phase leaves every later phase's inputs as they
+    were: phase 4's bf16 check compares two samples of rounding noise and
+    moves with its weights (PERF.md, PR 21)."""
+    if what not in fresh:
+        return gen
+    return torch.Generator("cuda").manual_seed(zlib.crc32(what.encode()))
+
+
 def compare(torch, kernel, plain, args, kw, tol, what):
     before = dict(getattr(kernel, "variant_launches", {}))
     out = kernel(*args, **kw)
@@ -441,7 +523,8 @@ def event_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters, top=0, by_name=None, per_call=None):
+def device_ms(torch, fn, iters, top=0, by_name=None, per_call=None,
+              expect=None):
     """Device time of one call (kernels only, no launch gaps) from the
     profiler; None where it sees no device time.  Only the device's own
     events count: a CPU operator's entry repeats its kernels' time.  With
@@ -449,7 +532,10 @@ def device_ms(torch, fn, iters, top=0, by_name=None, per_call=None):
     dict ``by_name`` receives each kernel's (ms per call, launches per
     call).  ``per_call``: the launches one call makes; a session that
     recorded fewer is incomplete (after a long run the profiler has come
-    back with a part of a session's kernels) and is run again."""
+    back with a part of a session's kernels) and is run again.  ``expect``
+    maps a part of a kernel's name to the launches one call makes of the
+    kernels so named: a session that recorded another count is run again
+    too.  After three incomplete sessions, None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -469,18 +555,23 @@ def device_ms(torch, fn, iters, top=0, by_name=None, per_call=None):
                          reverse=True)
         total_us = sum(us for us, _, _ in kernels)
         seen = sum(count for _, count, _ in kernels)
-        if total_us > 0 and (per_call is None or seen >= per_call * iters):
+        named = {part: sum(count for _, count, name in kernels
+                           if part in name) for part in expect or {}}
+        if total_us > 0 and (per_call is None or seen >= per_call * iters) \
+                and all(n == expect[p] * iters for p, n in named.items()):
             break
-        print(f"  profiler saw {seen} kernels, {total_us!r} us (attempt "
-              f"{attempt + 1}); profiling again")
+        print(f"  profiler saw {seen} kernels, {total_us!r} us, by name "
+              f"{named} (attempt {attempt + 1}); profiling again")
         total_us = 0
+    if total_us == 0:
+        return None
     for us, count, name in kernels[:top]:
         print(f"  {us / 1e3 / iters:9.3f} ms/call {100 * us / total_us:5.1f}% "
               f"x{count // iters} {name[:100]}")
     if by_name is not None:
         by_name.update({name: (us / 1e3 / iters, count / iters)
                         for us, count, name in kernels})
-    return total_us / 1e3 / iters if total_us > 0 else None
+    return total_us / 1e3 / iters
 
 
 def bound(nbytes, flops, dtype_name):
@@ -641,16 +732,17 @@ def simt_only():
     kernels' time before this design, on the same inputs and card."""
     from repro_torch.kernels import flash_attention as fa, moe_gemm as mg
     from repro_torch.kernels import rwkv6_chunk as wkv
-    plans = [(m, m.plan) for m in (fa, mg, wkv)]
-    for m, plan in plans:
-        m.plan = lambda *a, plan=plan, **k: plan(
-            *a, **dict(k, aligned=False))
+    plans = [(m, name, getattr(m, name)) for m, name in (
+        (fa, "plan"), (mg, "plan"), (mg, "plan_backward"), (wkv, "plan"))]
+    for m, name, plan in plans:
+        setattr(m, name, lambda *a, plan=plan, **k: plan(
+            *a, **dict(k, aligned=False)))
     try:
         with backward_on("simt"):
             yield
     finally:
-        for m, plan in plans:
-            m.plan = plan
+        for m, name, plan in plans:
+            setattr(m, name, plan)
 
 
 @contextmanager
@@ -676,11 +768,12 @@ def require_wgmma_backward(counts, what) -> None:
 def _wrappers():
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
-    from repro_torch.kernels.moe_gemm import moe_gemm
+    from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_bwd
     from repro_torch.kernels.rwkv6_chunk import rwkv6_bwd, rwkv6_fwd
     return {"flash_attention": flash_attention,
             "flash_attention_bwd": flash_attention_bwd, "moe_gemm": moe_gemm,
-            "rwkv6_fwd": rwkv6_fwd, "rwkv6_bwd": rwkv6_bwd}
+            "moe_gemm_bwd": moe_gemm_bwd, "rwkv6_fwd": rwkv6_fwd,
+            "rwkv6_bwd": rwkv6_bwd}
 
 
 def reset_launches():
@@ -729,14 +822,16 @@ def require_wgmma(variants, what) -> None:
 
 
 def time_row(torch, fns, iters, bound_ms_by, what, card, per_call=None,
-             passes=None):
+             passes=None, events_only=False):
     """Device and event time of each named call, beside the bound.  A name
     that starts with ``simt`` is timed with its wrappers planned onto the
     CUDA-core variants, one that starts with ``mma`` with the flash
     backward on its ``mma`` schedule.  ``per_call`` maps a name to the
     kernels one call launches (see ``device_ms``); ``passes`` maps a name to
     the kernel names whose device ms per call the row also keeps, under
-    ``<name>_passes``."""
+    ``<name>_passes``.  ``events_only``: each time is CUDA events around
+    back-to-back calls (no profiler), for calls of a millisecond or more,
+    where the host's enqueue hides under the card's work."""
     row = {}
     for name, fn in fns:
         forced = (simt_only() if name.startswith("simt") else
@@ -744,6 +839,9 @@ def time_row(torch, fns, iters, bound_ms_by, what, card, per_call=None,
                   nullcontext())
         by_name = {}
         with forced:
+            if events_only:
+                row[name] = event_ms(torch, fn, iters)
+                continue
             row[name] = device_ms(torch, fn, iters,
                                   by_name=by_name,
                                   per_call=(per_call or {}).get(name))
@@ -860,7 +958,8 @@ def model_phases(torch, arch, cfg, smoke_flags, card, gen) -> tuple:
     print(f"phase 4: {arch} full-width decode step, kernel vs plain: "
           f"f32 max|d|={d32!r} (limit {PARITY_F32} x max|logits|="
           f"{scale!r}); bf16 max|d|={d16!r} (limit: the plain path's own "
-          f"bf16-vs-f32 max|d|={noise!r}); bf16 argmax agreement "
+          f"bf16-vs-f32 max|d|={noise!r}; the kernel path's "
+          f"{(k16 - p32).abs().max().item()!r}); bf16 argmax agreement "
           f"{agree:.2f}")
     require(d32 <= PARITY_F32 * scale, f"f32 parity {d32} > {PARITY_F32} x "
             f"{scale}")
@@ -2540,6 +2639,533 @@ def surface_phase(torch, card, gen) -> dict:
     return {"rwkv": rwkv, "qwen": qwen}
 
 
+def gemm_bwd_bound_ms(shape, itemsize, dtype_name):
+    """Least time for the grouped GEMM's backward: x, w and dY read once,
+    dX and dW written once; its two products, 4 FLOPs per multiply-add of
+    the forward."""
+    e, c, d, f = shape
+    return bound(2 * (e * c * d + e * d * f) * itemsize + e * c * f * itemsize,
+                 4 * e * c * d * f, dtype_name)
+
+
+def max_abs(a, b=None, rows=8) -> float:
+    """max |a - b| (max |a| without ``b``) in f32, a few slices of the
+    leading axis at a time: the f32 copies of a 7.5 GB bf16 gradient
+    would not fit beside it."""
+    out = 0.0
+    for i in range(0, a.shape[0], rows):
+        x = a[i:i + rows].float()
+        if b is not None:
+            x = x - b[i:i + rows].float()
+        out = max(out, x.abs().max().item())
+    return out
+
+
+def all_finite(torch, t, rows=8) -> bool:
+    """Every element finite, a few slices of the leading axis at a time."""
+    return all(bool(torch.isfinite(t[i:i + rows]).all())
+               for i in range(0, t.shape[0], rows))
+
+
+def gemm_bwd_checks(torch, gen) -> dict:
+    """Phase 2 for the grouped GEMM's backward: ``moe_gemm_bwd`` (dX and dW,
+    one kernel launch each) against autograd through the plain version on
+    the kernel-test sweep and phase 11's train and decode shapes, each
+    gradient within ``GEMM_BWD_REL`` of its largest magnitude, and a second
+    call's bits; f32 on ``simt``, bf16 on ``wgmma``.  One gradient at a
+    time: deepseek's f32 dW is 15 GB.  Returns the bf16 max abs error of
+    each phase-11 shape."""
+    from repro_torch.kernels import moe_gemm as mg, ref
+    from repro_torch.kernels.moe_gemm import moe_gemm_bwd
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 2: moe_gemm_bwd against autograd through "
+          f"moe_gemm_reference (memory_allocated at the start "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB)")
+    errs = {}
+    shapes = [("sweep", s) for s in GEMM_SWEEP] + list(GEMM_TRAIN.items())
+    for dtype_name, dtype in (("float32", torch.float32),
+                              ("bfloat16", torch.bfloat16)):
+        for what, shape in shapes:
+            e, c, d, f = shape
+            # bf16 reads the operands in place on wgmma where d and F
+            # allow; otherwise dX = dY w^T runs as [E,C,F]@[E,F,d] and
+            # dW = x^T dY as [E,d,C]@[E,C,F] on copies, each planned as a
+            # forward (f32 on simt).
+            want = ["wgmma"] * 2 if mg.plan_backward(
+                e, c, d, f, dtype)["variant"] == "wgmma" else [
+                mg.plan(e, c, f, d, dtype)["variant"],
+                mg.plan(e, d, c, f, dtype)["variant"]]
+            require(what == "sweep" or want == [
+                "wgmma" if dtype == torch.bfloat16 else "simt"] * 2,
+                f"moe_gemm_bwd {what} {dtype_name} planned {want}")
+            g = own_gen(torch, what, gen, GEMM_FRESH)
+            x, w = gemm_inputs(torch, shape, dtype, g)
+            dy = torch.randn(e, c, f, generator=g, device="cuda").to(dtype)
+            rels, err, same = [], 0.0, True
+            for which in (0, 1):             # dX, then dW
+                need = (which == 0, which == 1)
+                before = dict(moe_gemm_bwd.variant_launches)
+                got = moe_gemm_bwd(x, w, dy, need=need)[which]
+                again = moe_gemm_bwd(x, w, dy, need=need)[which]
+                torch.cuda.synchronize()
+                ran = {v: n - before[v]
+                       for v, n in moe_gemm_bwd.variant_launches.items()}
+                require(ran == {v: 2 * (v == want[which]) for v in ran},
+                        f"moe_gemm_bwd {what} {dtype_name} ran {ran}")
+                same = same and bool(torch.equal(got, again))
+                del again
+                with torch.enable_grad():
+                    xs = [t.detach().requires_grad_(i == which)
+                          for i, t in enumerate((x, w))]
+                    (expect,) = torch.autograd.grad(
+                        ref.moe_gemm_reference(*xs), [xs[which]], dy)
+                require(got.dtype == dtype and all_finite(torch, got),
+                        f"finite moe_gemm_bwd gradients {what}")
+                d_ = max_abs(got, expect)
+                rels.append(d_ / max_abs(expect))
+                err = max(err, d_)
+                del got, expect, xs
+                gc.collect()
+                torch.cuda.empty_cache()
+            ok = max(rels) <= GEMM_BWD_REL[dtype_name] and same
+            print(f"  {dtype_name} {what} [{e},{c},{d}]@[{e},{d},{f}] "
+                  f"[{'+'.join(want)}]: max|d|/max|g| dx,dw = "
+                  f"{[float(f'{r:.3g}') for r in rels]} (limit "
+                  f"{GEMM_BWD_REL[dtype_name]}), max_abs_err={err!r}; "
+                  f"second call same bits: {same} {'ok' if ok else 'FAIL'}")
+            require(ok, f"moe_gemm_bwd against plain: {dtype_name} {what}")
+            if dtype == torch.bfloat16 and what in GEMM_TRAIN:
+                errs[what] = err
+            del x, w, dy
+            gc.collect()
+            torch.cuda.empty_cache()
+    return errs
+
+
+def gemm_train_times(torch, card, gen) -> dict:
+    """Phase 11's grouped-GEMM rows, bf16, timed with CUDA events around
+    back-to-back calls (each call is a millisecond or more; the profiler
+    has dropped kernels from these sessions): the forward at every
+    ``GEMM_TRAIN`` shape, the backward (``<shape> bwd``) at the train
+    shapes; each beside the ``simt`` variant, the plain version,
+    ``torch.bmm`` (for the backward, the pair of ``torch.bmm`` calls that
+    computes dX and dW) and the bound.  The backward's row also keeps the
+    design before the in-place layouts, the forward kernel on transposed
+    copies of w and x (``previous_ms``), and those two copies timed alone
+    (``copies_ms``)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_gemm import (moe_gemm, moe_gemm_bwd,
+                                              moe_gemm_bwd_reference)
+
+    def on_copies(x, w, dy):
+        return (moe_gemm(dy, w.transpose(1, 2).contiguous()),
+                moe_gemm(x.transpose(1, 2).contiguous(), dy))
+
+    rows = {}
+    for what, shape in GEMM_TRAIN.items():
+        e, c, d, f = shape
+        # Before the wo shapes, this loop timed the wi shapes alone.
+        g = own_gen(torch, what, gen, GEMM_FRESH + ("mixtral train wo",))
+        x, w = gemm_inputs(torch, shape, torch.bfloat16, g)
+        rows[what] = time_row(
+            torch, (("ms", lambda: moe_gemm(x, w)),
+                    ("simt_ms", lambda: moe_gemm(x, w)),
+                    ("plain_ms", lambda: ref.moe_gemm_reference(x, w)),
+                    ("library_ms", lambda: torch.bmm(x, w))), 10,
+            gemm_bound_ms(shape, 2, "bfloat16"),
+            f"moe_gemm {what} [{e},{c},{d}]@[{e},{d},{f}] bf16", card,
+            events_only=True)
+        if "decode" in what:
+            del x, w
+            continue
+        dy = torch.randn(e, c, f, generator=g, device="cuda").to(
+            torch.bfloat16)
+        key = f"{what} bwd"
+        rows[key] = time_row(
+            torch, (("ms", lambda: moe_gemm_bwd(x, w, dy)),
+                    ("previous_ms", lambda: on_copies(x, w, dy)),
+                    ("simt_ms", lambda: moe_gemm_bwd(x, w, dy)),
+                    ("plain_ms", lambda: moe_gemm_bwd_reference(x, w, dy)),
+                    ("library_ms", lambda: (
+                        torch.bmm(dy, w.transpose(1, 2)),
+                        torch.bmm(x.transpose(1, 2), dy)))), 5,
+            gemm_bwd_bound_ms(shape, 2, "bfloat16"),
+            f"moe_gemm_bwd {what} dX [{e},{c},{f}]@[{e},{f},{d}], dW "
+            f"[{e},{d},{c}]@[{e},{c},{f}] bf16", card, events_only=True)
+        rows[key]["copies_ms"] = event_ms(
+            torch, lambda: (w.transpose(1, 2).contiguous(),
+                            x.transpose(1, 2).contiguous()), 5)
+        print(f"  {key}: the transposed copies of w and x alone "
+              f"{rows[key]['copies_ms']!r} ms [{card}]")
+        del x, w, dy
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _mix_batch(torch, cfg, step):
+    from repro_torch.data.pipeline import SyntheticLM
+    return {"tokens": torch.from_numpy(SyntheticLM(
+        vocab=cfg.vocab, seq_len=MIX_SEQ, batch=MIX_BATCH,
+        seed=0).batch_at(step)["tokens"]).cuda()}
+
+
+def require_moe_step(n, v, cfg, dtype, what) -> None:
+    """One MoE loss-and-grads call's launches: the forward's three grouped
+    GEMMs and the backward's six a MoE layer, one flash forward and
+    backward an attention layer, bf16 grouped GEMMs all on ``wgmma`` (f32
+    on ``simt``)."""
+    moe = cfg.n_groups
+    attn = 0 if cfg.mla else cfg.n_layers
+    want = "wgmma" if dtype == "bfloat16" else "simt"
+    require(n["moe_gemm"] == 3 * moe and n["moe_gemm_bwd"] == 6 * moe
+            and n["flash_attention"] == n["flash_attention_bwd"] == attn,
+            f"{what}: launches {n}")
+    for name in ("moe_gemm", "moe_gemm_bwd"):
+        require(v[name][want] == n[name], f"{what}: {name} off {want} "
+                f"{v[name]}")
+
+
+def moe_train_phase(torch, card) -> dict:
+    """Phase 11a-b: mixtral-8x7b at full width, 2 layers, batch 2 x 2048.
+    (a) Loss and every gradient through the kernels against the plain
+    path, f32 (worst leaf within ``TRAIN_PARITY_F32``), then bf16
+    activations within the plain path's own bf16-against-f32 distance.
+    (b) AdamW steps (the main path): launches a step per variant, losses,
+    step wall, device busy, idle share, tokens/s, the kernels' device time
+    inside the step and ``max_memory_allocated``; then one loss-and-grads
+    call at phase 3's 4 layers (finite, launches, peak)."""
+    from repro_torch import configs, optim
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_items, tree_map
+    cut = configs.get(MOE_ARCH).replace(n_layers=MIX_TRAIN_LAYERS)
+    params = M.init_params(cut, torch.Generator("cuda").manual_seed(0))
+    batch = _mix_batch(torch, cut, 0)
+
+    def run(dtype, plain):
+        c = cut.replace(dtype=dtype)
+        reset_launches()
+        with plain_kernels(ops, ref) if plain else nullcontext():
+            loss, grads = loss_and_grads(c, params, batch)
+        torch.cuda.synchronize()
+        require(math.isfinite(float(loss)), f"finite {dtype} loss")
+        if not plain:
+            n, v = read_launches(), read_variants()
+            print(f"  {MOE_ARCH} {dtype} loss-and-grads launches {n}, per "
+                  f"variant {v['moe_gemm']} {v['moe_gemm_bwd']} "
+                  f"{v['flash_attention']} {v['flash_attention_bwd']}")
+            require_moe_step(n, v, c, dtype, f"phase 11a {dtype}")
+        return float(loss), grads
+
+    t11 = time.perf_counter()
+    p32, gp32 = run("float32", True)
+    gp32 = tree_map(lambda t: t.cpu(), gp32)      # the host holds it
+    l32, g32 = run("float32", False)
+    d32, at32 = _leaf_rel(torch, g32, gp32)
+    del g32
+    p16, gp16 = run("bfloat16", True)
+    noise, at_noise = _leaf_rel(torch, gp16, gp32)
+    l16, g16 = run("bfloat16", False)
+    d16, at16 = _leaf_rel(torch, g16, gp16)
+    print(f"phase 11a: {MOE_ARCH} full width, {MIX_TRAIN_LAYERS} layers, "
+          f"batch {MIX_BATCH}x{MIX_SEQ}, kernel vs plain: f32 loss {l32!r} "
+          f"vs {p32!r}, worst leaf ||d||/||g|| {d32!r} ({at32}; limit "
+          f"{TRAIN_PARITY_F32}); bf16 loss |d|={abs(l16 - p16)!r} (limit: "
+          f"plain bf16-vs-f32 {abs(p16 - p32)!r}), worst leaf {d16!r} "
+          f"({at16}; limit: plain bf16-vs-f32 {noise!r}, {at_noise}) "
+          f"[{card}]")
+    require(abs(l32 - p32) <= TRAIN_PARITY_F32 * abs(p32), "f32 loss parity")
+    require(d32 <= TRAIN_PARITY_F32, "f32 gradient parity")
+    require(abs(l16 - p16) <= abs(p16 - p32), "bf16 loss parity")
+    require(d16 <= noise, "bf16 gradient parity")
+    del gp32, gp16, g16
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 11b: the main path, AdamW steps at bf16 activations ---------------
+    opt = optim.adamw(lr=optim.cosine_schedule(3e-4, warmup=20, total=100))
+    state = opt.init(params)
+    step_fn = make_train_step(cut, opt)
+    per_step, walls, losses = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(MIX_STEPS):
+        b = _mix_batch(torch, cut, i)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        per_step.append((read_launches(), read_variants()))
+    peak = torch.cuda.max_memory_allocated()
+    for n, v in per_step:
+        require_moe_step(n, v, cut, "bfloat16", "phase 11b")
+        require(v["flash_attention"]["wgmma"] == cut.n_layers,
+                f"phase 11b flash forward off wgmma {v}")
+    print(f"phase 11b: {MOE_ARCH} ({cut.n_layers} layers) AdamW, bf16 "
+          f"activations, f32 parameters, batch {MIX_BATCH}x{MIX_SEQ}: losses "
+          f"{losses}, step ms {[round(t, 1) for t in walls]}, launches per "
+          f"step {[n for n, _ in per_step]}, per variant (last step) "
+          f"{per_step[-1][1]}, max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB [{card}]")
+    require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    b = _mix_batch(torch, cut, MIX_STEPS)
+
+    def one_step():
+        nonlocal params, state
+        params, state, m_ = step_fn(params, state, b)
+        return m_
+
+    print(f"phase 11b: {MOE_ARCH} step, kernels by device time:")
+    calls = {"moe_gemm (fwd + bwd)": (GEMM_STEP_KERNELS,
+                                     9 * cut.n_groups),
+             "flash_attention": (FLASH_STEP_KERNELS["flash_attention"],
+                                 cut.n_layers),
+             "flash_attention_bwd (simt)": (FLASH_SIMT_BWD_KERNELS,
+                                            cut.n_layers)}
+    # The per-launch times below divide each name's sum by its launches:
+    # only a session that recorded every one of them is read.
+    names = {}
+    busy_ms = device_ms(torch, one_step, 1, top=12, by_name=names, expect={
+        part: n_calls for parts, n_calls in calls.values() for part in parts})
+    require(busy_ms is not None, "profiler device time, mixtral step, "
+            "every grouped-GEMM and flash launch recorded")
+    inside = {}
+    for name, (parts, n_calls) in calls.items():
+        inside[name], each = _step_kernels_ms(names, parts, n_calls)
+        print(f"  {name} inside the step: {inside[name]!r} ms per launch "
+              f"({n_calls} launches; {each}) [{card}]")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    tokens = MIX_BATCH * MIX_SEQ
+    row = {"wall_ms": wall_ms, "busy_ms": busy_ms,
+           "idle_share": 1 - busy_ms / wall_ms,
+           "tokens_per_s": tokens / (wall_ms / 1e3), "inside": inside,
+           "peak_gib": peak / 2**30, "launches": per_step[-1][0],
+           "variants": per_step[-1][1], "losses": losses}
+    print(f"phase 11b: {MOE_ARCH} train step: wall {wall_ms!r} ms, device "
+          f"busy {busy_ms!r} ms, idle share {row['idle_share']!r}, "
+          f"{row['tokens_per_s']!r} tokens/s; phase 11a-b took "
+          f"{time.perf_counter() - t11:.1f} s [{card}]")
+    del params, state, step_fn, opt, batch, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 11b: one loss-and-grads call at phase 3's depth -------------------
+    deep = configs.get(MOE_ARCH).replace(n_layers=MOE_LAYERS)
+    params = M.init_params(deep, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    loss, grads = loss_and_grads(deep, params, _mix_batch(torch, deep, 0))
+    torch.cuda.synchronize()
+    n, v = read_launches(), read_variants()
+    row["peak_4_layers_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    finite = all(all_finite(torch, t) for _, t in tree_items(grads))
+    print(f"phase 11b: {MOE_ARCH} ({deep.n_layers} layers) loss-and-grads, "
+          f"batch {MIX_BATCH}x{MIX_SEQ}: loss {float(loss)!r}, every "
+          f"gradient finite {finite}, launches {n}, max_memory_allocated "
+          f"{row['peak_4_layers_gib']:.3f} GiB [{card}]")
+    require(math.isfinite(float(loss)) and finite, "11b: 4-layer grads")
+    require_moe_step(n, v, deep, "bfloat16", "phase 11b, 4 layers")
+    del params, grads, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def autotune_phase(torch, card) -> dict:
+    """Phase 11c: ``core.autotune`` on fig4's tagged MLP stack at phase 8's
+    card width (traced on fake tensors: nothing is allocated), the chosen
+    fraction and its estimate; then the same step's capture under
+    ``cost_model="hlo"``, whose FLOPs must be exactly the step's matrix
+    products: 6 L - 1 of them (the first layer's input takes no
+    gradient), each 2 B d 4d."""
+    from repro_torch.core import planner, remat
+    from repro_torch.core.autotune import autotune
+    from repro_torch.trace.capture import capture_fn
+    d, layers, batch = PLAN_MLP["d"], PLAN_MLP["layers"], PLAN_MLP["batch"]
+    g = torch.Generator("cuda").manual_seed(0)
+    params = [{"w1": torch.randn(d, 4 * d, generator=g, device="cuda") * 0.02,
+               "w2": torch.randn(4 * d, d, generator=g, device="cuda") * 0.02}
+              for _ in range(layers)]
+    x = torch.randn(batch, d, generator=g, device="cuda")
+
+    def fwd(params, x):
+        for i, p in enumerate(params):
+            a = remat.tag(torch.nn.functional.gelu(x @ p["w1"],
+                                                   approximate="tanh"),
+                          f"act{i}")
+            x = x + remat.tag(a @ p["w2"], f"proj{i}")
+        return x
+
+    grad_fn = planner.grad_of_sum(lambda pp, xx: torch.mean(fwd(pp, xx) ** 2))
+    t0 = time.perf_counter()
+    tuned = autotune(grad_fn, params, x)
+    tune_ms = (time.perf_counter() - t0) * 1e3
+    log = capture_fn(grad_fn, params, x, cost_model="hlo")
+    expect = 2 * batch * d * 4 * d * (6 * layers - 1)
+    row = {"budget_frac": tuned.budget_frac, "est_step_s": tuned.est_step_s,
+           "est_compute_s": tuned.est_compute_s,
+           "est_memory_s": tuned.est_memory_s,
+           "est_slowdown": tuned.plan.est_slowdown, "tune_ms": tune_ms,
+           "hlo_flops": log.meta.get("hlo_flops")}
+    print(f"phase 11c: autotune on fig4's MLP {PLAN_MLP}, f32: chosen "
+          f"fraction {tuned.budget_frac}, estimate {tuned.est_step_s!r} s "
+          f"(compute {tuned.est_compute_s!r}, memory "
+          f"{tuned.est_memory_s!r}; H100 roofline constants), planned "
+          f"slowdown {tuned.plan.est_slowdown!r}, saves "
+          f"{len(tuned.plan.save_names)} of "
+          f"{len(tuned.plan.save_names) + len(tuned.plan.remat_names)} "
+          f"tags, {tune_ms:.0f} ms of host time; capture under "
+          f"cost_model='hlo': {log.meta['cost_model']} "
+          f"({log.meta.get('flop_counter')}), {log.meta.get('hlo_flops')} "
+          f"FLOPs (the step's products: {expect}), {log.op_count()} ops")
+    require(tuned.plan.feasible and 0 < tuned.budget_frac <= 0.9,
+            f"autotune chose {tuned.budget_frac}")
+    require(log.meta["cost_model"] == "hlo" and
+            log.meta["hlo_flops"] == expect, f"hlo capture {log.meta}")
+    require(abs(log.baseline_cost() - expect) <= 1e-6 * expect,
+            "hlo capture's costs sum to the counted FLOPs")
+    del params, x
+    return row
+
+
+def deepseek_phase(torch, card, gen) -> dict:
+    """Phase 11d: deepseek-v3.  The smoke config on the card against the
+    CPU: forward logits at S 16 (MLA's dense logits) and S 2048 (its
+    blocked loop), and 8 requests served, the same tokens.  Then full width
+    cut to one dense and one MoE layer with bf16 parameters: 8 requests
+    served over 4 slots (launches per variant; every grouped GEMM on
+    ``wgmma``, no flash launch), one decode step's wall and device busy,
+    and one loss-and-grads call at batch 1 x 2048 (loss and every
+    gradient finite, launches, ``max_memory_allocated``)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_items, tree_map
+    t11 = time.perf_counter()
+    smoke = configs.get_smoke(DS_ARCH)
+    cpu_params = M.init_params(smoke, torch.Generator().manual_seed(0))
+    card_params = tree_map(lambda t: t.cuda(), cpu_params)
+    cpu_gen = torch.Generator().manual_seed(1)
+    for b, s in ((2, 16), (1, 2048)):
+        tokens = torch.randint(0, smoke.vocab, (b, s), generator=cpu_gen,
+                               dtype=torch.int32)
+        reset_launches()
+        with torch.no_grad():
+            on_cpu = M.forward(smoke, cpu_params, tokens)
+            on_card = M.forward(smoke, card_params, tokens.cuda()).cpu()
+        err = (on_card - on_cpu).abs().max().item()
+        scale = on_cpu.abs().max().item()
+        n = read_launches()
+        print(f"phase 11d: {DS_ARCH} smoke forward [{b},{s}], card vs CPU: "
+              f"max|d| {err!r} of max|logits| {scale!r} (limit "
+              f"{DS_SMOKE_TOL} x max), launches {n}")
+        require(err <= DS_SMOKE_TOL * scale, f"11d smoke logits at S {s}")
+        require(n["moe_gemm"] == 3 * smoke.n_groups
+                and n["flash_attention"] == 0, f"11d smoke launches {n}")
+    flags = ["--arch", DS_ARCH, "--smoke", "--requests", "8", "--slots",
+             "4", "--gen", "8", "--max-len", "32"]
+    on_cpu = serve.serve_loop(smoke, cpu_params,
+                              serve.parse_args(flags)).completed
+    on_card = serve.serve_loop(smoke, card_params,
+                               serve.parse_args(flags)).completed
+    print(f"phase 11d: {DS_ARCH} smoke serve, card vs CPU: same tokens "
+          f"{on_card == on_cpu}, {len(on_card)}/8 served")
+    require(on_card == on_cpu and sorted(on_card) == list(range(8)),
+            f"11d smoke serve: card {on_card} cpu {on_cpu}")
+    del cpu_params, card_params
+
+    cfg = configs.get(DS_ARCH).replace(**DS_CUT)
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    args = serve.parse_args(["--arch", DS_ARCH, "--requests", "8",
+                             "--slots", "4", "--gen", "16", "--max-len",
+                             "128"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = serve.serve_loop(cfg, params, args)
+    launches, variants = read_launches(), read_variants()
+    serve_peak = torch.cuda.max_memory_allocated()
+    tokens = sum(len(t) for t in res.completed.values())
+    print(f"phase 11d: {DS_ARCH} full width, {cfg.n_dense_layers} dense + "
+          f"{cfg.n_groups} MoE layer, {n_params / 1e9:.3f} B bf16 parameters:"
+          f" served {len(res.completed)}/8 in {res.steps} steps, "
+          f"{res.seconds * 1e3 / res.steps!r} ms/step, "
+          f"{tokens / res.seconds!r} tokens/s, launches {launches}, per "
+          f"variant {variants['moe_gemm']}, max_memory_allocated "
+          f"{serve_peak / 2**30:.3f} GiB [{card}]")
+    require(sorted(res.completed) == list(range(8)) and all(
+        len(t) == 16 and all(0 <= x < cfg.vocab for x in t)
+        for t in res.completed.values()), f"11d: completed {res.completed}")
+    require(launches["moe_gemm"] == 3 * cfg.n_groups * res.steps
+            and variants["moe_gemm"]["wgmma"] == launches["moe_gemm"]
+            and launches["flash_attention"] == 0,
+            f"11d serve launches {launches} {variants}")
+
+    cache = M.init_cache(cfg, 4, 128, "cuda")
+    tok = torch.randint(0, cfg.vocab, (4, 1), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    pos = torch.tensor([3, 40, 90, 127], dtype=torch.int32, device="cuda")
+
+    def decode():
+        with torch.inference_mode():
+            M.decode_step(cfg, params, tok, cache, pos)
+
+    step_ms = event_ms(torch, decode, 10)
+    busy_ms = device_ms(torch, decode, 3, top=6, expect={
+        GEMM_STEP_KERNELS[0]: 3 * cfg.n_groups})
+    require(busy_ms is not None, "profiler device time, deepseek decode, "
+            "every grouped-GEMM launch recorded")
+    print(f"phase 11d: {DS_ARCH} decode step, bf16, 4 slots: wall "
+          f"{step_ms!r} ms, device busy {busy_ms!r} ms, idle share "
+          f"{1 - busy_ms / step_ms!r} [{card}]")
+    served = {"serve_launches": launches["moe_gemm"], "steps": res.steps,
+              "ms_per_step": res.seconds * 1e3 / res.steps}
+    del cache, res
+
+    g = torch.Generator("cuda").manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (DS_BATCH, DS_SEQ),
+                                     generator=g, device="cuda",
+                                     dtype=torch.int32)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    loss, grads = loss_and_grads(cfg, params, batch)
+    torch.cuda.synchronize()
+    grad_ms = (time.perf_counter() - t0) * 1e3
+    n, v = read_launches(), read_variants()
+    train_peak = torch.cuda.max_memory_allocated()
+    finite = all(all_finite(torch, t) for _, t in tree_items(grads))
+    print(f"phase 11d: {DS_ARCH} loss-and-grads, batch {DS_BATCH}x{DS_SEQ} "
+          f"(MLA's blocked branch): loss {float(loss)!r}, every gradient "
+          f"finite {finite}, launches {n}, per variant {v['moe_gemm']} "
+          f"{v['moe_gemm_bwd']}, max_memory_allocated "
+          f"{train_peak / 2**30:.3f} GiB, {grad_ms:.0f} ms (first call); "
+          f"phase 11d took {time.perf_counter() - t11:.1f} s [{card}]")
+    require(math.isfinite(float(loss)) and finite, "11d finite loss, grads")
+    require_moe_step(n, v, cfg, "bfloat16", "phase 11d")
+    del params, grads, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**served, "decode_wall_ms": step_ms, "decode_busy_ms": busy_ms,
+            "train_launches": {k: n[k] for k in ("moe_gemm",
+                                                 "moe_gemm_bwd")},
+            "train_peak_gib": train_peak / 2**30,
+            "serve_peak_gib": serve_peak / 2**30}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2607,15 +3233,17 @@ def main() -> int:
                               ("bfloat16", torch.bfloat16)):
         shapes = [("sweep", s) for s in GEMM_SWEEP] + [
             (f"decode {n}", s) for n, s in GEMM_DECODE.items()] + [
-            ("prefill", GEMM_PREFILL)]
+            ("prefill", GEMM_PREFILL)] + list(GEMM_TRAIN.items())
         for what, shape in shapes:
-            x, w = gemm_inputs(torch, shape, dtype, gen)
+            x, w = gemm_inputs(torch, shape, dtype,
+                               own_gen(torch, what, gen, GEMM_FRESH))
             gemm_errs[dtype_name, shape] = compare(
                 torch, moe_gemm, ref.moe_gemm_reference, (x, w), {},
                 MOE_TOL[dtype_name],
                 f"{dtype_name} {what} [{shape[0]},{shape[1]},{shape[2]}]@"
                 f"[{shape[0]},{shape[2]},{shape[3]}]")
             del x, w
+    gemm_bwd_errs = gemm_bwd_checks(torch, gen)
     wkv_errs = rwkv_kernel_checks(torch, gen)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2684,6 +3312,8 @@ def main() -> int:
             f"moe_gemm {what} [{shape[0]},{shape[1]},{shape[2]}]@"
             f"[{shape[0]},{shape[2]},{shape[3]}] bf16", card)
         del x, w
+    # Phase 11's grouped-GEMM rows, beside phase 5's.
+    gemm_rows = gemm_train_times(torch, card, gen)
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2693,6 +3323,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     qwen_train = qwen_train_phases(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 11. MoE training, autotune, deepseek-v3 (before phases 7-10: after
+    # phase 10 the profiler has come back empty in every session) ----------
+    t11 = time.perf_counter()
+    mix = moe_train_phase(torch, card)
+    autotune_row = autotune_phase(torch, card)
+    deepseek = deepseek_phase(torch, card, gen)
+    print(f"phase 11: {time.perf_counter() - t11:.1f} s of wall time")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- 7. the eager DTR executor, f32 (TF32 off since phase 1) -------------
     eager_chain(torch, card)
@@ -2738,6 +3380,30 @@ def main() -> int:
         return out
 
     print(json.dumps({"paper_rows": paper_rows}, allow_nan=False))
+    print(json.dumps({"autotune": autotune_row, "mixtral_train": mix,
+                      "deepseek": deepseek}, allow_nan=False))
+
+    def gemm_shape_rows(launches_by, bwd):
+        """The phase-11 rows of the forward (``bwd`` False) or backward,
+        each shape's share of its run's launches."""
+        out = {}
+        for what, shape in GEMM_TRAIN.items():
+            key = f"{what} bwd" if bwd else what
+            if key not in gemm_rows:
+                continue
+            row = gemm_rows[key]
+            out[key] = {
+                "shape": list(shape), "launches": round(
+                    launches_by[what.rsplit(" ", 1)[0]]
+                    * GEMM_SHARE[what.rsplit(" ", 1)[1]]),
+                "max_abs_err": gemm_bwd_errs[what] if bwd
+                else gemm_errs["bfloat16", shape],
+                **{k: row[k] for k in ("ms", "simt_ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms")
+                   + (("previous_ms", "copies_ms") if bwd else ())}}
+        return out
+
+    tb_mix = gemm_rows["mixtral train wi bwd"]
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "variant": ran_variant(qwen_variants["flash_attention"]),
@@ -2782,7 +3448,32 @@ def main() -> int:
         "max_abs_err": gemm_errs["bfloat16", GEMM_DECODE["wi"]],
         "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
         "bound_by": g["bound_by"], "library_ms": g["library_ms"],
-        "previous_ms": g["simt_ms"]}] + [{
+        "previous_ms": g["simt_ms"],
+        "train_launches": mix["launches"]["moe_gemm"],
+        "shapes": gemm_shape_rows({
+            "mixtral train": mix["launches"]["moe_gemm"],
+            "deepseek decode": deepseek["serve_launches"],
+            "deepseek train": deepseek["train_launches"]["moe_gemm"]},
+            bwd=False)}, {
+        "name": "moe_gemm_bwd", "route": "cuda",
+        "variant": ran_variant(mix["variants"]["moe_gemm_bwd"]),
+        "source": "src/repro_torch/kernels/csrc/moe_gemm.cu",
+        "replaces": "src/repro/kernels/moe_gemm.py:41",
+        "note": ("no TPU counterpart: the JAX package differentiates the "
+                 "expert einsums (src/repro/models/moe.py:107-110) through "
+                 "XLA; dX and dW are two launches of the kernel's DX and DW "
+                 "layouts, reading w, x and dY in place"),
+        "launches": mix["launches"]["moe_gemm_bwd"],
+        "max_abs_err": gemm_bwd_errs["mixtral train wi"],
+        "ms": tb_mix["ms"], "plain_ms": tb_mix["plain_ms"],
+        "bound_ms": tb_mix["bound_ms"], "bound_by": tb_mix["bound_by"],
+        "library_ms": tb_mix["library_ms"],
+        "previous_ms": tb_mix["previous_ms"], "simt_ms": tb_mix["simt_ms"],
+        "copies_ms": tb_mix["copies_ms"],
+        "shapes": gemm_shape_rows({
+            "mixtral train": mix["launches"]["moe_gemm_bwd"],
+            "deepseek train": deepseek["train_launches"]["moe_gemm_bwd"]},
+            bwd=True)}] + [{
         "name": name, "route": "cuda", "variant": row["variant"],
         "source": "src/repro_torch/kernels/csrc/rwkv6_chunked.cu",
         "replaces": "src/repro/kernels/rwkv6_chunk.py:81",

@@ -13,6 +13,7 @@ ARCHS = [
     "qwen2_0_5b",
     "mixtral_8x7b",
     "rwkv6_1_6b",
+    "deepseek_v3_671b",
 ]
 
 # CLI ids (dashes) -> module names
@@ -23,6 +24,7 @@ ALIASES.update({
     "qwen2-0.5b": "qwen2_0_5b",
     "mixtral-8x7b": "mixtral_8x7b",
     "rwkv6-1.6b": "rwkv6_1_6b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 })
 
 

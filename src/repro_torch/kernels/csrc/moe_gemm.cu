@@ -36,6 +36,14 @@
 // Not yet: a persistent schedule, setmaxnreg, skipping the capacity rows
 // that are empty at decode (3 of 4 at 4 slots).
 //
+// The backward (`moe_gemm_bwd`, no TPU counterpart: the JAX package
+// differentiates its expert einsums through XLA) is the same kernel in two
+// more layouts: dX = dY w^T reads w K-major (d rows of F) and dY K-major;
+// dW = x^T dY reads dY MN-major and x MN-major (64-column boxes of d), so
+// no operand is transposed in memory.  What bounds it: at mixtral's train
+// shape (C = 1280) its 2.4 TFLOP, 2.43 ms at the bf16 rate; at deepseek's
+// (E = 256, C = 80) reading w and writing dW, 15 GB, 4.5 ms.
+//
 // `simt` (f32, and bf16 shapes the TMA rules refuse): the first design.
 // Grid (F tiles, C tiles, E).  A block owns a BM x 64 output tile (BM = 32
 // when C <= 32, else 64) and walks d in steps of 32, staging an x tile
@@ -211,10 +219,25 @@ cudaError_t launch(const void* x, const void* w, void* out, int E, int C,
 
 
 // ---- the wgmma variant ----------------------------------------------------
+//
+// One kernel serves the forward and both products of the backward.  Each
+// computes, per expert, out^T [M, N] = A [M, K] B [K, N] and writes out
+// [N, M] row by row; the layout L says where A and B come from and which
+// way each lies in memory, so that no operand is transposed in memory
+// first (TMA reads each in its own layout, and wgmma's transpose bits take
+// a 16-bit operand either K-major or MN-major):
+//
+//   FWD  out = x w      M = F, K = d, N = C   A = w  [d, F]  MN-major
+//                                             B = x  [C, d]  K-major
+//   DX   dX = dY w^T    M = d, K = F, N = C   A = w  [d, F]  K-major
+//                                             B = dY [C, F]  K-major
+//   DW   dW = x^T dY    M = F, K = C, N = d   A = dY [C, F]  MN-major
+//                                             B = x  [C, d]  MN-major
+enum Layout { FWD = 0, DX = 1, DW = 2 };
 
-constexpr int WG_BM = 128;                  // F rows per block
-constexpr int WG_BK = hopper::ROW_ELEMS;    // d per stage: one swizzled row
-constexpr int W_BOX = WG_BK * hopper::ROW_BYTES;  // 64 d x 64 F: 8 KB
+constexpr int WG_BM = 128;                  // M rows per block
+constexpr int WG_BK = hopper::ROW_ELEMS;    // K per stage: one swizzled row
+constexpr int W_BOX = WG_BK * hopper::ROW_BYTES;  // 64 x 64 bf16: 8 KB
 constexpr int WG_THREADS = 2 * 128 + 32;    // two consumer warpgroups + one
                                             // producer warp
 constexpr int OUT_PAD = 8;                  // epilogue row padding (bf16)
@@ -229,12 +252,14 @@ struct WgmmaTile {
                 "the epilogue tile reuses the ring");
 };
 
-template <int BN>
+template <int BN, int L>
 __global__ void __launch_bounds__(WG_THREADS)
-moe_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
-                      const __grid_constant__ CUtensorMap xmap,
-                      __nv_bfloat16* __restrict__ out, int C, int D, int F) {
+moe_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
+                      const __grid_constant__ CUtensorMap bmap,
+                      __nv_bfloat16* __restrict__ out, int N, int K, int M) {
   using Tile = WgmmaTile<BN>;
+  static_assert(L != DW || BN % 64 == 0,
+                "an MN-major B is loaded in boxes of 64 columns");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = hopper::align_1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + Tile::STAGES *
@@ -242,9 +267,9 @@ moe_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
   uint64_t* empty = full + Tile::STAGES;
 
   const int e = blockIdx.z;
-  const int f0 = blockIdx.x * WG_BM;
-  const int c0 = blockIdx.y * BN;
-  const int k_tiles = (D + WG_BK - 1) / WG_BK;
+  const int m0 = blockIdx.x * WG_BM;
+  const int n0 = blockIdx.y * BN;
+  const int k_tiles = (K + WG_BK - 1) / WG_BK;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -264,18 +289,30 @@ moe_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
         hopper::mbar_wait(&empty[s], phase ^ 1);
         uint8_t* st = ring + s * Tile::STAGE;
         hopper::mbar_expect_tx(&full[s], Tile::STAGE);
-        hopper::tma_load_3d(st, &wmap, &full[s], f0, kt * WG_BK, e);
-        hopper::tma_load_3d(st + W_BOX, &wmap, &full[s], f0 + 64,
-                            kt * WG_BK, e);
-        hopper::tma_load_3d(st + 2 * W_BOX, &xmap, &full[s], kt * WG_BK, c0,
-                            e);
+        // A: two boxes of 64 M rows (one per consumer group) by 64 K.
+        for (int h = 0; h < 2; ++h) {
+          if (L == DX)   // K-major: K along the box's 128-byte rows
+            hopper::tma_load_3d(st + h * W_BOX, &amap, &full[s],
+                                kt * WG_BK, m0 + 64 * h, e);
+          else           // MN-major: M along the rows, K down them
+            hopper::tma_load_3d(st + h * W_BOX, &amap, &full[s],
+                                m0 + 64 * h, kt * WG_BK, e);
+        }
+        uint8_t* b = st + 2 * W_BOX;
+        if (L == DW) {   // MN-major: BN / 64 boxes of 64 N by 64 K
+          for (int c = 0; c < BN / 64; ++c)
+            hopper::tma_load_3d(b + c * W_BOX, &bmap, &full[s], n0 + 64 * c,
+                                kt * WG_BK, e);
+        } else {         // K-major: BN rows of 64 K
+          hopper::tma_load_3d(b, &bmap, &full[s], kt * WG_BK, n0, e);
+        }
         if (++s == Tile::STAGES) { s = 0; phase ^= 1; }
       }
     }
     return;
   }
 
-  // Consumers: warpgroup wg owns F rows f0 + 64 wg .. + 63 of out^T.
+  // Consumers: warpgroup wg owns M rows m0 + 64 wg .. + 63 of out^T.
   float acc[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
@@ -288,11 +325,18 @@ moe_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < WG_BK / 16; ++kk) {
-      // A (w^T, MN-major): 16 d-rows further on; B (x, K-major): 32 bytes.
-      const uint64_t da = hopper::smem_desc(a + kk * 16 * hopper::ROW_BYTES,
-                                            W_BOX, 1024);
-      const uint64_t db = hopper::smem_desc(b + kk * 32, 16, 1024);
-      hopper::Wgmma<BN>::template ss<1, 0>(acc, da, db, 1);
+      // K-major: 16 K further on is 32 bytes along the row; MN-major: 16
+      // rows further on, and 64-column blocks one box (W_BOX) apart.
+      const uint64_t da =
+          L == DX ? hopper::smem_desc(a + kk * 32, 16, 1024)
+                  : hopper::smem_desc(a + kk * 16 * hopper::ROW_BYTES,
+                                      W_BOX, 1024);
+      const uint64_t db =
+          L == DW ? hopper::smem_desc(b + kk * 16 * hopper::ROW_BYTES,
+                                      W_BOX, 1024)
+                  : hopper::smem_desc(b + kk * 32, 16, 1024);
+      hopper::Wgmma<BN>::template ss<L == DX ? 0 : 1, L == DW ? 1 : 0>(
+          acc, da, db, 1);
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
@@ -307,50 +351,87 @@ moe_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
   __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(ring);
   constexpr int TS = WG_BM + OUT_PAD;
   const int lane = threadIdx.x % 32;
-  const int fr = 64 * wg + 16 * ((threadIdx.x % 128) / 32) + lane / 4;
+  const int mr = 64 * wg + 16 * ((threadIdx.x % 128) / 32) + lane / 4;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int c = 8 * j + 2 * (lane % 4);
-    tile[c * TS + fr] = __float2bfloat16(acc[4 * j + 0]);
-    tile[(c + 1) * TS + fr] = __float2bfloat16(acc[4 * j + 1]);
-    tile[c * TS + fr + 8] = __float2bfloat16(acc[4 * j + 2]);
-    tile[(c + 1) * TS + fr + 8] = __float2bfloat16(acc[4 * j + 3]);
+    tile[c * TS + mr] = __float2bfloat16(acc[4 * j + 0]);
+    tile[(c + 1) * TS + mr] = __float2bfloat16(acc[4 * j + 1]);
+    tile[c * TS + mr + 8] = __float2bfloat16(acc[4 * j + 2]);
+    tile[(c + 1) * TS + mr + 8] = __float2bfloat16(acc[4 * j + 3]);
   }
   hopper::bar_sync(1, 256);
-  __nv_bfloat16* oe = out + static_cast<size_t>(e) * C * F;
+  __nv_bfloat16* oe = out + static_cast<size_t>(e) * N * M;
   for (int i = threadIdx.x; i < BN * (WG_BM / 8); i += 256) {
     const int c = i / (WG_BM / 8);
-    const int f = (i % (WG_BM / 8)) * 8;
-    if (c0 + c < C && f0 + f < F)   // F % 8 == 0: a chunk is all in or out
-      *reinterpret_cast<uint4*>(oe + static_cast<size_t>(c0 + c) * F + f0 +
-                                f) =
-          *reinterpret_cast<const uint4*>(tile + c * TS + f);
+    const int m = (i % (WG_BM / 8)) * 8;
+    if (n0 + c < N && m0 + m < M)   // M % 8 == 0: a chunk is all in or out
+      *reinterpret_cast<uint4*>(oe + static_cast<size_t>(n0 + c) * M + m0 +
+                                m) =
+          *reinterpret_cast<const uint4*>(tile + c * TS + m);
   }
 }
 
-template <int BN>
-cudaError_t launch_wgmma(const void* x, const void* w, void* out, int E,
-                         int C, int D, int F, cudaStream_t stream) {
+// A [rows, cols] bf16 matrix per expert (cols contiguous) as a tensor map
+// of boxes of 64 cols by `box_rows` rows.
+inline cudaError_t matrix_map(CUtensorMap* map, const void* p, int E,
+                              int rows, int cols, int box_rows) {
+  return hopper::tensor_map_3d(map, p, cols, rows, E,
+                               static_cast<uint64_t>(cols) * 2,
+                               static_cast<uint64_t>(rows) * cols * 2,
+                               box_rows);
+}
+
+// Launch layout L on a and b (the A and B sources of the table above), each
+// given as its [rows, cols] per expert.
+template <int BN, int L>
+cudaError_t launch_wgmma(const void* a, int a_rows, int a_cols, const void* b,
+                         int b_rows, int b_cols, void* out, int E, int N,
+                         int K, int M, cudaStream_t stream) {
   using Tile = WgmmaTile<BN>;
-  CUtensorMap wmap, xmap;
-  // w [E, d, F]: boxes of 64 F x 64 d; x [E, C, d]: boxes of 64 d x BN C.
-  cudaError_t err = hopper::tensor_map_3d(
-      &wmap, w, F, D, E, static_cast<uint64_t>(F) * 2,
-      static_cast<uint64_t>(D) * F * 2, WG_BK);
+  CUtensorMap amap, bmap;
+  // A comes in 64 x 64 boxes; a K-major B in BN rows of 64 K, an MN-major
+  // B in 64 x 64 boxes.
+  cudaError_t err = matrix_map(&amap, a, E, a_rows, a_cols, WG_BK);
   if (err != cudaSuccess) return err;
-  err = hopper::tensor_map_3d(&xmap, x, D, C, E,
-                              static_cast<uint64_t>(D) * 2,
-                              static_cast<uint64_t>(C) * D * 2, BN);
+  err = matrix_map(&bmap, b, E, b_rows, b_cols, L == DW ? WG_BK : BN);
   if (err != cudaSuccess) return err;
   static bool smem_set[hopper::MAX_DEVICES] = {};
   err = hopper::allow_smem(
-      reinterpret_cast<const void*>(moe_gemm_wgmma_kernel<BN>), Tile::SMEM,
+      reinterpret_cast<const void*>(moe_gemm_wgmma_kernel<BN, L>), Tile::SMEM,
       smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((F + WG_BM - 1) / WG_BM, (C + BN - 1) / BN, E);
-  moe_gemm_wgmma_kernel<BN><<<grid, WG_THREADS, Tile::SMEM, stream>>>(
-      wmap, xmap, static_cast<__nv_bfloat16*>(out), C, D, F);
+  const dim3 grid((M + WG_BM - 1) / WG_BM, (N + BN - 1) / BN, E);
+  moe_gemm_wgmma_kernel<BN, L><<<grid, WG_THREADS, Tile::SMEM, stream>>>(
+      amap, bmap, static_cast<__nv_bfloat16*>(out), N, K, M);
   return cudaGetLastError();
+}
+
+// x [E, C, d] @ w [E, d, F] -> out [E, C, F].
+template <int BN>
+cudaError_t launch_fwd(const void* x, const void* w, void* out, int E, int C,
+                       int D, int F, cudaStream_t stream) {
+  return launch_wgmma<BN, FWD>(w, D, F, x, C, D, out, E, C, D, F, stream);
+}
+
+// dX [E, C, d] = dY [E, C, F] @ w^T.
+template <int BN>
+cudaError_t launch_dx(const void* dy, const void* w, void* dx, int E, int C,
+                      int D, int F, cudaStream_t stream) {
+  return launch_wgmma<BN, DX>(w, D, F, dy, C, F, dx, E, C, F, D, stream);
+}
+
+// dW [E, d, F] = x^T @ dY: N = d, K = C, M = F.
+template <int BN>
+cudaError_t launch_dw(const void* x, const void* dy, void* dw, int E, int C,
+                      int D, int F, cudaStream_t stream) {
+  return launch_wgmma<BN, DW>(dy, C, F, x, C, D, dw, E, D, C, F, stream);
+}
+
+bool wgmma_takes(const void* const* ps, int n, int D, int F) {
+  uintptr_t bits = 0;
+  for (int i = 0; i < n; ++i) bits |= reinterpret_cast<uintptr_t>(ps[i]);
+  return bits % 16 == 0 && D % 8 == 0 && F % 8 == 0;
 }
 
 }  // namespace
@@ -369,17 +450,15 @@ int moe_gemm_fwd(const void* x, const void* w, void* out, int E, int C, int D,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == 1) {
-    const bool aligned = (reinterpret_cast<uintptr_t>(x) |
-                          reinterpret_cast<uintptr_t>(w) |
-                          reinterpret_cast<uintptr_t>(out)) % 16 == 0;
-    if (dtype != 1 || !aligned || D % 8 || F % 8)
+    const void* ps[3] = {x, w, out};
+    if (dtype != 1 || !wgmma_takes(ps, 3, D, F))
       return static_cast<int>(cudaErrorInvalidValue);
     if (block_c == 32) return static_cast<int>(
-        launch_wgmma<32>(x, w, out, E, C, D, F, s));
+        launch_fwd<32>(x, w, out, E, C, D, F, s));
     if (block_c == 64) return static_cast<int>(
-        launch_wgmma<64>(x, w, out, E, C, D, F, s));
+        launch_fwd<64>(x, w, out, E, C, D, F, s));
     if (block_c == 128) return static_cast<int>(
-        launch_wgmma<128>(x, w, out, E, C, D, F, s));
+        launch_fwd<128>(x, w, out, E, C, D, F, s));
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -388,6 +467,37 @@ int moe_gemm_fwd(const void* x, const void* w, void* out, int E, int C, int D,
   if (dtype == 1)
     return static_cast<int>(launch<__nv_bfloat16>(x, w, out, E, C, D, F, s));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward of x [E, C, d] @ w [E, d, F] against dy [E, C, F], bf16 on
+// wgmma only, each operand read in place: dx = dy w^T (block_c C columns a
+// block: 32, 64 or 128) and dw = x^T dy (block_d d columns a block: 64 or
+// 128); a null dx or dw is not computed.  Two launches on `stream`;
+// returns the first cudaError_t that is not 0.
+int moe_gemm_bwd(const void* x, const void* w, const void* dy, void* dx,
+                 void* dw, int E, int C, int D, int F, int block_c,
+                 int block_d, void* stream) {
+  if (E <= 0 || C <= 0 || D <= 0 || F <= 0 || E > 65535 ||
+      (C + 31) / 32 > 65535 || (D + 63) / 64 > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* ps[5] = {x, w, dy, dx ? dx : x, dw ? dw : x};
+  if (!wgmma_takes(ps, 5, D, F))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+  if (dx != nullptr) {
+    err = block_c == 32 ? launch_dx<32>(dy, w, dx, E, C, D, F, s)
+        : block_c == 64 ? launch_dx<64>(dy, w, dx, E, C, D, F, s)
+        : block_c == 128 ? launch_dx<128>(dy, w, dx, E, C, D, F, s)
+        : cudaErrorInvalidValue;
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (dw != nullptr) {
+    err = block_d == 64 ? launch_dw<64>(x, dy, dw, E, C, D, F, s)
+        : block_d == 128 ? launch_dw<128>(x, dy, dw, E, C, D, F, s)
+        : cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -5,9 +5,18 @@ The kernel (``csrc/moe_gemm.cu``) replaces the Pallas TPU kernel
 x ``[E,C,d]`` @ w ``[E,d,F]`` -> ``[E,C,F]``, f32 products and accumulation,
 the result in x's dtype.  Unlike the Pallas version it takes any positive E,
 C, d and F.  A tensor on the CPU goes to the plain version
-(``ref.moe_gemm_reference``); a CUDA tensor launches the kernel variant that
-:func:`plan` names, or raises.  ``moe_gemm.launches`` counts kernel
-launches, ``moe_gemm.variant_launches`` the launches of each variant.
+(``ref.moe_gemm_reference``, which autograd differentiates); a CUDA
+tensor launches the kernel variant that :func:`plan` names, or raises.
+
+Where x or w requires a gradient, the product is a ``torch.autograd.Function``
+whose backward, :func:`moe_gemm_bwd`, is two more grouped GEMMs:
+dX[e] = dY[e] @ w[e]^T (``[E,C,F]@[E,F,d]``) and dW[e] = x[e]^T @ dY[e]
+(``[E,d,C]@[E,C,F]``).  On ``wgmma`` (bf16) the kernel reads w, x and dY
+where they lie, each in its own layout (``csrc/moe_gemm.cu``'s ``DX`` and
+``DW``); on ``simt`` (f32) the forward kernel runs on transposed
+contiguous copies of w and x.  ``moe_gemm.launches`` and
+``moe_gemm_bwd.launches`` count the forward's and the backward's kernel
+launches, ``.variant_launches`` those of each variant.
 """
 from __future__ import annotations
 
@@ -20,10 +29,13 @@ from .ref import moe_gemm_reference
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = {"simt": 0, "wgmma": 1}
-# x, w, out; E, C, d, F, dtype, variant, block_c; stream
-_SIGNATURES = {"moe_gemm_fwd": (
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
-    ctypes.c_int)}
+_SIGNATURES = {
+    # x, w, out; E, C, d, F, dtype, variant, block_c; stream
+    "moe_gemm_fwd": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                     + [ctypes.c_void_p], ctypes.c_int),
+    # x, w, dy, dx, dw; E, C, d, F, block_c, block_d; stream
+    "moe_gemm_bwd": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                     + [ctypes.c_void_p], ctypes.c_int)}
 
 
 def plan(e: int, c: int, d: int, f: int, dtype: torch.dtype,
@@ -46,6 +58,20 @@ def plan(e: int, c: int, d: int, f: int, dtype: torch.dtype,
             "block_c": 32 if c <= 32 else 64, "block_d": 32}
 
 
+def plan_backward(e: int, c: int, d: int, f: int, dtype: torch.dtype,
+                  aligned: bool = True) -> dict:
+    """The backward's variant and tiles: bf16 on ``wgmma`` where TMA can
+    read all three operands in place (d and F multiples of 8, 16-byte
+    bases), dX in blocks of ``block_c`` C columns as the forward's, dW in
+    blocks of ``block_d`` = 64 or 128 d columns; otherwise ``simt``, on
+    transposed copies."""
+    if dtype == torch.bfloat16 and aligned and d % 8 == 0 and f % 8 == 0:
+        return {"variant": "wgmma",
+                "block_c": plan(e, c, d, f, dtype)["block_c"],
+                "block_d": 64 if d <= 64 else 128}
+    return {"variant": "simt"}
+
+
 def _check(x, w):
     if x.dim() != 3 or w.dim() != 3:
         raise ValueError(f"want x [E,C,d] and w [E,d,F], got "
@@ -59,19 +85,22 @@ def _check(x, w):
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
         raise TypeError(f"want float32 or bfloat16 x/w of one dtype, got "
                         f"{x.dtype}, {w.dtype}")
-    if x.requires_grad or w.requires_grad:
-        raise RuntimeError("moe_gemm has no backward kernel yet; call it "
-                           "under torch.no_grad()")
 
 
-def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x: [E, C, d]; w: [E, d, F] -> [E, C, F] in x's dtype."""
-    _check(x, w)
-    if x.device.type == "cpu" and w.device.type == "cpu":
-        return moe_gemm_reference(x, w)
-    if x.device != w.device or x.device.type != "cuda":
-        raise ValueError(f"x and w must lie on one CUDA device, got "
-                         f"{x.device}, {w.device}")
+def _on_card(*ts) -> bool:
+    """True for CUDA tensors on one device, False for CPU tensors; raises
+    for anything else."""
+    if all(t.device.type == "cpu" for t in ts):
+        return False
+    if any(t.device != ts[0].device for t in ts) or \
+            ts[0].device.type != "cuda":
+        raise ValueError(f"the operands must lie on one CUDA device, got "
+                         f"{[str(t.device) for t in ts]}")
+    return True
+
+
+def _launch(x, w, counter) -> torch.Tensor:
+    """One kernel launch, out = x @ w per expert, counted on ``counter``."""
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("the kernel takes contiguous x and w")
     e, c, d = x.shape
@@ -86,10 +115,88 @@ def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                                e, c, d, f, _DTYPES[x.dtype],
                                VARIANTS[p["variant"]], p["block_c"], stream)
     _build.check(lib, err, f"moe_gemm launch ({p['variant']})")
-    moe_gemm.launches += 1
-    moe_gemm.variant_launches[p["variant"]] += 1
+    counter.launches += 1
+    counter.variant_launches[p["variant"]] += 1
     return out
+
+
+class _MoeGemm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _launch(x, w, moe_gemm)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        return moe_gemm_bwd(x, w, dy, need=ctx.needs_input_grad)
+
+
+def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: [E, C, d]; w: [E, d, F] -> [E, C, F] in x's dtype."""
+    _check(x, w)
+    if not _on_card(x, w):
+        return moe_gemm_reference(x, w)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _MoeGemm.apply(x, w)
+    return _launch(x, w, moe_gemm)
+
+
+def moe_gemm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                 need=(True, True)):
+    """The gradients of ``moe_gemm(x, w)`` against ``dy`` ``[E, C, F]``:
+    ``(dx, dw)`` in the operands' dtype (None where ``need`` says no), f32
+    accumulation.  On the card, one kernel launch each, the variant
+    :func:`plan_backward` names; on the CPU the plain version's formula."""
+    _check(x, w)
+    if dy.shape != (*x.shape[:2], w.shape[2]) or dy.dtype != x.dtype:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match "
+                         f"the product of {tuple(x.shape)} and "
+                         f"{tuple(w.shape)} in {x.dtype}")
+    if not _on_card(x, w, dy):
+        return moe_gemm_bwd_reference(x, w, dy, need)
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("the kernel takes contiguous x and w")
+    dy = dy.contiguous()
+    e, c, d = x.shape
+    f = w.shape[2]
+    p = plan_backward(e, c, d, f, x.dtype, aligned=all(
+        t.data_ptr() % 16 == 0 for t in (x, w, dy)))
+    if p["variant"] == "simt":
+        dx = _launch(dy, w.transpose(1, 2).contiguous(), moe_gemm_bwd) \
+            if need[0] else None
+        dw = _launch(x.transpose(1, 2).contiguous(), dy, moe_gemm_bwd) \
+            if need[1] else None
+        return dx, dw
+    # Fresh allocations: 16-byte aligned.
+    dx = torch.empty_like(x) if need[0] else None
+    dw = torch.empty_like(w) if need[1] else None
+    lib = _build.load("moe_gemm", _SIGNATURES)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.moe_gemm_bwd(
+            x.data_ptr(), w.data_ptr(), dy.data_ptr(),
+            dx.data_ptr() if need[0] else None,
+            dw.data_ptr() if need[1] else None,
+            e, c, d, f, p["block_c"], p["block_d"], stream)
+    _build.check(lib, err, "moe_gemm backward launch (wgmma)")
+    moe_gemm_bwd.launches += sum(need)
+    moe_gemm_bwd.variant_launches["wgmma"] += sum(need)
+    return dx, dw
+
+
+def moe_gemm_bwd_reference(x, w, dy, need=(True, True)):
+    """The backward's plain version: both products in f32, each gradient
+    in its operand's dtype."""
+    dy32 = dy.float()
+    dx = torch.einsum("ecf,edf->ecd", dy32, w.float()).to(x.dtype) \
+        if need[0] else None
+    dw = torch.einsum("ecd,ecf->edf", x.float(), dy32).to(w.dtype) \
+        if need[1] else None
+    return dx, dw
 
 
 moe_gemm.launches = 0
 moe_gemm.variant_launches = dict.fromkeys(VARIANTS, 0)
+moe_gemm_bwd.launches = 0
+moe_gemm_bwd.variant_launches = dict.fromkeys(VARIANTS, 0)

@@ -6,6 +6,8 @@ The counterpart of ``repro.launch.steps``'s ``make_train_step`` and
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
 from ..models import model as M
@@ -19,29 +21,60 @@ def loss_and_grads(cfg: ModelConfig, params, batch):
     """``(loss, grads)`` of ``M.loss_fn``: ``jax.value_and_grad``'s
     counterpart.  ``grads`` has the structure and dtypes of ``params``.
 
-    Each stacked ``groups`` leaf is split into one autograd leaf per group
-    (``forward`` indexes a tuple as it indexes the stack), and the groups'
-    gradients are stacked once at the end: differentiated through ``t[g]``,
-    every group would add a zero-padded gradient of the whole stack.
+    Each stacked leaf (``M.STACKS``: ``dense``, ``groups``) is split into
+    one autograd leaf per layer (``forward`` indexes a tuple as it indexes
+    the stack): differentiated through ``t[g]``, every layer would add a
+    zero-padded gradient of the whole stack.  As the backward produces a
+    layer's gradient, a hook copies it into that leaf's stacked gradient
+    and drops it, as the reference's scan writes each slice as it goes; so
+    no layer's gradient outlives its copy, and none is stacked at the end.
     """
-    def split(t):
-        return tuple(x.requires_grad_() for x in t.detach().unbind(0))
+    stacked, hooks = {}, []
 
-    leaves = {k: tree_map(split if k == "groups" else
+    def split(t):
+        out = tuple(x.requires_grad_() for x in t.detach().unbind(0))
+        hooks.extend(x.register_post_accumulate_grad_hook(
+            partial(_into_stack, stacked, out, i)) for i, x in enumerate(out))
+        return out
+
+    leaves = {k: tree_map(split if k in M.STACKS else
                           (lambda t: t.detach().requires_grad_()), v)
               for k, v in params.items()}
-    flat = [t for _, leaf in tree_items(leaves)
-            for t in (leaf if isinstance(leaf, tuple) else (leaf,))]
-    with torch.enable_grad():
-        loss = M.loss_fn(cfg, leaves, batch)
-        grads = iter(torch.autograd.grad(loss, flat))
+    try:
+        with torch.enable_grad():
+            loss = M.loss_fn(cfg, leaves, batch)
+            loss.backward()
+    finally:      # each hook refers to its own leaf: no cycles left
+        for h in hooks:
+            h.remove()
+    for path, leaf in tree_items(leaves):
+        # ``autograd.grad``'s refusal of a leaf the loss does not reach
+        if isinstance(leaf, tuple):
+            seen = stacked.get(id(leaf), (None, set()))[1]
+            missing = [i for i in range(len(leaf)) if i not in seen]
+            what = f"{path} (layers {missing})"
+        else:
+            missing, what = leaf.grad is None, path
+        if missing:
+            raise RuntimeError(f"loss_and_grads: no gradient reached {what}")
 
     def take(leaf):
-        if isinstance(leaf, tuple):
-            return torch.stack([next(grads) for _ in leaf])
-        return next(grads)
+        return stacked[id(leaf)][0] if isinstance(leaf, tuple) else leaf.grad
 
     return loss.detach(), tree_map(take, leaves)
+
+
+def _into_stack(stacked: dict, layers: tuple, i: int, x) -> None:
+    """Copy layer ``i``'s gradient into its stack, made at the first one
+    that arrives (in the backward, not before the forward), and note that
+    it arrived."""
+    entry = stacked.get(id(layers))
+    if entry is None:
+        entry = stacked[id(layers)] = (
+            x.grad.new_zeros((len(layers), *x.shape)), set())
+    entry[0][i].copy_(x.grad)
+    entry[1].add(i)
+    x.grad = None
 
 
 def make_train_step(cfg: ModelConfig, opt: Optimizer, grad_accum: int = 1,

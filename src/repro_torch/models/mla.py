@@ -1,0 +1,187 @@
+"""Multi-head Latent Attention (deepseek-v3): the counterpart of
+``repro.models.mla``.
+
+Queries and keys/values are low-rank compressed: ``wq_a`` then an RMS norm
+then ``wq_b`` for the queries, ``wkv_a`` into a ``kv_lora_rank`` latent (RMS
+normed) and one shared ``qk_rope_dim`` RoPE key.  Only the latent ``ckv``
+and the RoPE key ``krope`` are cached at decode.  Training expands the
+latent to per-head keys (``wk_b``, nope part) and values (``wv_b``); decode
+uses the absorbed form, scores and values in latent space.
+
+Attention here is plain PyTorch, as the reference computes MLA's outside
+any Pallas kernel (einsums and ``_sdpa_blocked``): below
+``BLOCKED_ATTN_THRESHOLD`` query rows the dense logits, from it on a loop
+over blocks of 512 query rows on the concatenated 192-wide q/k
+(``qk_nope_dim + qk_rope_dim``) against the 128-wide v, each block under a
+checkpoint so the backward recomputes it.  The flash kernel takes one head
+dim for q, k and v (and its backward at most 128), so it cannot run this
+attention: MLA layers launch no flash kernel (ROADMAP Queue 2 item 3).
+The scale is ``1/sqrt(qk_nope_dim + qk_rope_dim)``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ..kernels.ref import BLOCKED_ATTN_THRESHOLD, Q_BLOCK
+from .config import ModelConfig
+from .layers import adtype, rope
+from .params import ParamInfo
+
+
+def mla_defs(cfg: ModelConfig) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    ql, kl = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rop, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "wq_a": ParamInfo((d, ql), cfg.param_dtype, (None, None),
+                          fsdp_dim=0),
+        "q_norm": ParamInfo((ql,), cfg.param_dtype, (None,), init_scale=0.0),
+        "wq_b": ParamInfo((ql, h, nope + rop), cfg.param_dtype,
+                          (None, "heads", None), fsdp_dim=0),
+        "wkv_a": ParamInfo((d, kl + rop), cfg.param_dtype, (None, None),
+                           fsdp_dim=0),
+        "kv_norm": ParamInfo((kl,), cfg.param_dtype, (None,),
+                             init_scale=0.0),
+        "wk_b": ParamInfo((kl, h, nope), cfg.param_dtype,
+                          (None, "heads", None), fsdp_dim=0),
+        "wv_b": ParamInfo((kl, h, vd), cfg.param_dtype,
+                          (None, "heads", None), fsdp_dim=0),
+        "wo": ParamInfo((h, vd, d), cfg.param_dtype,
+                        ("heads", None, None), fsdp_dim=2),
+    }
+
+
+def mla_cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    return {
+        "ckv": ParamInfo((batch, max_len, cfg.kv_lora_rank), cfg.dtype,
+                         ("batch", "kv_seq", None)),
+        "krope": ParamInfo((batch, max_len, cfg.qk_rope_dim), cfg.dtype,
+                           ("batch", "kv_seq", None)),
+    }
+
+
+def _rms(x, scale, eps):
+    """The reference's MLA norm: f32 RMS, scaled by ``1 + scale``."""
+    x32 = x.float()
+    y = x32 * torch.rsqrt(torch.mean(torch.square(x32), -1, keepdim=True)
+                          + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def _softmax_rows(logits, mask, dt):
+    """f32 softmax over the last axis with hidden entries at -1e30, the
+    probabilities in the activation dtype."""
+    return torch.softmax(torch.where(mask, logits, -1e30), dim=-1).to(dt)
+
+
+def _blocked_block(q, k, v, q0: int, scale: float):
+    """One block of query rows ``q0 ...`` against keys ``0 .. q0 + rows``
+    (causal): q [B,Sb,H,Dqk], k [B,Sk,H,Dqk], v [B,Sk,H,Dv]."""
+    logits = torch.einsum("bqhd,bshd->bhqs", q, k).float() * scale
+    qpos = q0 + torch.arange(q.shape[1], device=q.device)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    probs = _softmax_rows(logits, kpos[None, :] <= qpos[:, None], q.dtype)
+    return torch.einsum("bhqs,bshv->bqhv", probs, v)
+
+
+def _attend_blocked(q, k, v, scale: float, q_block: int = Q_BLOCK):
+    """Causal attention over blocks of ``q_block`` query rows, each block
+    under a non-reentrant checkpoint (the reference's ``_sdpa_blocked``
+    with its inner ``jax.checkpoint``): the ``[Sq,Skv]`` logits never exist
+    at once, and the backward recomputes each block."""
+    outs = []
+    for q0 in range(0, q.shape[1], q_block):
+        q1 = min(q.shape[1], q0 + q_block)
+        outs.append(checkpoint(_blocked_block, q[:, q0:q1], k[:, :q1],
+                               v[:, :q1], q0, scale, use_reentrant=False))
+    return torch.cat(outs, dim=1)
+
+
+def _einsum_w(spec: str, x, w, dt):
+    return torch.einsum(spec, x, w.to(dt))
+
+
+def mla_apply(cfg: ModelConfig, p, x, *, positions,
+              cache: Optional[dict] = None):
+    """x [B,S,d] -> (y [B,S,d], new_cache).
+
+    Train (cache None): full causal attention over the expanded heads.
+    Decode (cache with ckv [B,L,kv_lora], krope [B,L,rope], pos): x is
+    [B,1,d]; ``pos`` is one shared clock (a scalar) or one per slot
+    (``[B]``).  Each slot writes its latent and RoPE key at its position
+    (in place) and attends over the rows up to it.  A shared clock at or
+    past L writes row L-1 (JAX's ``dynamic_update_slice`` clamps); a slot
+    whose clock is at or past L writes nothing (JAX drops the scatter).
+    """
+    dt = adtype(cfg)
+    b, s, _ = x.shape
+    nope, kl = cfg.qk_nope_dim, cfg.kv_lora_rank
+    scale = 1.0 / math.sqrt(nope + cfg.qk_rope_dim)
+
+    # --- queries ---
+    cq = _rms(_einsum_w("bsd,dq->bsq", x, p["wq_a"], dt), p["q_norm"],
+              cfg.norm_eps)
+    q = _einsum_w("bsq,qhk->bshk", cq, p["wq_b"], dt)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+
+    # --- KV latent ---
+    kv_a = _einsum_w("bsd,dk->bsk", x, p["wkv_a"], dt)
+    ckv = _rms(kv_a[..., :kl], p["kv_norm"], cfg.norm_eps)
+    k_rope_new = rope(kv_a[..., kl:][:, :, None, :], positions,
+                      cfg.rope_theta)[:, :, 0, :]
+
+    new_cache = None
+    if cache is None:
+        k_nope = _einsum_w("bsk,khn->bshn", ckv, p["wk_b"], dt)
+        v = _einsum_w("bsk,khv->bshv", ckv, p["wv_b"], dt)
+        if s >= BLOCKED_ATTN_THRESHOLD:
+            q_full = torch.cat([q_nope, q_rope], dim=-1)
+            k_full = torch.cat([k_nope, k_rope_new[:, :, None, :].expand(
+                *k_nope.shape[:3], k_rope_new.shape[-1])], dim=-1)
+            out = _attend_blocked(q_full, k_full, v, scale)
+        else:
+            logits = (torch.einsum("bqhn,bshn->bhqs", q_nope, k_nope)
+                      + torch.einsum("bqhr,bsr->bhqs", q_rope, k_rope_new))
+            pos_q = torch.arange(s, device=x.device)
+            probs = _softmax_rows(logits.float() * scale,
+                                  pos_q[None, :] <= pos_q[:, None], dt)
+            out = torch.einsum("bhqs,bshv->bqhv", probs, v)
+    else:
+        pos = cache["pos"]
+        if pos.dim() > 1 or s != 1:
+            raise ValueError("decode takes one token per slot and a scalar "
+                             "or [B] position clock")
+        ckv_all, kr_all = cache["ckv"], cache["krope"]
+        length = ckv_all.shape[1]
+        if pos.dim() == 0:
+            at = pos.clamp(max=length - 1)
+            ckv_all[:, at] = ckv[:, 0]
+            kr_all[:, at] = k_rope_new[:, 0]
+            visible = torch.arange(length, device=x.device)[None, :] <= pos
+        else:
+            rows = torch.arange(b, device=x.device)
+            keep = (pos < length)[:, None]
+            at = pos.clamp(max=length - 1)
+            ckv_all[rows, at] = torch.where(keep, ckv[:, 0],
+                                            ckv_all[rows, at])
+            kr_all[rows, at] = torch.where(keep, k_rope_new[:, 0],
+                                           kr_all[rows, at])
+            visible = (torch.arange(length, device=x.device)[None, :]
+                       <= pos[:, None])
+        new_cache = {"ckv": ckv_all, "krope": kr_all, "pos": pos + 1}
+        # Absorb wk_b into the query: q_lat[b,q,h,k] = q_nope . wk_b^T.
+        q_lat = _einsum_w("bqhn,khn->bqhk", q_nope, p["wk_b"], dt)
+        logits = (torch.einsum("bqhk,bsk->bhqs", q_lat, ckv_all)
+                  + torch.einsum("bqhr,bsr->bhqs", q_rope, kr_all))
+        probs = _softmax_rows(logits.float() * scale,
+                              visible[:, None, None, :], dt)
+        o_lat = torch.einsum("bhqs,bsk->bqhk", probs, ckv_all)
+        out = _einsum_w("bqhk,khv->bqhv", o_lat, p["wv_b"], dt)
+
+    y = _einsum_w("bqhv,hvd->bqd", out, p["wo"], dt)
+    return y, new_cache

@@ -2,20 +2,24 @@
 decode step.
 
 The counterpart of ``repro.models.model`` for homogeneous stacks of
-``attn`` (qwen2) or sliding-window ``attn_local`` (mixtral) blocks, each
-with a SwiGLU MLP or a routed MoE FFN, and of ``rwkv`` blocks (rwkv6:
-time-mix and channel-mix), with tied or untied embeddings; not yet MLA,
-shared experts, mixed patterns, cross attention or codebooks.
+``attn`` (qwen2, deepseek-v3) or sliding-window ``attn_local`` (mixtral)
+blocks, each with a SwiGLU MLP or an MoE FFN (routed experts, and
+deepseek's shared ones), with GQA attention or deepseek's latent
+attention (``models.mla``), after an optional stack of ``n_dense_layers``
+dense-FFN blocks (``dense``, deepseek's leading layers); and of ``rwkv``
+blocks (rwkv6: time-mix and channel-mix), with tied or untied embeddings;
+not yet mixed patterns, a ``tail`` stack, cross attention or codebooks.
 Parameters keep the JAX tree's layout and key paths (``embed.tokens``,
-``groups.slot0.attn.wq``, ...): each leaf of ``groups`` is stacked
-``[n_groups, ...]``, and the JAX package's ``lax.scan`` over groups becomes
-a Python loop over that leading axis.  Every remat policy of the reference
-(``none``, ``full``, ``dots``, ``dtr``, ``names:a,b``) wraps each group in
-``torch.utils.checkpoint`` with a selective-checkpoint policy
-(:func:`remat_policy`, the JAX ``checkpoint_policies`` on the scan body);
-``core.remat.tag``, the counterpart of ``checkpoint_name``, marks each
-block's ``attn_out`` and ``ffn_out`` (a copy only where a policy reads the
-names: ``dtr``, ``names:``, and the planner's trace).  Decode takes one
+``groups.slot0.attn.wq``, ...): each leaf of ``dense`` and ``groups`` is
+stacked ``[layers, ...]``, and the JAX package's ``lax.scan`` over a stack
+becomes a Python loop over that leading axis.  Every remat policy of the
+reference (``none``, ``full``, ``dots``, ``dtr``, ``names:a,b``) wraps each
+group and each dense layer in ``torch.utils.checkpoint`` with a
+selective-checkpoint policy (:func:`remat_policy`, the JAX
+``checkpoint_policies`` on both scan bodies); ``core.remat.tag``, the
+counterpart of ``checkpoint_name``, marks each block's ``attn_out`` and
+``ffn_out`` (a copy only where a policy reads the names: ``dtr``,
+``names:``, and the planner's trace).  Decode takes one
 shared position clock (a scalar ``pos``) or per-slot clocks (``[B]``); a
 windowed layer's KV cache is a ring buffer; an rwkv block's cache is its
 f32 recurrent state and the two token-shift rows, which carry no position.
@@ -30,11 +34,18 @@ import torch.nn.functional as F
 
 from ..core import remat as R
 from . import layers as L
+from . import mla as MLA
 from . import moe as MOE
 from . import rwkv as RW
 from .config import ModelConfig
 from .params import TORCH_DTYPES, ParamInfo, tree_map
 
+# The stacked trees, ``[layers, ...]`` leaves: the leading dense layers
+# (deepseek) and the groups of ``cfg.pattern``.
+STACKS = ("dense", "groups")
+# Leaves read in float32 whatever the activation dtype: norm scales (MLA's
+# too) and the MoE router.
+_READ_IN_F32 = ("scale", "router", "q_norm", "kv_norm")
 
 # ---------------------------------------------------------------------------
 # Parameter definitions
@@ -44,9 +55,7 @@ def _check_supported(cfg: ModelConfig) -> None:
     unsupported = {
         "pattern": cfg.pattern not in (("attn",), ("attn_local",),
                                        ("rwkv",)),
-        "tail": bool(cfg.tail), "mla": cfg.mla,
-        "shared experts": cfg.n_shared_experts > 0,
-        "n_dense_layers": cfg.n_dense_layers,
+        "tail": bool(cfg.tail),
         "n_codebooks": cfg.n_codebooks, "logit_softcap": cfg.logit_softcap,
         "cross_attn": cfg.cross_attn_tokens > 0,
         "mlp_act": cfg.mlp_act != "silu",
@@ -55,8 +64,9 @@ def _check_supported(cfg: ModelConfig) -> None:
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(bad)} not ported yet (the port runs "
-            f"homogeneous attn or attn_local stacks with SwiGLU or routed "
-            f"MoE FFNs, and rwkv stacks)")
+            f"homogeneous attn or attn_local stacks, GQA or MLA, with "
+            f"SwiGLU or MoE FFNs after optional dense layers, and rwkv "
+            f"stacks)")
 
 
 def _block_defs(cfg: ModelConfig, kind: str, moe_layer: bool) -> dict:
@@ -64,7 +74,7 @@ def _block_defs(cfg: ModelConfig, kind: str, moe_layer: bool) -> dict:
     if kind == "rwkv":
         d["mix"] = RW.rwkv_defs(cfg)
     else:
-        d["attn"] = L.attention_defs(cfg)
+        d["attn"] = MLA.mla_defs(cfg) if cfg.mla else L.attention_defs(cfg)
         d["ffn"] = MOE.moe_defs(cfg) if moe_layer else L.mlp_defs(cfg)
     return d
 
@@ -83,11 +93,15 @@ def _stack_tree(tree, n: int):
 
 def param_defs(cfg: ModelConfig) -> dict:
     _check_supported(cfg)
+    defs = {"embed": L.embed_defs(cfg)}
+    if cfg.n_dense_layers:
+        defs["dense"] = _stack_tree(_block_defs(cfg, "attn", False),
+                                    cfg.n_dense_layers)
     group = {f"slot{i}": _block_defs(cfg, kind, moe_layer=cfg.moe)
              for i, kind in enumerate(cfg.pattern)}
-    return {"embed": L.embed_defs(cfg),
-            "groups": _stack_tree(group, cfg.n_groups),
-            "final_norm": L.rmsnorm_defs(cfg)}
+    defs["groups"] = _stack_tree(group, cfg.n_groups)
+    defs["final_norm"] = L.rmsnorm_defs(cfg)
+    return defs
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> Any:
@@ -118,12 +132,13 @@ def prepare_params(cfg: ModelConfig, params) -> Any:
     """Cast, once at load, every leaf that the layers cast to ``cfg.dtype``
     at each use (the JAX package casts at every use; the cast is
     deterministic, so doing it once gives the same numbers).  Norm scales
-    and the MoE router stay in their own dtype: both are read in float32."""
+    (MLA's ``q_norm`` and ``kv_norm`` too) and the MoE router stay in their
+    own dtype: all are read in float32."""
     dt = L.adtype(cfg)
 
     def walk(tree):
         return {k: walk(v) if isinstance(v, dict)
-                else v if k in ("scale", "router") else v.to(dt)
+                else v if k in _READ_IN_F32 else v.to(dt)
                 for k, v in tree.items()}
 
     return walk(params)
@@ -178,13 +193,24 @@ def block_apply(cfg: ModelConfig, kind: str, p, x, *, positions,
     h = L.rmsnorm_apply(cfg, p["norm1"], x)
     window = cfg.window if kind == "attn_local" else 0
     attn_cache = None if cache is None else cache.get("attn")
-    a, c2 = L.attention_apply(cfg, p["attn"], h, positions=positions,
-                              window=window, cache=attn_cache)
+    if cfg.mla:
+        a, c2 = MLA.mla_apply(cfg, p["attn"], h, positions=positions,
+                              cache=attn_cache)
+    else:
+        a, c2 = L.attention_apply(cfg, p["attn"], h, positions=positions,
+                                  window=window, cache=attn_cache)
     x = x + R.tag(a, "attn_out")
     h2 = L.rmsnorm_apply(cfg, p["norm2"], x)
     ffn = MOE.moe_apply if moe_layer else L.mlp_apply
     x = x + R.tag(ffn(cfg, p["ffn"], h2), "ffn_out")
     return x, (None if c2 is None else {"attn": c2})
+
+
+def _stacks(cfg: ModelConfig):
+    """``(stack, layers)`` in the order the layers run: the dense layers,
+    then the groups."""
+    return [(k, n) for k, n in zip(STACKS, (cfg.n_dense_layers,
+                                            cfg.n_groups)) if n]
 
 
 def _group(tree, g: int):
@@ -197,18 +223,25 @@ def forward(cfg: ModelConfig, params, tokens):
     policy = remat_policy(cfg)
     x = L.embed_apply(cfg, params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    for g in range(cfg.n_groups):
-        slot_params = _group(params["groups"], g)
+    for stack, layers in _stacks(cfg):
+        for g in range(layers):
+            slot_params = _group(params[stack], g)
 
-        def body(h, slot_params=slot_params):
-            for i, kind in enumerate(cfg.pattern):
-                h, _ = block_apply(cfg, kind, slot_params[f"slot{i}"], h,
-                                   positions=positions, moe_layer=cfg.moe)
-            return h
+            def body(h, slot_params=slot_params, stack=stack):
+                if stack == "dense":
+                    return block_apply(cfg, "attn", slot_params, h,
+                                       positions=positions,
+                                       moe_layer=False)[0]
+                for i, kind in enumerate(cfg.pattern):
+                    h, _ = block_apply(cfg, kind, slot_params[f"slot{i}"],
+                                       h, positions=positions,
+                                       moe_layer=cfg.moe)
+                return h
 
-        # Any remat: keep each group's input and what the policy saves; the
-        # backward runs the group's forward again.
-        x = body(x) if policy is None else R.checkpointed(body, policy)(x)
+            # Any remat: keep each layer's input and what the policy saves;
+            # the backward runs the layer's forward again.
+            x = body(x) if policy is None \
+                else R.checkpointed(body, policy)(x)
     x = L.rmsnorm_apply(cfg, params["final_norm"], x)
     return L.unembed_apply(cfg, params["embed"], x)
 
@@ -231,15 +264,23 @@ def _block_cache_defs(cfg: ModelConfig, kind: str, batch: int,
                       max_len: int) -> dict:
     if kind == "rwkv":
         return {"mix": RW.rwkv_cache_defs(cfg, batch)}
+    if cfg.mla:
+        return {"attn": MLA.mla_cache_defs(cfg, batch, max_len)}
     window = cfg.window if kind == "attn_local" else 0
     return {"attn": L.attn_cache_defs(cfg, batch, max_len, window)}
 
 
 def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     _check_supported(cfg)
+    defs = {}
+    if cfg.n_dense_layers:
+        defs["dense"] = _stack_tree(
+            _block_cache_defs(cfg, "attn", batch, max_len),
+            cfg.n_dense_layers)
     group = {f"slot{i}": _block_cache_defs(cfg, kind, batch, max_len)
              for i, kind in enumerate(cfg.pattern)}
-    return {"groups": _stack_tree(group, cfg.n_groups)}
+    defs["groups"] = _stack_tree(group, cfg.n_groups)
+    return defs
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -262,18 +303,27 @@ def decode_step(cfg: ModelConfig, params, token, cache, pos):
     x = L.embed_apply(cfg, params["embed"], token)
     # rope wants positions broadcastable to [B, S] with S = 1.
     positions = pos[None] if pos.dim() == 0 else pos[:, None]
-    for g in range(cfg.n_groups):
-        slot_params = _group(params["groups"], g)
-        slot_cache = _group(cache["groups"], g)
-        for i, kind in enumerate(cfg.pattern):
-            blk = slot_cache[f"slot{i}"]
-            blk_cache = {k: {**v, "pos": pos} if "k" in v else v
-                         for k, v in blk.items()}
-            x, new = block_apply(cfg, kind, slot_params[f"slot{i}"], x,
-                                 positions=positions, moe_layer=cfg.moe,
-                                 cache=blk_cache)
-            if "mix" in blk:      # the recurrent state is returned anew
-                for k, t in blk["mix"].items():
-                    t.copy_(new["mix"][k])
+    for stack, layers in _stacks(cfg):
+        for g in range(layers):
+            slot_params = _group(params[stack], g)
+            slot_cache = _group(cache[stack], g)
+            if stack == "dense":
+                blocks = [("attn", slot_params, slot_cache, False)]
+            else:
+                blocks = [(kind, slot_params[f"slot{i}"],
+                           slot_cache[f"slot{i}"], cfg.moe)
+                          for i, kind in enumerate(cfg.pattern)]
+            for kind, blk_params, blk, moe_layer in blocks:
+                # The position clock goes to the attention caches (dense KV
+                # or MLA latents), not to a recurrent state.
+                blk_cache = {k: {**v, "pos": pos}
+                             if "k" in v or "ckv" in v else v
+                             for k, v in blk.items()}
+                x, new = block_apply(cfg, kind, blk_params, x,
+                                     positions=positions,
+                                     moe_layer=moe_layer, cache=blk_cache)
+                if "mix" in blk:      # the recurrent state is returned anew
+                    for k, t in blk["mix"].items():
+                        t.copy_(new["mix"][k])
     x = L.rmsnorm_apply(cfg, params["final_norm"], x)
     return L.unembed_apply(cfg, params["embed"], x), cache

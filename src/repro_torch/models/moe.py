@@ -1,13 +1,18 @@
-"""Mixture-of-Experts with sort-based capacity dispatch (mixtral-8x7b).
+"""Mixture-of-Experts with sort-based capacity dispatch (mixtral-8x7b,
+deepseek-v3).
 
-The counterpart of ``repro.models.moe``: a softmax router in f32 picks the
-top-k experts of every token, sort-based dispatch packs each row's
-assignments into fixed-capacity expert buffers ``[B,E,C,d]``, the expert
-FFN is three grouped GEMMs (``kernels.ops.expert_ffn``: the Hopper kernel
-for CUDA tensors, its plain version for CPU tensors), and the results are
+The counterpart of ``repro.models.moe``: a router in f32 scores every
+expert (softmax, or for a model with shared experts, deepseek's sigmoid)
+and picks the top-k of every token, renormalising their weights;
+sort-based dispatch packs each row's assignments into fixed-capacity
+expert buffers ``[B,E,C,d]``, the expert FFN is three grouped GEMMs
+(``kernels.ops.expert_ffn``: the Hopper kernel for CUDA tensors, with its
+backward, its plain version for CPU tensors), and the results are
 scattered back with their combine weights.  Assignments past an expert's
-capacity are dropped and pass through the residual.  Deepseek's shared
-experts and sigmoid router are not ported yet.
+capacity are dropped and pass through the residual.  Shared experts are
+one SwiGLU MLP of ``n_shared_experts * moe_d_ff``, added to the routed
+output.  ``aux_load_balance_loss`` is the reference's auxiliary loss,
+which its ``loss_fn`` does not call.
 """
 from __future__ import annotations
 
@@ -17,21 +22,13 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from .config import ModelConfig
-from .layers import adtype
+from .layers import adtype, mlp_apply, mlp_defs
 from .params import ParamInfo
 
 
-def _check_routed_only(cfg: ModelConfig) -> None:
-    if cfg.n_shared_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: shared experts (n_shared_experts="
-            f"{cfg.n_shared_experts}) are not ported yet")
-
-
 def moe_defs(cfg: ModelConfig) -> dict:
-    _check_routed_only(cfg)
     d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
-    return {
+    defs = {
         "router": ParamInfo((d, e), "float32", (None, "expert")),
         "wi": ParamInfo((e, d, f), cfg.param_dtype,
                         ("expert", None, "mlp"), fsdp_dim=1),
@@ -40,6 +37,9 @@ def moe_defs(cfg: ModelConfig) -> dict:
         "wo": ParamInfo((e, f, d), cfg.param_dtype,
                         ("expert", "mlp", None), fsdp_dim=2),
     }
+    if cfg.n_shared_experts > 0:
+        defs["shared"] = mlp_defs(cfg, d_ff=cfg.n_shared_experts * f)
+    return defs
 
 
 def expert_capacity(cfg: ModelConfig, tokens_per_row: int) -> int:
@@ -70,17 +70,17 @@ def _dispatch(e_flat: torch.Tensor, capacity: int, n_experts: int):
 
 def moe_apply(cfg: ModelConfig, p, x):
     """x: [B, S, d] -> [B, S, d] (decode is S = 1)."""
-    _check_routed_only(cfg)
     dt = adtype(cfg)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = expert_capacity(cfg, s)
 
-    # Router in f32.  lax.top_k breaks ties by the lower index: a stable
-    # descending sort does the same (torch.topk promises no order).
-    scores = torch.softmax(x.float() @ p["router"].float(), dim=-1)
-    topw, topi = torch.sort(scores, dim=-1, descending=True, stable=True)
-    topw, topi = topw[..., :k], topi[..., :k]                # [B,S,k]
+    # Router in f32: deepseek's sigmoid scores with shared experts,
+    # mixtral's softmax without.
+    logits = x.float() @ p["router"].float()
+    scores = torch.sigmoid(logits) if cfg.n_shared_experts > 0 \
+        else torch.softmax(logits, dim=-1)
+    topw, topi = _top_k(scores, k)                           # [B,S,k]
     topw = (topw / (topw.sum(dim=-1, keepdim=True) + 1e-9)).to(dt)
 
     e_flat = topi.reshape(b, s * k)
@@ -118,4 +118,27 @@ def moe_apply(cfg: ModelConfig, p, x):
     contrib = torch.gather(y, 1, slot[..., None].expand(-1, -1, d))
     contrib = contrib * (w_sorted * keep)[..., None].to(dt)
     out = torch.zeros(b, s, d, dtype=dt, device=x.device)
-    return out.scatter_add_(1, src_tok[..., None].expand(-1, -1, d), contrib)
+    out = out.scatter_add_(1, src_tok[..., None].expand(-1, -1, d), contrib)
+    if cfg.n_shared_experts > 0:
+        out = out + mlp_apply(cfg, p["shared"], x)
+    return out
+
+
+def _top_k(scores, k: int):
+    """``lax.top_k``: the k largest along the last axis, ties broken by the
+    lower index, as a stable descending sort does (``torch.topk`` promises
+    no order); the values carry the gradient."""
+    topw, topi = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return topw[..., :k], topi[..., :k]
+
+
+def aux_load_balance_loss(cfg: ModelConfig, x, p) -> torch.Tensor:
+    """Switch-style load-balance auxiliary loss (fraction * probability):
+    the reference's, over softmax probabilities for every model."""
+    logits = x.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    _, topi = _top_k(probs, cfg.top_k)
+    onehot = F.one_hot(topi, cfg.n_experts).float()
+    frac = torch.mean(torch.sum(onehot, dim=2), dim=(0, 1))
+    prob = torch.mean(probs, dim=(0, 1))
+    return cfg.n_experts * torch.sum(frac * prob)

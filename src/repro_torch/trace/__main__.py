@@ -214,7 +214,9 @@ def main(argv=None) -> int:
                      help="train-step: sequence length")
     cap.add_argument("--cost-model", choices=("flops", "unit", "hlo"),
                      default="flops",
-                     help="serve-step/train-step op costs (hlo: not ported)")
+                     help="serve-step/train-step op costs (hlo: the "
+                          "analytic FLOPs rescaled to FlopCounterMode's "
+                          "count)")
     cap.add_argument("--device", default="cuda",
                      help="where the eager-mlp source runs its tensors")
     cap.add_argument("--out", default="trace.log")

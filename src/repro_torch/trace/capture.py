@@ -58,22 +58,59 @@ def capture_fn(fn, *args, name: str = "step", cost_model: str = "flops",
 
     ``cost_model``: ``"flops"`` keeps the planner's analytic per-op FLOPs;
     ``"unit"`` assigns cost 1.0 per op (bit-reproducible across torch
-    versions).  ``"hlo"`` (the reference's compiled-cost rescaling) needs a
-    torch FLOP counter in place of XLA's analysis: ROADMAP Queue 1 item 10.
+    versions); ``"hlo"`` rescales the analytic FLOPs so that their total
+    equals ``torch.utils.flop_counter.FlopCounterMode``'s count of the same
+    call on fake tensors (the counterpart of the reference's rescaling by
+    its compiled-HLO analysis; ``meta["flop_counter"]`` names the counter),
+    and falls back to ``"flops"`` where the call cannot be counted or
+    counts no FLOPs, as the reference falls back where XLA cannot compile.
     """
-    if cost_model == "hlo":
-        raise NotImplementedError(
-            "cost_model='hlo' rescales by XLA's compiled cost; the port's "
-            "counterpart is ROADMAP Queue 1 item 10 (use 'flops' or 'unit')")
-    if cost_model not in ("flops", "unit"):
+    if cost_model not in ("hlo", "flops", "unit"):
         raise ValueError(f"cost_model {cost_model!r}")
     from ..core.planner import trace_to_log
-    log = trace_to_log(fn, *args, name=name, tagged=False, **kwargs).log
+    tg = trace_to_log(fn, *args, name=name, tagged=False, **kwargs)
+    log = tg.log
     log.meta = dict({"source": "aten", "cost_model": cost_model,
                      "ops": log.op_count()}, **(meta or {}))
     if cost_model == "unit":
         return _rewrite_costs(log, lambda c: 1.0)
+    if cost_model == "hlo":
+        try:
+            total = counted_flops(fn, *args, **kwargs)
+            if total > 0 and tg.total_flops > 0:
+                scale = total / tg.total_flops
+                log.meta["hlo_flops"] = total
+                log.meta["flop_counter"] = FLOP_COUNTER
+                return _rewrite_costs(log, lambda c: c * scale)
+        except (RuntimeError, ValueError, NotImplementedError):
+            # An op fake tensors or the counter cannot take: fall back to
+            # the analytic FLOPs costs.  Anything else is a capture bug.
+            pass
+        log.meta["cost_model"] = "flops"  # the fallback actually used
     return log
+
+
+FLOP_COUNTER = "torch.utils.flop_counter.FlopCounterMode"
+
+
+def counted_flops(fn, *args, **kwargs) -> int:
+    """``FlopCounterMode``'s FLOPs of ``fn(*args, **kwargs)``, run on fake
+    tensors (real tensor arguments are faked first, so nothing is
+    computed or allocated): matrix products and attention only, forward
+    and backward, as XLA's analysis counts dots."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+    from torch.utils import _pytree as pytree
+    from torch.utils.flop_counter import FlopCounterMode
+    leaves = pytree.tree_leaves((args, kwargs))
+    mode = next((t.fake_mode for t in leaves if isinstance(t, FakeTensor)),
+                None) or FakeTensorMode()
+    args, kwargs = pytree.tree_map(
+        lambda t: mode.from_tensor(t) if isinstance(t, torch.Tensor)
+        and not isinstance(t, FakeTensor) else t, (args, kwargs))
+    with mode, FlopCounterMode(display=False) as counter:
+        fn(*args, **kwargs)
+    return counter.get_total_flops()
 
 
 def _fake_tree(defs, mode):

@@ -18,8 +18,9 @@ torch = pytest.importorskip("torch")
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import moe_gemm as mg  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.moe_gemm import moe_gemm  # noqa: E402
+from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_bwd  # noqa: E402
 from repro_torch.kernels import rwkv6_chunk as wkv  # noqa: E402
 from repro_torch.kernels.rwkv6_chunk import (  # noqa: E402
     rwkv6_bwd, rwkv6_chunk, rwkv6_fwd)
@@ -177,6 +178,44 @@ def test_moe_gemm_matches_plain(cuda, e, c, d, f, dtype):
     np.testing.assert_allclose(
         out.float().cpu().numpy(),
         ref.moe_gemm_reference(x, w).float().cpu().numpy(), **GEMM_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,d,f", GEMM_SHAPES)
+def test_moe_gemm_backward_matches_autograd(cuda, e, c, d, f, dtype):
+    """Autograd through the wrapper launches the forward once and the
+    backward's two products (``moe_gemm_bwd``), on the planned variant; the
+    gradients against autograd through the plain version, each within the
+    kernel tolerance of its largest magnitude; a second call's bits."""
+    rng = np.random.default_rng(2)
+    x, w, dy = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+                .to(device=cuda, dtype=dtype)
+                for s in ((e, c, d), (e, d, f), (e, c, f)))
+    # On wgmma the two products read the operands in place; on simt
+    # dX = dY wᵀ runs as [E,C,F]@[E,F,d] and dW = xᵀ dY as [E,d,C]@[E,C,F]
+    # on copies, each planned as a forward.
+    planned = ["wgmma"] * 2 \
+        if mg.plan_backward(e, c, d, f, dtype)["variant"] == "wgmma" \
+        else [mg.plan(e, c, f, d, dtype)["variant"],
+              mg.plan(e, d, c, f, dtype)["variant"]]
+    xs = [t.detach().requires_grad_() for t in (x, w)]
+    before = dict(moe_gemm_bwd.variant_launches)
+    fwd_before = moe_gemm.launches
+    got = torch.autograd.grad(moe_gemm(*xs), xs, dy)
+    torch.cuda.synchronize()
+    assert moe_gemm.launches == fwd_before + 1
+    after = moe_gemm_bwd.variant_launches
+    assert {k: after[k] - before[k] for k in after} == {
+        k: planned.count(k) for k in after}
+    ps = [t.detach().requires_grad_() for t in (x, w)]
+    want = torch.autograd.grad(ref.moe_gemm_reference(*ps), ps, dy)
+    tol = GEMM_TOL[dtype]["rtol"]
+    for g, p in zip(got, want):
+        assert g.dtype == dtype and g.shape == p.shape
+        err = (g.float() - p.float()).abs().max().item()
+        assert err <= tol * p.float().abs().max().item()
+    again = moe_gemm_bwd(x, w, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("case", ["non_contiguous", "w_on_cpu"])

@@ -73,6 +73,9 @@ COPIES = [
     "core/graph.py", "models/config.py", "configs/qwen2_0_5b.py",
     "configs/mixtral_8x7b.py", "configs/rwkv6_1_6b.py",
     "configs/llama3_2_1b.py", "configs/smollm_135m.py",
+    "configs/deepseek_v3_671b.py",
+    # The analysis package's HLO parsers.
+    "analysis/hlo.py", "analysis/hlo_cost.py", "analysis/__init__.py",
     # The training loop's health monitors.
     "distributed/monitor.py",
     # The DTR engine the eager executor drives, and what it imports.
@@ -109,5 +112,7 @@ def test_registry_holds_ported_architectures_only():
     assert configs.get_smoke("llama3_2_1b").head_dim == 8
     assert configs.get("smollm-135m").n_heads == 9
     assert configs.get_smoke("smollm_135m").dtype == "float32"
+    assert configs.get("deepseek-v3-671b").n_dense_layers == 3
+    assert configs.get_smoke("deepseek_v3_671b").mla
     with pytest.raises(KeyError, match="not yet ported"):
         configs.get("gemma3-1b")

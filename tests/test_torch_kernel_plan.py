@@ -126,6 +126,25 @@ def test_moe_gemm_plan(shape, dtype, aligned, expect):
 
 
 @pytest.mark.parametrize("shape,dtype,aligned,expect", [
+    # mixtral-8x7b train (batch 2 x 2048 folded: C = 1280), wi then wo
+    ((8, 1280, 4096, 14336), BF16, True, ("wgmma", 128, 128)),
+    ((8, 1280, 14336, 4096), BF16, True, ("wgmma", 128, 128)),
+    # deepseek-v3 train (C = 80) and decode (C = 32)
+    ((256, 80, 7168, 2048), BF16, True, ("wgmma", 128, 128)),
+    ((256, 32, 7168, 2048), BF16, True, ("wgmma", 32, 128)),
+    ((5, 33, 48, 40), BF16, True, ("wgmma", 64, 64)),      # d <= 64; C odd
+    ((8, 32, 4096, 14336), F32, True, ("simt", None, None)),
+    ((2, 1, 7, 5), BF16, True, ("simt", None, None)),      # d, F odd
+    ((3, 40, 200, 72), BF16, False, ("simt", None, None)),  # unaligned
+])
+def test_moe_gemm_backward_plan(shape, dtype, aligned, expect):
+    """The backward reads its operands in place on ``wgmma`` (dX blocked
+    over C as the forward, dW over d), else runs ``simt`` on copies."""
+    p = mg.plan_backward(*shape, dtype, aligned=aligned)
+    assert (p["variant"], p.get("block_c"), p.get("block_d")) == expect
+
+
+@pytest.mark.parametrize("shape,dtype,aligned,expect", [
     # qwen2-0.5b decode: 4 slots, 14/2 heads of 64, a 128-long cache
     ((4, 14, 2, 1, 128, 64), BF16, True, ("wgmma", 1, 2)),
     # mixtral-8x7b decode: 32/8 heads of 128

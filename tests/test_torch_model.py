@@ -235,14 +235,13 @@ def test_prepare_params_casts_once(cfg, params):
 
 
 def test_unsupported_configs_raise():
-    """What stays unported: MLA, shared experts, mixed block patterns and
-    codebook embeddings."""
+    """What stays unported: mixed block patterns, a tail stack and
+    codebook embeddings (MLA, shared experts and leading dense layers are
+    ported: ``tests/test_torch_deepseek.py``)."""
     base = configs.get_smoke(ARCH)
     for change, match in [
-            (dict(mla=True), "mla"),
-            (dict(moe=True, n_experts=4, top_k=2, n_shared_experts=1),
-             "shared experts"),
             (dict(pattern=("attn_local", "attn"), n_layers=4), "pattern"),
+            (dict(tail=("attn",), n_layers=3), "tail"),
             (dict(n_codebooks=4), "n_codebooks")]:
         with pytest.raises(NotImplementedError, match=match):
             M.param_defs(base.replace(**change))

@@ -11,6 +11,7 @@ logits 1e-4 (three layers and a vocabulary projection of those differences).
 """
 import dataclasses
 import functools
+from functools import partial
 
 import numpy as np
 import pytest
@@ -29,7 +30,7 @@ from repro.models import model as JM  # noqa: E402
 from repro.models import moe as JMOE  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.moe_gemm import moe_gemm  # noqa: E402
+from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_bwd  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
@@ -146,14 +147,17 @@ def test_gemm_wrapper_rejects(case):
         w = w.to(torch.bfloat16)
     elif case == "float16":
         x, w = x.half(), w.half()
-    elif case == "grad":
-        w.requires_grad_(True)
     elif case == "empty":
         x = x[:, :0]
-    before = moe_gemm.launches
+    call = partial(moe_gemm, x, w)
+    if case == "grad":
+        # A gradient is taken (moe_gemm_bwd); one of the wrong shape is not.
+        dy = torch.zeros(2, 8, 23)
+        call = partial(moe_gemm_bwd, x.requires_grad_(), w, dy)
+    before = moe_gemm.launches, moe_gemm_bwd.launches
     with pytest.raises((ValueError, TypeError, RuntimeError)):
-        moe_gemm(x, w)
-    assert moe_gemm.launches == before
+        call()
+    assert (moe_gemm.launches, moe_gemm_bwd.launches) == before
 
 
 # ---------------------------------------------------------------------------
@@ -229,13 +233,30 @@ def test_expert_capacity_matches_jax(cfg, tokens):
         JMOE.expert_capacity(jconfigs.get(ARCH), tokens)
 
 
-def test_shared_experts_not_ported(cfg, params):
+def test_shared_experts_not_ported(cfg, jparams):
+    """Named when shared experts were refused; they are ported now.  One
+    shared expert (deepseek's form: a SwiGLU MLP of ``n_shared_experts *
+    moe_d_ff``, added to the routed output, with the sigmoid router and
+    renormalised top-k weights) against JAX's on the same parameters."""
     deep = cfg.replace(n_shared_experts=1)
-    with pytest.raises(NotImplementedError, match="shared experts"):
-        MOE.moe_defs(deep)
-    with pytest.raises(NotImplementedError, match="shared experts"):
-        MOE.moe_apply(deep, _group0(params, "ffn"),
-                      torch.zeros(1, 1, cfg.d_model))
+    jdeep = jconfigs.get_smoke(ARCH).replace(n_shared_experts=1)
+    defs = MOE.moe_defs(deep)
+    assert _defs(defs, False) == {
+        k: (tuple(s), d, i) for k, (s, d, i) in
+        _defs(JMOE.moe_defs(jdeep), True).items()}
+    f = deep.moe_d_ff or deep.d_ff
+    assert defs["shared"]["wi"].shape == (deep.d_model, f)
+    rng = np.random.default_rng(8)
+    jp = {**_group0(jparams, "ffn"), "shared": {
+        k: jnp.asarray(rng.standard_normal(i.shape, dtype=np.float32) * 0.1)
+        for k, i in defs["shared"].items()}}
+    p = jax.tree.map(lambda a: torch.tensor(np.asarray(a)), jp)
+    x = rng.standard_normal((2, 12, cfg.d_model), dtype=np.float32)
+    out = MOE.moe_apply(deep, p, torch.from_numpy(x))
+    expect = JMOE.moe_apply(jdeep, jp, jnp.asarray(x))
+    np.testing.assert_allclose(_np(out), _np(expect), **LAYER_TOL)
+    routed = MOE.moe_apply(cfg, p, torch.from_numpy(x))
+    assert not np.allclose(_np(out), _np(routed))
 
 
 # ---------------------------------------------------------------------------

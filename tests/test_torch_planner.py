@@ -309,21 +309,29 @@ def test_capture_train_step(train_log):
 
 
 def test_capture_train_step_replays(train_log):
-    """Scan and index replay agree; the sanitizer sees no violation.  Below
-    ~0.96 of the activation range every heuristic thrashes (ROADMAP Queue
-    3): the per-group gradients the step stacks at its end hold the
-    backward's memory flat; a low thrash factor ends those cells fast, and
-    they must still agree."""
+    """Scan and index replay agree at 0.9 and 0.8 of the activation range,
+    as ``tests/test_trace_golden.py`` replays the JAX capture
+    (``tests/traces/train_smoke.log``), and the same cells are feasible in
+    both logs: each layer's gradient goes into its stack as the backward
+    makes it, as the reference's scan writes its slice, so the backward's
+    memory falls as the JAX one's does; the sanitizer sees no violation."""
+    fractions = (0.9, 0.8)
+    heuristics = ("h_dtr_eq", "h_dtr_local", "h_lru", "h_size")
     rep = R.verify_oracle_equivalence(
-        train_log, fractions=(0.97, 0.9), thrash_factor=3.0,
-        heuristics=("h_dtr_eq", "h_dtr_local", "h_lru", "h_size"))
+        train_log, fractions=fractions, thrash_factor=3.0,
+        heuristics=heuristics)
     assert rep["ok"], rep["mismatches"]
-    ok = [r.ok for r in rep["index_results"].values()]
-    assert any(ok) and not all(ok)
+    golden = Log.loads(open("tests/traces/train_smoke.log").read())
+    jrep = R.verify_oracle_equivalence(
+        golden, fractions=fractions, thrash_factor=3.0,
+        heuristics=heuristics)
+    ok = {k: r.ok for k, r in rep["index_results"].items()}
+    assert ok == {k: r.ok for k, r in jrep["index_results"].items()}
+    assert any(ok.values()) and not all(ok.values())
     peak, _ = simulator.measure_baseline(train_log)
     pinned = train_log.pinned_bytes()
     res, _ = R.run_trace(train_log, "h_dtr_eq",
-                         pinned + 0.97 * (peak - pinned), sanitize=True)
+                         pinned + 0.9 * (peak - pinned), sanitize=True)
     assert res.ok and res.evictions > 0
 
 
@@ -339,8 +347,19 @@ def test_capture_cost_models():
     unit = C.capture_train_step("qwen2-0.5b", smoke=True, batch=1, seq=8,
                                 cost_model="unit")
     assert unit.baseline_cost() == unit.op_count()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        C.capture_train_step("qwen2-0.5b", cost_model="hlo")
+    # "hlo": the analytic costs rescaled to FlopCounterMode's total.
+    flops = C.capture_train_step("qwen2-0.5b", smoke=True, batch=1, seq=8)
+    hlo = C.capture_train_step("qwen2-0.5b", smoke=True, batch=1, seq=8,
+                               cost_model="hlo")
+    assert hlo.meta["cost_model"] == "hlo"
+    assert hlo.meta["flop_counter"] == C.FLOP_COUNTER
+    assert hlo.op_count() == flops.op_count()
+    assert hlo.baseline_cost() == pytest.approx(hlo.meta["hlo_flops"],
+                                                rel=1e-9)
+    scale = hlo.meta["hlo_flops"] / flops.baseline_cost()
+    for a, b in zip(hlo.instrs, flops.instrs):
+        assert getattr(a, "cost", 0.0) == pytest.approx(
+            getattr(b, "cost", 0.0) * scale, rel=1e-12)
 
 
 def test_trace_cli_train_step(tmp_path, capsys):

@@ -250,6 +250,49 @@ def test_remat_full_matches_none(cfg, jparams, tokens):
         torch.testing.assert_close(g_r, g, rtol=0, atol=0, msg=path)
 
 
+@pytest.mark.parametrize("where", ["leaf", "stack"])
+def test_loss_and_grads_names_a_leaf_it_does_not_reach(cfg, jparams, tokens,
+                                                       where):
+    """A parameter the loss does not use is refused by name, a plain leaf
+    and a stacked one alike (``autograd.grad``'s refusal)."""
+    params = _port(jparams, cfg)
+    if where == "stack":
+        params["groups"]["unused"] = torch.zeros(cfg.n_groups, 3)
+    else:
+        params["unused"] = torch.zeros(3)
+    with pytest.raises(RuntimeError, match="no gradient reached "
+                       + ("groups.unused .layers" if where == "stack"
+                          else "unused$")):
+        loss_and_grads(cfg, params, {"tokens": torch.from_numpy(tokens)})
+
+
+def test_loss_and_grads_removes_its_hooks_when_backward_raises(
+        cfg, jparams, tokens, monkeypatch):
+    class Fails(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            raise RuntimeError("backward failed")
+
+    loss_fn, register = M.loss_fn, torch.Tensor.register_post_accumulate_grad_hook
+    hooked = []
+
+    def spy(self, hook):
+        hooked.append((self, register(self, hook)))
+        return hooked[-1][1]
+
+    monkeypatch.setattr(M, "loss_fn", lambda *a: Fails.apply(loss_fn(*a)))
+    monkeypatch.setattr(torch.Tensor, "register_post_accumulate_grad_hook",
+                        spy)
+    with pytest.raises(RuntimeError, match="backward failed"):
+        loss_and_grads(cfg, _port(jparams, cfg),
+                       {"tokens": torch.from_numpy(tokens)})
+    assert hooked and all(h.id not in h.hooks_dict_ref() for _, h in hooked)
+
+
 @pytest.mark.parametrize("remat", ["dtr", "dots", "names:attn_out"])
 def test_remat_policies_match_none_and_jax(qcfg, jqcfg, jqparams, tokens,
                                            remat):
