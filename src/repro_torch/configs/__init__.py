@@ -14,6 +14,8 @@ ARCHS = [
     "mixtral_8x7b",
     "rwkv6_1_6b",
     "deepseek_v3_671b",
+    "gemma3_1b",
+    "recurrentgemma_2b",
 ]
 
 # CLI ids (dashes) -> module names
@@ -25,6 +27,8 @@ ALIASES.update({
     "mixtral-8x7b": "mixtral_8x7b",
     "rwkv6-1.6b": "rwkv6_1_6b",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    "gemma3-1b": "gemma3_1b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 })
 
 

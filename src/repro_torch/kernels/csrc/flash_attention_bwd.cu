@@ -87,10 +87,13 @@
 // dP as f32 FMAs over D read as 16-byte vectors from shared memory (K/V
 // rows padded to D + 4 words), P and dS in shared memory, and each thread
 // then accumulates a 4 x 4 (x D/64) block of dK and dV (or dQ).  P and dS
-// stay f32.
+// stay f32.  Head dims are padded to DP = 64, 128 or 256 (gemma3's and
+// recurrentgemma's D 256: 137 KiB of shared memory a block, so one block
+// an SM, and 128 f32 dK/dV accumulators a thread).
 //
 // Not yet: warp specialisation with setmaxnreg and two consumer
-// warpgroups, dQ fused into the dK/dV pass, D = 128 on the tensor cores.
+// warpgroups, dQ fused into the dK/dV pass, D = 128 and 256 on the tensor
+// cores.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -102,7 +105,7 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr int BT = 32;          // rows of a query tile, keys of a key tile
-constexpr int MAX_D = 128;
+constexpr int MAX_D = 256;
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -864,7 +867,10 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
   if (a.D <= 64)
     return launch<T, 64>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, a,
                          stream);
-  return launch<T, 128>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, a,
+  if (a.D <= 128)
+    return launch<T, 128>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, a,
+                          stream);
+  return launch<T, 256>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, a,
                         stream);
 }
 
@@ -1404,14 +1410,14 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; q, k, v, o, dout, dq, dk, dv contiguous
-// and 16-byte aligned, D a multiple of 8 up to 128.  lse: the forward's f32
+// and 16-byte aligned, D a multiple of 8 up to 256.  lse: the forward's f32
 // [B*Hq*Sq].  scratch: f32, `scratch_floats` of them, 16-byte aligned: D
 // (B*Hq*Sq floats) for simt and mma; for wgmma the padded lse and D rows
 // and each query head's partial dK and dV (wgmma_scratch_floats).  variant:
 // 0 = simt, 1 = mma (bf16, D = 64), 2 = wgmma (bf16, D = 64).  block, step,
 // dp: the wrapper's schedule (keys of a dK/dV block and rows of a dQ block;
 // queries of a dK/dV step and keys of a dQ step; the padded head dim),
-// which must be the variant's own: simt BT, BT and 64 or 128, mma MB, MT
+// which must be the variant's own: simt BT, BT and 64, 128 or 256, mma MB, MT
 // and 64, wgmma WB, WT and 64.  Three kernels on `stream` (wgmma: four).
 // Returns a cudaError_t: 0 on a successful launch, cudaErrorInvalidValue
 // for a shape, variant, schedule, scratch or alignment the kernels do not
@@ -1456,7 +1462,7 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                                        scratch, B, a, s));
   }
   if (variant != 0 || block != BT || step != BT ||
-      dp != (D <= 64 ? 64 : 128))
+      dp != (D <= 64 ? 64 : D <= 128 ? 128 : 256))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return static_cast<int>(launch_d<float>(q, k, v, o, lse, dout, dq, dk,

@@ -35,7 +35,7 @@ WGMMA_HEAD_DIMS = (32, 64, 128)
 SMS = 132              # H100 SXM
 MAX_SPLITS = 8
 MAX_GRID_Y = 65535
-BWD_MAX_HEAD_DIM = 128
+BWD_MAX_HEAD_DIM = 256
 BWD_VARIANTS = {"simt": 0, "mma": 1, "wgmma": 2}
 # (block, step) of each backward variant: keys of a dK/dV block and rows of
 # a dQ block; queries of a dK/dV step and keys of a dQ step.
@@ -120,8 +120,9 @@ def plan_backward(b: int, hq: int, hkv: int, sq: int, skv: int, d: int,
 
     bf16 with D 64 (qwen2's train path) goes to ``wgmma``: tensor cores
     through ``wgmma``, tiles brought by TMA, and the dK/dV work split over
-    the G query heads of each kv head.  The rest (f32, other head dims,
-    mixtral's D 128 among them) goes to ``simt``.  ``mma``, the design
+    the G query heads of each kv head.  The rest (f32, other head dims:
+    mixtral's D 128, gemma3's and recurrentgemma's D 256) goes to
+    ``simt``.  ``mma``, the design
     before ``wgmma``, is reached only through :func:`backward_schedule`.
     """
     if d % 8 or d > BWD_MAX_HEAD_DIM:
@@ -160,7 +161,7 @@ def backward_schedule(variant: str, b: int, hq: int, hkv: int, sq: int,
     """
     block, step = BWD_TILES[variant]
     kv_tiles, q_tiles = -(-skv // block), -(-sq // block)
-    dp = 64 if d <= 64 else 128
+    dp = 64 if d <= 64 else 128 if d <= 128 else 256
     s = {"variant": variant, "block": block, "step": step, "dp": dp,
          "split_heads": variant == "wgmma"}
     if variant == "wgmma":

@@ -193,7 +193,7 @@ def attn_cache_defs(cfg: ModelConfig, batch: int, max_len: int,
 
 
 # ---------------------------------------------------------------------------
-# Gated MLP (SwiGLU)
+# Gated MLP (SwiGLU, or GeGLU for ``mlp_act`` gelu)
 # ---------------------------------------------------------------------------
 
 def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
@@ -206,11 +206,18 @@ def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
     }
 
 
+def gelu(x):
+    """``jax.nn.gelu``'s default: the tanh approximation, not the erf
+    form."""
+    return F.gelu(x, approximate="tanh")
+
+
 def mlp_apply(cfg: ModelConfig, p, x):
     dt = adtype(cfg)
+    act = F.silu if cfg.mlp_act == "silu" else gelu
     h = x @ p["wi"].to(dt)
     g = x @ p["wg"].to(dt)
-    return (F.silu(g) * h) @ p["wo"].to(dt)
+    return (act(g) * h) @ p["wo"].to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +237,14 @@ def embed_defs(cfg: ModelConfig) -> dict:
 
 
 def embed_apply(cfg: ModelConfig, p, tokens):
-    return F.embedding(tokens.long(), p["tokens"].to(adtype(cfg)))
+    """The token rows; gemma models (``gemma*``, ``recurrentgemma*``) scale
+    them by sqrt(d_model), rounded to the activation dtype first, as the
+    JAX model's ``_embed`` does."""
+    dt = adtype(cfg)
+    x = F.embedding(tokens.long(), p["tokens"].to(dt))
+    if cfg.name.startswith(("gemma", "recurrentgemma")):
+        x = x * float(torch.tensor(np.sqrt(cfg.d_model), dtype=dt))
+    return x
 
 
 def unembed_apply(cfg: ModelConfig, p, x):

@@ -1,28 +1,33 @@
 """Model assembly: stacked layer groups, full-sequence forward and loss,
 decode step.
 
-The counterpart of ``repro.models.model`` for homogeneous stacks of
-``attn`` (qwen2, deepseek-v3) or sliding-window ``attn_local`` (mixtral)
-blocks, each with a SwiGLU MLP or an MoE FFN (routed experts, and
-deepseek's shared ones), with GQA attention or deepseek's latent
-attention (``models.mla``), after an optional stack of ``n_dense_layers``
-dense-FFN blocks (``dense``, deepseek's leading layers); and of ``rwkv``
-blocks (rwkv6: time-mix and channel-mix), with tied or untied embeddings;
-not yet mixed patterns, a ``tail`` stack, cross attention or codebooks.
+The counterpart of ``repro.models.model``.  A config's layers are an
+optional stack of ``n_dense_layers`` dense-FFN attention blocks
+(``dense``, deepseek's leading layers), ``n_groups`` groups of
+``cfg.pattern`` (``groups``) and one group of ``cfg.tail`` (``tail``,
+gemma3's and recurrentgemma's remainder layers), in that order.  A group
+mixes any of the block kinds ``attn``, sliding-window ``attn_local``,
+``rglru`` (Griffin's recurrent block, ``models.rglru``) and ``rwkv``
+(rwkv6: time-mix and channel-mix); each attention block has a SwiGLU or
+GeGLU MLP or an MoE FFN (routed experts, and deepseek's shared ones), with
+GQA attention or deepseek's latent attention (``models.mla``).  Embeddings
+are tied or untied; gemma models scale theirs by sqrt(d_model).  Not yet:
+cross attention, codebooks or logit soft-capping.
 Parameters keep the JAX tree's layout and key paths (``embed.tokens``,
-``groups.slot0.attn.wq``, ...): each leaf of ``dense`` and ``groups`` is
-stacked ``[layers, ...]``, and the JAX package's ``lax.scan`` over a stack
-becomes a Python loop over that leading axis.  Every remat policy of the
+``groups.slot0.attn.wq``, ...): each leaf of a stack is stacked
+``[layers, ...]``, and the JAX package's ``lax.scan`` over a stack becomes
+a Python loop over that leading axis.  Every remat policy of the
 reference (``none``, ``full``, ``dots``, ``dtr``, ``names:a,b``) wraps each
 group and each dense layer in ``torch.utils.checkpoint`` with a
 selective-checkpoint policy (:func:`remat_policy`, the JAX
-``checkpoint_policies`` on both scan bodies); ``core.remat.tag``, the
-counterpart of ``checkpoint_name``, marks each block's ``attn_out`` and
-``ffn_out`` (a copy only where a policy reads the names: ``dtr``,
-``names:``, and the planner's trace).  Decode takes one
+``checkpoint_policies`` on the scan bodies); ``core.remat.tag``, the
+counterpart of ``checkpoint_name``, marks each block's ``attn_out``,
+``rec_out`` and ``ffn_out`` (a copy only where a policy reads the names:
+``dtr``, ``names:``, and the planner's trace).  Decode takes one
 shared position clock (a scalar ``pos``) or per-slot clocks (``[B]``); a
 windowed layer's KV cache is a ring buffer; an rwkv block's cache is its
-f32 recurrent state and the two token-shift rows, which carry no position.
+f32 recurrent state and the two token-shift rows, an rglru block's its
+state ``h`` and the conv's last inputs, none of which carry a position.
 """
 from __future__ import annotations
 
@@ -36,16 +41,19 @@ from ..core import remat as R
 from . import layers as L
 from . import mla as MLA
 from . import moe as MOE
+from . import rglru as RG
 from . import rwkv as RW
 from .config import ModelConfig
 from .params import TORCH_DTYPES, ParamInfo, tree_map
 
-# The stacked trees, ``[layers, ...]`` leaves: the leading dense layers
-# (deepseek) and the groups of ``cfg.pattern``.
-STACKS = ("dense", "groups")
+# The stacked trees, ``[layers, ...]`` leaves, in the order they run: the
+# leading dense layers (deepseek), the groups of ``cfg.pattern`` and the
+# one group of ``cfg.tail``.
+STACKS = ("dense", "groups", "tail")
 # Leaves read in float32 whatever the activation dtype: norm scales (MLA's
-# too) and the MoE router.
-_READ_IN_F32 = ("scale", "router", "q_norm", "kv_norm")
+# too), the MoE router and the RG-LRU's decay parameter.
+_READ_IN_F32 = ("scale", "router", "q_norm", "kv_norm", "lam")
+_KINDS = ("attn", "attn_local", "rglru", "rwkv")
 
 # ---------------------------------------------------------------------------
 # Parameter definitions
@@ -53,26 +61,26 @@ _READ_IN_F32 = ("scale", "router", "q_norm", "kv_norm")
 
 def _check_supported(cfg: ModelConfig) -> None:
     unsupported = {
-        "pattern": cfg.pattern not in (("attn",), ("attn_local",),
-                                       ("rwkv",)),
-        "tail": bool(cfg.tail),
+        "pattern": any(k not in _KINDS for k in cfg.pattern + cfg.tail),
         "n_codebooks": cfg.n_codebooks, "logit_softcap": cfg.logit_softcap,
         "cross_attn": cfg.cross_attn_tokens > 0,
-        "mlp_act": cfg.mlp_act != "silu",
+        "mlp_act": cfg.mlp_act not in ("silu", "gelu"),
     }
     bad = sorted(k for k, v in unsupported.items() if v)
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(bad)} not ported yet (the port runs "
-            f"homogeneous attn or attn_local stacks, GQA or MLA, with "
-            f"SwiGLU or MoE FFNs after optional dense layers, and rwkv "
-            f"stacks)")
+            f"groups and a tail of {', '.join(_KINDS)} blocks, GQA or MLA, "
+            f"with SwiGLU, GeGLU or MoE FFNs after optional dense layers)")
 
 
 def _block_defs(cfg: ModelConfig, kind: str, moe_layer: bool) -> dict:
     d = {"norm1": L.rmsnorm_defs(cfg), "norm2": L.rmsnorm_defs(cfg)}
     if kind == "rwkv":
         d["mix"] = RW.rwkv_defs(cfg)
+    elif kind == "rglru":
+        d["rec"] = RG.rglru_defs(cfg)
+        d["ffn"] = L.mlp_defs(cfg)
     else:
         d["attn"] = MLA.mla_defs(cfg) if cfg.mla else L.attention_defs(cfg)
         d["ffn"] = MOE.moe_defs(cfg) if moe_layer else L.mlp_defs(cfg)
@@ -100,6 +108,10 @@ def param_defs(cfg: ModelConfig) -> dict:
     group = {f"slot{i}": _block_defs(cfg, kind, moe_layer=cfg.moe)
              for i, kind in enumerate(cfg.pattern)}
     defs["groups"] = _stack_tree(group, cfg.n_groups)
+    if cfg.tail:
+        tail = {f"slot{i}": _block_defs(cfg, kind, moe_layer=cfg.moe)
+                for i, kind in enumerate(cfg.tail)}
+        defs["tail"] = _stack_tree(tail, 1)
     defs["final_norm"] = L.rmsnorm_defs(cfg)
     return defs
 
@@ -175,8 +187,16 @@ def remat_policy(cfg: ModelConfig):
 def block_apply(cfg: ModelConfig, kind: str, p, x, *, positions,
                 moe_layer: bool, cache=None):
     """Pre-norm residual block; returns (x, new_cache).  The attention
-    (time-mix) and FFN (channel-mix) outputs are tagged ``attn_out`` and
-    ``ffn_out``."""
+    (time-mix), recurrence and FFN (channel-mix) outputs are tagged
+    ``attn_out``, ``rec_out`` and ``ffn_out``."""
+    if kind == "rglru":
+        rec_cache = None if cache is None else cache.get("rec")
+        h = L.rmsnorm_apply(cfg, p["norm1"], x)
+        r, c2 = RG.rglru_apply(cfg, p["rec"], h, cache=rec_cache)
+        x = x + R.tag(r, "rec_out")
+        h2 = L.rmsnorm_apply(cfg, p["norm2"], x)
+        x = x + R.tag(L.mlp_apply(cfg, p["ffn"], h2), "ffn_out")
+        return x, (None if c2 is None else {"rec": c2})
     if kind == "rwkv":
         mix_cache = None if cache is None else cache.get("mix")
         h = L.rmsnorm_apply(cfg, p["norm1"], x)
@@ -207,10 +227,23 @@ def block_apply(cfg: ModelConfig, kind: str, p, x, *, positions,
 
 
 def _stacks(cfg: ModelConfig):
-    """``(stack, layers)`` in the order the layers run: the dense layers,
-    then the groups."""
-    return [(k, n) for k, n in zip(STACKS, (cfg.n_dense_layers,
-                                            cfg.n_groups)) if n]
+    """``(stack, layers, kinds)`` in the order the layers run: the dense
+    layers (each one ``attn`` block, with a dense FFN), the groups of
+    ``cfg.pattern``, then the tail's one group of ``cfg.tail``."""
+    stacks = zip(STACKS, (cfg.n_dense_layers, cfg.n_groups,
+                          1 if cfg.tail else 0),
+                 (("attn",), cfg.pattern, cfg.tail))
+    return [(k, n, kinds) for k, n, kinds in stacks if n]
+
+
+def _blocks(cfg: ModelConfig, stack: str, kinds, slot_params, slot_cache):
+    """``(kind, params, cache, moe_layer)`` of each block of one layer
+    (``dense``) or group; ``slot_cache`` None in training."""
+    if stack == "dense":
+        return [("attn", slot_params, slot_cache, False)]
+    return [(kind, slot_params[f"slot{i}"],
+             None if slot_cache is None else slot_cache[f"slot{i}"], cfg.moe)
+            for i, kind in enumerate(kinds)]
 
 
 def _group(tree, g: int):
@@ -223,19 +256,16 @@ def forward(cfg: ModelConfig, params, tokens):
     policy = remat_policy(cfg)
     x = L.embed_apply(cfg, params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    for stack, layers in _stacks(cfg):
+    for stack, layers, kinds in _stacks(cfg):
         for g in range(layers):
-            slot_params = _group(params[stack], g)
+            blocks = _blocks(cfg, stack, kinds, _group(params[stack], g),
+                             None)
 
-            def body(h, slot_params=slot_params, stack=stack):
-                if stack == "dense":
-                    return block_apply(cfg, "attn", slot_params, h,
+            def body(h, blocks=blocks):
+                for kind, blk_params, _, moe_layer in blocks:
+                    h, _ = block_apply(cfg, kind, blk_params, h,
                                        positions=positions,
-                                       moe_layer=False)[0]
-                for i, kind in enumerate(cfg.pattern):
-                    h, _ = block_apply(cfg, kind, slot_params[f"slot{i}"],
-                                       h, positions=positions,
-                                       moe_layer=cfg.moe)
+                                       moe_layer=moe_layer)
                 return h
 
             # Any remat: keep each layer's input and what the policy saves;
@@ -264,6 +294,8 @@ def _block_cache_defs(cfg: ModelConfig, kind: str, batch: int,
                       max_len: int) -> dict:
     if kind == "rwkv":
         return {"mix": RW.rwkv_cache_defs(cfg, batch)}
+    if kind == "rglru":
+        return {"rec": RG.rglru_cache_defs(cfg, batch)}
     if cfg.mla:
         return {"attn": MLA.mla_cache_defs(cfg, batch, max_len)}
     window = cfg.window if kind == "attn_local" else 0
@@ -280,6 +312,10 @@ def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     group = {f"slot{i}": _block_cache_defs(cfg, kind, batch, max_len)
              for i, kind in enumerate(cfg.pattern)}
     defs["groups"] = _stack_tree(group, cfg.n_groups)
+    if cfg.tail:
+        tail = {f"slot{i}": _block_cache_defs(cfg, kind, batch, max_len)
+                for i, kind in enumerate(cfg.tail)}
+        defs["tail"] = _stack_tree(tail, 1)
     return defs
 
 
@@ -303,16 +339,10 @@ def decode_step(cfg: ModelConfig, params, token, cache, pos):
     x = L.embed_apply(cfg, params["embed"], token)
     # rope wants positions broadcastable to [B, S] with S = 1.
     positions = pos[None] if pos.dim() == 0 else pos[:, None]
-    for stack, layers in _stacks(cfg):
+    for stack, layers, kinds in _stacks(cfg):
         for g in range(layers):
-            slot_params = _group(params[stack], g)
-            slot_cache = _group(cache[stack], g)
-            if stack == "dense":
-                blocks = [("attn", slot_params, slot_cache, False)]
-            else:
-                blocks = [(kind, slot_params[f"slot{i}"],
-                           slot_cache[f"slot{i}"], cfg.moe)
-                          for i, kind in enumerate(cfg.pattern)]
+            blocks = _blocks(cfg, stack, kinds, _group(params[stack], g),
+                             _group(cache[stack], g))
             for kind, blk_params, blk, moe_layer in blocks:
                 # The position clock goes to the attention caches (dense KV
                 # or MLA latents), not to a recurrent state.
@@ -322,8 +352,9 @@ def decode_step(cfg: ModelConfig, params, token, cache, pos):
                 x, new = block_apply(cfg, kind, blk_params, x,
                                      positions=positions,
                                      moe_layer=moe_layer, cache=blk_cache)
-                if "mix" in blk:      # the recurrent state is returned anew
-                    for k, t in blk["mix"].items():
-                        t.copy_(new["mix"][k])
+                for state in ("mix", "rec"):
+                    # A recurrent state is returned anew: write it back.
+                    for k, t in blk.get(state, {}).items():
+                        t.copy_(new[state][k])
     x = L.rmsnorm_apply(cfg, params["final_norm"], x)
     return L.unembed_apply(cfg, params["embed"], x), cache

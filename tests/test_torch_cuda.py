@@ -490,6 +490,8 @@ BWD_SHAPES = [  # chip_smoke.py phase 2's backward cases, then the smoke dim
     (2, 7, 1, 16, 16, 8, True, 0),         # qwen2 smoke heads, D 8
     (4, 32, 8, 2048, 2048, 64, True, 0),   # llama3.2-1b's train shape, G 4
     (8, 9, 3, 1024, 1024, 64, True, 0),    # smollm-135m's: G 3, odd heads
+    (2, 4, 1, 100, 100, 256, True, 0),     # gemma3 heads, D 256
+    (1, 10, 1, 77, 140, 256, True, 40),    # recurrentgemma heads, a window
 ]
 # The cases the tensor-core variants take (bf16 at D 64).
 BWD_SHAPES_D64 = [s for s in BWD_SHAPES if s[5] == 64]
@@ -803,6 +805,57 @@ def test_new_configs_smoke_train_step_launches(cuda, arch):
     assert np.isfinite(res.losses[0]) and res.actions == ["ok"]
     assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches) \
         == (2 * cfg.n_layers, cfg.n_layers)
+
+
+def _attention_layers(cfg):
+    kinds = list(cfg.pattern) * cfg.n_groups + list(cfg.tail)
+    return sum(kind.startswith("attn") for kind in kinds)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "recurrentgemma-2b"])
+def test_gemma_smoke_train_step_launches(cuda, arch):
+    """One smoke train step of each mixed-pattern config under remat dtr:
+    the flash forward twice an attention layer (global, local and tail
+    alike) and the backward once, in f32 on ``simt``; rglru layers launch
+    no kernel."""
+    args = train.parse_args(["--arch", arch, "--smoke", "--steps", "1",
+                             "--batch", "2", "--seq", "32"])
+    cfg = train.config_from_args(args)
+    params = M.init_params(cfg, torch.Generator(cuda).manual_seed(0))
+
+    def reset(step):
+        fa.flash_attention.launches = fa.flash_attention_bwd.launches = 0
+        fa.flash_attention_bwd.variant_launches = dict.fromkeys(
+            fa.BWD_VARIANTS, 0)
+
+    res = train.train_loop(cfg, params, args, verbose=False, on_step=reset)
+    n = _attention_layers(cfg)
+    assert np.isfinite(res.losses[0]) and res.actions == ["ok"]
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches) \
+        == (2 * n, n)
+    assert fa.flash_attention_bwd.variant_launches["simt"] == n
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "recurrentgemma-2b"])
+def test_gemma_smoke_serve_on_card_matches_cpu(cuda, arch):
+    """Ring caches of window 8 behind a 32-row max_len and the rglru
+    state: the card and the CPU serve the same greedy tokens, under
+    admission's preemptions, and every decode step launched flash attention
+    once an attention layer."""
+    cfg = configs.get_smoke(arch)
+    args = serve.parse_args([
+        "--arch", arch, "--smoke", "--requests", "8", "--slots", "4",
+        "--gen", "8", "--max-len", "32", "--kv-budget", "0.3",
+        "--chaos-shrink", "0.5", "--chaos-period", "16"])
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    on_cpu = serve.serve_loop(cfg, params, args)
+    before = flash_attention.launches
+    on_card = serve.serve_loop(cfg, tree_map(lambda t: t.to(cuda), params),
+                               args)
+    assert on_card.completed == on_cpu.completed
+    assert on_card.counters == on_cpu.counters
+    assert flash_attention.launches - before == \
+        on_card.steps * _attention_layers(cfg)
 
 
 def test_checkpoint_restores_onto_the_card(cuda, tmp_path):

@@ -228,6 +228,7 @@ def schedule_backward(q, k, v, o, lse, do, *, causal, window, variant):
     ("simt", 1, 4, 2, 90, 90, 8, True, 33),
     ("simt", 1, 2, 2, 37, 65, 8, False, 0),
     ("simt", 1, 14, 2, 33, 33, 64, True, 0),
+    ("simt", 1, 4, 1, 70, 70, 256, True, 24),
     ("mma", 1, 14, 2, 100, 100, 64, True, 0),
     ("mma", 1, 4, 2, 45, 130, 64, True, 0),
     ("mma", 1, 4, 1, 150, 150, 64, True, 40),
@@ -238,7 +239,8 @@ def schedule_backward(q, k, v, o, lse, do, *, causal, window, variant):
     ("wgmma", 1, 14, 2, 77, 131, 64, True, 33),
     ("wgmma", 1, 2, 2, 37, 70, 64, False, 0),
 ], ids=["causal-70", "sq<skv", "window-33", "full", "qwen2-heads",
-        "mma-qwen2-heads", "mma-sq<skv", "mma-window-40", "mma-full",
+        "d256-window-24", "mma-qwen2-heads", "mma-sq<skv", "mma-window-40",
+        "mma-full",
         "wgmma-qwen2-heads", "wgmma-sq<skv", "wgmma-window-40",
         "wgmma-window-33-sq<skv", "wgmma-full"])
 def test_backward_schedule_matches_plain(variant, b, hq, hkv, sq, skv, d,
@@ -282,6 +284,15 @@ def test_backward_schedule_matches_plain(variant, b, hq, hkv, sq, skv, d,
      (2, 8)),
     ((1, 14, 2, 77, 131, 64), torch.bfloat16, True, "wgmma", 64, (14, 3),
      (14, 2)),
+    # gemma3-1b's and recurrentgemma-2b's train shapes: D 256 on simt
+    ((2, 4, 1, 2048, 2048, 256), torch.bfloat16, True, "simt", 256,
+     (64, 2), (64, 8)),
+    ((1, 10, 1, 2048, 2048, 256), torch.bfloat16, True, "simt", 256,
+     (64, 1), (64, 10)),
+    ((2, 4, 1, 2048, 2048, 256), torch.float32, True, "simt", 256,
+     (64, 2), (64, 8)),
+    ((1, 2, 1, 40, 40, 136), torch.bfloat16, True, "simt", 256, (2, 1),
+     (2, 2)),
 ])
 def test_plan_backward(shape, dtype, planned, variant, dp, grid_dkdv,
                        grid_dq):
@@ -319,7 +330,7 @@ def test_backward_scratch(variant, scratch, extra):
         assert ragged["scratch_floats"] == 14 * 77
 
 
-@pytest.mark.parametrize("d", [12, 136])
+@pytest.mark.parametrize("d", [12, 264])
 def test_plan_backward_refuses_head_dims(d):
     with pytest.raises(ValueError, match="head dim"):
         fa.plan_backward(1, 2, 2, 8, 8, d, torch.float32)

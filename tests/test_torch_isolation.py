@@ -73,7 +73,8 @@ COPIES = [
     "core/graph.py", "models/config.py", "configs/qwen2_0_5b.py",
     "configs/mixtral_8x7b.py", "configs/rwkv6_1_6b.py",
     "configs/llama3_2_1b.py", "configs/smollm_135m.py",
-    "configs/deepseek_v3_671b.py",
+    "configs/deepseek_v3_671b.py", "configs/gemma3_1b.py",
+    "configs/recurrentgemma_2b.py",
     # The analysis package's HLO parsers.
     "analysis/hlo.py", "analysis/hlo_cost.py", "analysis/__init__.py",
     # The training loop's health monitors.
@@ -114,5 +115,17 @@ def test_registry_holds_ported_architectures_only():
     assert configs.get_smoke("smollm_135m").dtype == "float32"
     assert configs.get("deepseek-v3-671b").n_dense_layers == 3
     assert configs.get_smoke("deepseek_v3_671b").mla
+    gemma = configs.get("gemma3-1b")
+    assert (gemma.n_groups, gemma.pattern, gemma.tail, gemma.window,
+            gemma.head_dim, gemma.mlp_act) == (
+        4, ("attn_local",) * 5 + ("attn",), ("attn_local", "attn_local"),
+        512, 256, "gelu")
+    assert configs.get_smoke("gemma3_1b").window == 8
+    rg = configs.get("recurrentgemma-2b")
+    assert (rg.n_groups, rg.pattern, rg.tail, rg.lru_width, rg.conv_width,
+            rg.window, rg.head_dim, rg.mlp_act) == (
+        8, ("rglru", "rglru", "attn_local"), ("rglru", "rglru"), 2560, 4,
+        2048, 256, "gelu")
+    assert configs.get_smoke("recurrentgemma_2b").lru_width == 64
     with pytest.raises(KeyError, match="not yet ported"):
-        configs.get("gemma3-1b")
+        configs.get("musicgen-large")

@@ -160,6 +160,12 @@ def test_moe_gemm_backward_plan(shape, dtype, aligned, expect):
     ((4, 14, 2, 1, 128, 64), BF16, False, ("simt", 1, 1)),  # unaligned
     # 65536 row tiles: more than the grid's y axis holds
     ((1, 64, 1, 65536, 65536, 64), BF16, True, ("simt", 524288, 1)),
+    # gemma3-1b's train shape (4/1 heads of 256) and decode (4 slots),
+    # recurrentgemma-2b's (10/1 heads of 256): D 256 stays on simt
+    ((2, 4, 1, 2048, 2048, 256), BF16, True, ("simt", 1024, 1)),
+    ((4, 4, 1, 1, 512, 256), BF16, True, ("simt", 1, 1)),
+    ((1, 10, 1, 2048, 2048, 256), BF16, True, ("simt", 2560, 1)),
+    ((4, 10, 1, 1, 1024, 256), BF16, True, ("simt", 2, 1)),
 ])
 def test_flash_plan(shape, dtype, aligned, expect):
     p = fa.plan(*shape, dtype, aligned=aligned)
@@ -269,3 +275,48 @@ def test_split_kv_main_path_plan_matches_one_block():
     torch.testing.assert_close(out, ref.flash_reference(q, k, v,
                                                         kv_len=kv_len),
                                **SPLIT_TOL)
+
+
+@pytest.mark.parametrize("shape,dtype,dp,grid_dkdv,grid_dq", [
+    ((2, 4, 1, 2048, 2048, 256), BF16, 256, (64, 2), (64, 8)),   # gemma3
+    ((1, 10, 1, 2048, 2048, 256), BF16, 256, (64, 1), (64, 10)),  # rg-2b
+    ((2, 4, 1, 2048, 2048, 256), F32, 256, (64, 2), (64, 8)),
+    ((1, 2, 1, 40, 40, 200), BF16, 256, (2, 1), (2, 2)),   # padded to 256
+])
+def test_flash_backward_plan_at_head_dim_256(shape, dtype, dp, grid_dkdv,
+                                             grid_dq):
+    """D 256 trains on the CUDA-core backward: 32-key and 32-row tiles
+    over the head dim padded to 256, D per query row as its scratch."""
+    p = fa.plan_backward(*shape, dtype)
+    b, hq, _, sq = shape[:4]
+    assert (p["variant"], p["block"], p["step"], p["dp"]) == (
+        "simt", 32, 32, dp)
+    assert (p["grid_dkdv"], p["grid_dq"]) == (grid_dkdv, grid_dq)
+    assert p["scratch_floats"] == b * hq * sq and not p["split_heads"]
+
+
+@pytest.mark.parametrize("sq,skv,window", [(2048, 2048, 512),
+                                           (2048, 2048, 2048),
+                                           (100, 600, 512)])
+def test_backward_ranges_are_exact_under_a_window(sq, skv, window):
+    """gemma3's local layers (window 512) and recurrentgemma's (2048): for
+    every 32-key tile the query range of ``bwd_query_range`` runs from the
+    first query that sees a key of the tile to the last, and for every
+    32-row tile ``bwd_key_range`` from the first visible key to the last,
+    so the simt kernel walks no tile that sees nothing."""
+    i = np.arange(sq)[:, None] + (skv - sq)
+    j = np.arange(skv)[None, :]
+    vis = (j <= i) & (i - j < window)
+    for j0 in range(0, skv, 32):
+        n = min(32, skv - j0)
+        rows = np.nonzero(vis[:, j0:j0 + n].any(1))[0]
+        lo, hi = fa.bwd_query_range(j0, n, sq, skv, True, window)
+        if len(rows):
+            assert (lo, hi) == (rows[0], rows[-1] + 1), j0
+        else:             # keys no query sees: an empty walk
+            assert hi <= lo, j0
+    for i0 in range(0, sq, 32):
+        n = min(32, sq - i0)
+        keys = np.nonzero(vis[i0:i0 + n].any(0))[0]
+        assert fa.bwd_key_range(i0, n, sq, skv, True, window) == (
+            keys[0], keys[-1] + 1), i0

@@ -235,13 +235,31 @@ def test_prepare_params_casts_once(cfg, params):
 
 
 def test_unsupported_configs_raise():
-    """What stays unported: mixed block patterns, a tail stack and
-    codebook embeddings (MLA, shared experts and leading dense layers are
-    ported: ``tests/test_torch_deepseek.py``)."""
+    """What stays unported: codebook embeddings, cross attention and
+    attention-logit soft-capping (mixed patterns and a tail stack are
+    ported: ``test_mixed_pattern_and_tail_stack``)."""
     base = configs.get_smoke(ARCH)
     for change, match in [
-            (dict(pattern=("attn_local", "attn"), n_layers=4), "pattern"),
-            (dict(tail=("attn",), n_layers=3), "tail"),
-            (dict(n_codebooks=4), "n_codebooks")]:
+            (dict(n_codebooks=4), "n_codebooks"),
+            (dict(cross_attn_tokens=16, cross_attn_dim=32), "cross_attn"),
+            (dict(logit_softcap=50.0), "logit_softcap")]:
         with pytest.raises(NotImplementedError, match=match):
             M.param_defs(base.replace(**change))
+
+
+@pytest.mark.parametrize("change,stacks", [
+    (dict(pattern=("attn_local", "attn"), n_layers=4), {"groups": 2}),
+    (dict(tail=("attn",), n_layers=3), {"groups": 2, "tail": 1}),
+    (dict(pattern=("attn", "rglru"), tail=("rglru",), n_layers=5,
+          lru_width=32), {"groups": 2, "tail": 1}),
+])
+def test_mixed_pattern_and_tail_stack(change, stacks):
+    """Groups that mix block kinds and a one-group ``tail`` stack: each
+    stack's leaves lead with its group count, and the forward runs."""
+    cfg = configs.get_smoke(ARCH).replace(**change)
+    defs = M.param_defs(cfg)
+    assert {s: defs[s]["slot0"]["norm1"]["scale"].shape[0]
+            for s in ("groups", "tail") if s in defs} == stacks
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    out = M.forward(cfg, params, torch.zeros(1, 4, dtype=torch.int32))
+    assert out.shape == (1, 4, cfg.vocab) and torch.isfinite(out).all()
