@@ -25,12 +25,13 @@ Phases; any failure exits non-zero before the last line is printed:
    backward (``csrc/flash_attention_bwd.cu``): a forward that saves the
    LSE, held to ``flash_reference_lse``, then dq/dk/dv against
    ``flash_backward_reference`` on the same output and LSE, f32 (``simt``)
-   and bf16 (``wgmma`` where planned, at D 64, with the earlier ``mma``
-   design forced beside it, and ``simt``), GQA 14/2 and 32/8, ragged
-   lengths, a window, the train shapes of qwen2 ``[4,14,2048,64]``,
-   llama3.2-1b ``[4,32,2048,64]`` (kv 8 heads, G = 4) and smollm-135m
-   ``[8,9,1024,64]`` (kv 3 heads, G = 3), and a second call's bits on every
-   variant.  The grouped GEMM's backward (``moe_gemm_bwd``: dX and dW, on
+   and bf16 (``wgmma`` as planned, at D 64, 128 and 256, with the earlier
+   ``mma`` design forced beside it at D 64, and ``simt``), GQA 14/2 and
+   32/8, ragged lengths, a window, the train shapes of qwen2
+   ``[4,14,2048,64]``, llama3.2-1b ``[4,32,2048,64]`` (kv 8 heads, G = 4),
+   smollm-135m ``[8,9,1024,64]`` (kv 3 heads, G = 3) and mixtral-8x7b
+   ``[2,32,2048,128]`` (kv 8 heads of 128, ``FLASH_MIXTRAL``, timed beside
+   ``simt`` and SDPA), and a second call's bits on every variant.  The grouped GEMM's backward (``moe_gemm_bwd``: dX and dW, on
    ``wgmma`` reading w, x and dY in place) against autograd through the
    plain version, each gradient within 1e-4 (f32, ``simt``) or 3e-2 (bf16)
    of its largest magnitude, and a second call's bits, on the sweep and at
@@ -170,8 +171,8 @@ Phases; any failure exits non-zero before the last line is printed:
     leaf within 1e-3) and with bf16 activations (within the plain path's own
     bf16-against-f32 distance).  (b) 3 AdamW steps (f32 parameters, bf16
     activations): launches a step per variant (grouped GEMMs 3 + 6 a layer,
-    all ``wgmma``; flash forward on ``wgmma``, its D 128 backward on
-    ``simt``), losses, ``max_memory_allocated``; then one step's wall,
+    flash forward and its D 128 backward, all ``wgmma``), losses,
+    ``max_memory_allocated``; then one step's wall,
     device busy, idle share, tokens/s and the kernels' device time inside
     it; one loss-and-grads call at phase 3's 4 layers (finite gradients,
     launches, peak).  (c) ``core.autotune`` on phase 8's MLP (traced on fake tensors):
@@ -188,9 +189,11 @@ Phases; any failure exits non-zero before the last line is printed:
 12. gemma3-1b and recurrentgemma-2b (its own wall time printed): mixed
     layer patterns (five sliding-window layers to one global; two RG-LRU
     layers to one windowed), a two-layer tail stack, GeGLU and head dim
-    256, whose flash forward and backward run on ``simt`` (phase 2 holds
-    both at the train shapes, ``FLASH_D256``, and the forward at the decode
-    shapes, ``D256_DECODE``, and times them beside SDPA on the same call).
+    256, whose bf16 flash forward and backward run on ``wgmma`` (two
+    consumer warpgroups a block; phase 2 holds both at the train shapes,
+    ``FLASH_D256``, and the forward at the decode shapes, ``D256_DECODE``,
+    and times them beside ``simt``, their previous design, and SDPA on the
+    same call).
     Per model: (a) the smoke config on the card against the CPU, logits at
     S 16 and 2048 and 8 requests served under phase 10's admission flags;
     (b) full width cut to one group and the tail: loss and every gradient
@@ -199,9 +202,9 @@ Phases; any failure exits non-zero before the last line is printed:
     600-999 behind 1024 rows (past gemma3's 512-row ring); (c) the train
     launcher's loop (remat dtr, AdamW, batch 2 x 2048, 3 steps) at full
     depth (recurrentgemma at 8 layers): flash launches per step by variant,
-    all ``simt``, finite losses, step wall, device busy, idle share,
+    all ``wgmma``, finite losses, step wall, device busy, idle share,
     tokens/s and peak; (d) the full-depth model serves 8 requests over 4
-    slots, 16 tokens each, every flash launch on ``simt``, and one decode
+    slots, 16 tokens each, every flash launch on ``wgmma``, and one decode
     step's wall and busy.
 
 Phase 4 also holds layer 0 alone in bf16 (attention output, MLP or MoE
@@ -212,8 +215,9 @@ next, then phase 11 (MoE training and deepseek-v3), phase 12, the eager
 executor, the planner, phase 9 and phase 10.  Then
 the JSON line of phase 9's rows, phase 11's and phase 12's JSON lines, one
 JSON line per kernel table (the flash rows with each train shape's
-launches, times, bound and SDPA's time, and at head dim 256 under
-``d256_shapes``; the grouped GEMM's rows at phase 11's shapes, and its
+launches, times, bound and SDPA's time, at head dim 256 under
+``d256_shapes`` and at mixtral's under ``d128_shapes``, each with its
+``simt`` time as ``previous_ms``; the grouped GEMM's rows at phase 11's shapes, and its
 backward's), the card line, and ``{"ok": true, "device": {...}}`` as the
 last line.
 """
@@ -336,6 +340,10 @@ GEMM_BWD_REL = {"float32": 1e-4, "bfloat16": 3e-2}
 GEMM_STEP_KERNELS = ("moe_gemm_wgmma_kernel",)
 FLASH_SIMT_BWD_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
                           "flash_bwd_dq_kernel")
+# mixtral-8x7b's flash shape in phase 11's train step, batch 2 x 2048, 32/8
+# heads of 128: held in phase 2 like the cases above and timed there beside
+# the CUDA-core variants and SDPA.
+FLASH_MIXTRAL = {"mixtral-8x7b": (2, 32, 8, 2048, 2048, 128, True, 0)}
 RWKV_ARCH = "rwkv6-1.6b"
 # Phase 12: gemma3-1b and recurrentgemma-2b at full width, batch 2 x 2048.
 # 12b cuts each to one group and the tail (8 and 5 layers); 12c trains
@@ -449,12 +457,14 @@ LSE_TOL = 1e-4
 QWEN_BATCH, QWEN_SEQ = 4, 2048
 QWEN_PARITY_LAYERS = 2
 QWEN_REMATS = ("none", "full", "dots", "dtr")
-# The kernels one bf16 flash call launches, by the profiler's names.
+# The kernels one bf16 flash call launches, by the start of the profiler's
+# names: the backward's tile kernels are ``..._wgmma_kernel`` (one
+# warpgroup, D 64) or ``..._wg2_kernel<DP>`` (two, D 128 and 256).
 FLASH_STEP_KERNELS = {"flash_attention": ("flash_wgmma_kernel",),
                       "flash_attention_bwd": ("flash_bwd_rowstat_kernel",
-                                              "flash_bwd_dkdv_wgmma_kernel",
+                                              "flash_bwd_dkdv_wg",
                                               "flash_bwd_reduce_kernel",
-                                              "flash_bwd_dq_wgmma_kernel")}
+                                              "flash_bwd_dq_wg")}
 # The kernels of the `mma` backward, the design before `wgmma`, timed beside
 # it at the train shape.
 FLASH_MMA_BWD_KERNELS = ("flash_bwd_delta_kernel",
@@ -1570,9 +1580,10 @@ def flash_train_times(torch, card, gen, shapes=None, fresh=False) -> dict:
     their planned variants, beside their bounds, their plain versions and
     SDPA's forward and backward on the same call (timed apart; a windowed
     call with an explicit boolean mask); at qwen2's shape also the
-    backward's earlier designs, ``mma`` and ``simt``.  ``fresh``: each
-    shape draws from a generator of its own.  Returns the rows by
-    name."""
+    backward's earlier designs, ``mma`` and ``simt``; at head dims 128 and
+    256 the forward's and the backward's earlier design, ``simt``, on the
+    same inputs.  ``fresh``: each shape draws from a generator of its own.
+    Returns the rows by name."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -1593,23 +1604,30 @@ def flash_train_times(torch, card, gen, shapes=None, fresh=False) -> dict:
         lib_out = F.scaled_dot_product_attention(*xs, enable_gqa=True,
                                                  **lib_kw)
         variant = fa.plan_backward(*case[:6], torch.bfloat16)["variant"]
+        require(variant == "wgmma" and fa.plan(
+            *case[:6], torch.bfloat16, save_lse=True)["variant"] == "wgmma",
+            f"{arch}'s train forward and backward planned on wgmma")
+
+        def fwd_call():
+            return fa._forward(q, k, v, True, window, None, save_lse=True)
+
         fwd = time_row(torch, (
-            ("ms", lambda: fa._forward(q, k, v, True, window, None,
-                                       save_lse=True)),
+            ("ms", fwd_call),
+            *((("simt_ms", fwd_call),) if d != 64 else ()),
             ("plain_ms", lambda: ref.flash_reference_lse(
                 q, k, v, causal=True, window=window)),
             ("library_ms", lambda: F.scaled_dot_product_attention(
                 q, k, v, enable_gqa=True, **lib_kw))), 10,
             attention_bound_ms(shape, True, 2, "bfloat16", window),
             f"flash_attention train forward, {arch} {list(case[:6])} window "
-            f"{window} bf16, saving the LSE (library: SDPA forward)", card,
-            {"ms": 1})
+            f"{window} bf16, saving the LSE (library: SDPA forward"
+            f"{'; simt_ms: the previous design' if d != 64 else ''})", card,
+            {"ms": 1, "simt_ms": 1})
         bwd = (lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
                                               causal=True, window=window))
-        require(variant == ("wgmma" if d == 64 else "simt"),
-                f"{arch}'s train backward planned on {variant}")
         earlier = ((("mma_ms", bwd), ("simt_ms", bwd))
-                   if case == FLASH_TRAIN else ())
+                   if case == FLASH_TRAIN else
+                   (("simt_ms", bwd),) if d != 64 else ())
         rows[arch] = {"fwd": fwd, "bwd": time_row(torch, (
             ("ms", bwd), *earlier,
             ("plain_ms", lambda: ref.flash_backward_reference(
@@ -1619,13 +1637,13 @@ def flash_train_times(torch, card, gen, shapes=None, fresh=False) -> dict:
             flash_bwd_bound_ms(case, 2),
             f"flash_attention_bwd, {arch} {list(case[:6])} window {window} "
             f"bf16 (ms: {variant}"
-            f"{'; mma_ms: the previous design' if earlier else ''}; "
+            f"{'; mma_ms: the previous design' if case == FLASH_TRAIN else ''}"
+            f"{'; simt_ms: the previous design' if d != 64 else ''}; "
             f"library: SDPA's backward alone)", card,
-            {"ms": 4 if variant == "wgmma" else 3, "mma_ms": 3,
-             "simt_ms": 3},
-            {"ms": FLASH_STEP_KERNELS["flash_attention_bwd"]
-             if variant == "wgmma" else FLASH_SIMT_BWD_KERNELS,
-             "mma_ms": FLASH_MMA_BWD_KERNELS})}
+            {"ms": 4, "mma_ms": 3, "simt_ms": 3},
+            {"ms": FLASH_STEP_KERNELS["flash_attention_bwd"],
+             "mma_ms": FLASH_MMA_BWD_KERNELS,
+             "simt_ms": FLASH_SIMT_BWD_KERNELS})}
         del q, k, v, do, out, lse, xs, lib_out
         gc.collect()
         torch.cuda.empty_cache()
@@ -1650,10 +1668,11 @@ def d256_kernel_checks(torch, gen) -> dict:
             q, k, v, kv_len = inputs(torch, shape, dtype,
                                      own_gen(torch, what, gen, (what,)))
             kw = dict(causal=True, kv_len=kv_len)
+            want = "wgmma" if dtype == torch.bfloat16 else "simt"
             require(fa.plan(*(shape[n] for n in ("b", "hq", "hkv", "sq",
                                                   "skv", "d")),
-                            dtype)["variant"] == "simt",
-                    f"{what} planned on simt")
+                            dtype)["variant"] == want,
+                    f"{what} planned on {want}")
             err = compare(torch, fa.flash_attention, ref.flash_reference,
                           (q, k, v), kw, TOL[dtype_name],
                           f"{dtype_name} {what} {shape}")
@@ -1677,8 +1696,9 @@ def _window_mask(torch, sq, skv, window):
 
 def flash_decode_d256_times(torch, card, gen) -> dict:
     """Phase 5 for the flash forward at each decode shape of
-    ``D256_DECODE`` (``simt``), beside the bound, the plain version and
-    SDPA with ``kv_len`` as its mask.  Returns the rows by shape name."""
+    ``D256_DECODE`` (``wgmma``), beside its previous design (``simt``) on
+    the same inputs, the bound, the plain version and SDPA with ``kv_len``
+    as its mask.  Returns the rows by shape name."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -1691,11 +1711,13 @@ def flash_decode_d256_times(torch, card, gen) -> dict:
                 < kv_len[:, None])[:, None, None, :]
         rows[what] = {"fwd": time_row(torch, (
             ("ms", lambda: fa.flash_attention(q, k, v, **kw)),
+            ("simt_ms", lambda: fa.flash_attention(q, k, v, **kw)),
             ("plain_ms", lambda: ref.flash_reference(q, k, v, **kw)),
             ("library_ms", lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=keep, enable_gqa=True))), 100,
             attention_bound_ms(shape, True, 2, "bfloat16"),
-            f"flash_attention, {what} {shape} bf16, simt", card)}
+            f"flash_attention, {what} {shape} bf16, wgmma (simt_ms: the "
+            f"previous design)", card)}
         del q, k, v, kv_len, keep
     return rows
 
@@ -3089,15 +3111,16 @@ def gemm_train_times(torch, card, gen) -> dict:
 def require_moe_step(n, v, cfg, dtype, what) -> None:
     """One MoE loss-and-grads call's launches: the forward's three grouped
     GEMMs and the backward's six a MoE layer, one flash forward and
-    backward an attention layer, bf16 grouped GEMMs all on ``wgmma`` (f32
-    on ``simt``)."""
+    backward an attention layer, bf16 all on ``wgmma`` (f32 on
+    ``simt``)."""
     moe = cfg.n_groups
     attn = 0 if cfg.mla else cfg.n_layers
     want = "wgmma" if dtype == "bfloat16" else "simt"
     require(n["moe_gemm"] == 3 * moe and n["moe_gemm_bwd"] == 6 * moe
             and n["flash_attention"] == n["flash_attention_bwd"] == attn,
             f"{what}: launches {n}")
-    for name in ("moe_gemm", "moe_gemm_bwd"):
+    for name in ("moe_gemm", "moe_gemm_bwd", "flash_attention",
+                 "flash_attention_bwd"):
         require(v[name][want] == n[name], f"{what}: {name} off {want} "
                 f"{v[name]}")
 
@@ -3173,8 +3196,6 @@ def moe_train_phase(torch, card) -> dict:
     peak = torch.cuda.max_memory_allocated()
     for n, v in per_step:
         require_moe_step(n, v, cut, "bfloat16", "phase 11b")
-        require(v["flash_attention"]["wgmma"] == cut.n_layers,
-                f"phase 11b flash forward off wgmma {v}")
     print(f"phase 11b: {MOE_ARCH} ({cut.n_layers} layers) AdamW, bf16 "
           f"activations, f32 parameters, batch {MIX_BATCH}x{MIX_SEQ}: losses "
           f"{losses}, step ms {[round(t, 1) for t in walls]}, launches per "
@@ -3194,8 +3215,8 @@ def moe_train_phase(torch, card) -> dict:
                                      9 * cut.n_groups),
              "flash_attention": (FLASH_STEP_KERNELS["flash_attention"],
                                  cut.n_layers),
-             "flash_attention_bwd (simt)": (FLASH_SIMT_BWD_KERNELS,
-                                            cut.n_layers)}
+             "flash_attention_bwd": (
+                 FLASH_STEP_KERNELS["flash_attention_bwd"], cut.n_layers)}
     # The per-launch times below divide each name's sum by its launches:
     # only a session that recorded every one of them is read.
     names = {}
@@ -3561,9 +3582,10 @@ def gemma_parity_phase(torch, arch, gen) -> dict:
         require(math.isfinite(float(loss)), f"finite {dtype} loss")
         if not plain:
             n, v = read_launches(), read_variants()
+            on = "wgmma" if dtype == "bfloat16" else "simt"
             require(n["flash_attention"] == n["flash_attention_bwd"]
-                    == n_attn and v["flash_attention"]["simt"] == n_attn
-                    and v["flash_attention_bwd"]["simt"] == n_attn,
+                    == n_attn and v["flash_attention"][on] == n_attn
+                    and v["flash_attention_bwd"][on] == n_attn,
                     f"12b {arch} {dtype} launches {n} {v}")
         return float(loss), grads
 
@@ -3582,7 +3604,7 @@ def gemma_parity_phase(torch, arch, gen) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    want = {"float32": "simt", "bfloat16": "simt"}
+    want = {"float32": "simt", "bfloat16": "wgmma"}
     pos = torch.tensor(D256_POS, dtype=torch.int32, device="cuda")
     base, tok = decode_inputs(torch, cut, len(D256_POS), D256_MAX_LEN, gen)
     k32 = decode_logits(torch, cut, params, base, tok, pos, "float32",
@@ -3626,7 +3648,7 @@ def gemma_train_phase(torch, card, arch) -> dict:
     """Phase 12c: the train launcher's loop (its defaults: remat dtr,
     AdamW) at batch 2 x 2048, 3 steps, depth ``GEMMA_TRAIN_LAYERS``: each
     step's flash launches per variant (forward twice an attention layer,
-    backward once, all on ``simt``), finite losses, the step's wall (the
+    backward once, all on ``wgmma``), finite losses, the step's wall (the
     loop's), device busy and idle share (one more step, profiled),
     tokens/s, ``max_memory_allocated``.  Returns the launches, in all and
     by attention kind, and the step's numbers."""
@@ -3657,8 +3679,8 @@ def gemma_train_phase(torch, card, arch) -> dict:
     for counts, variants in per_step:
         fwd, bwd = (variants["flash_attention"],
                     variants["flash_attention_bwd"])
-        require(counts["flash_attention"] == fwd["simt"] == 2 * n_attn
-                and counts["flash_attention_bwd"] == bwd["simt"] == n_attn,
+        require(counts["flash_attention"] == fwd["wgmma"] == 2 * n_attn
+                and counts["flash_attention_bwd"] == bwd["wgmma"] == n_attn,
                 f"12c {arch}: flash launches per step {counts} {variants}")
     require(all(math.isfinite(x) for x in res.losses)
             and res.actions == ["ok"] * GEMMA_STEPS, f"12c {arch} finite")
@@ -3698,7 +3720,7 @@ def gemma_train_phase(torch, card, arch) -> dict:
 def gemma_serve_phase(torch, card, arch) -> dict:
     """Phase 12d: the full-depth model serves 8 requests over 4 slots, 16
     tokens each, bf16, at ``--max-len D256_MAX_LEN``: 8/8 served, flash
-    launches once an attention layer and step, all on ``simt`` (D 256);
+    launches once an attention layer and step, all on ``wgmma`` (D 256);
     the loop's ms/step; one decode step's wall and device busy."""
     from repro_torch import configs
     from repro_torch.launch import serve
@@ -3721,7 +3743,7 @@ def gemma_serve_phase(torch, card, arch) -> dict:
                     for t in res.completed.values()),
             f"12d {arch}: served {sorted(res.completed)}")
     fwd = variants["flash_attention"]
-    require(launches["flash_attention"] == fwd["simt"]
+    require(launches["flash_attention"] == fwd["wgmma"]
             == res.steps * n_attn, f"12d {arch} launches {launches} "
             f"{variants} for {res.steps} steps x {n_attn}")
     prepared = M.prepare_params(cfg, params)
@@ -3830,6 +3852,11 @@ def main() -> int:
     d256_err = d256_kernel_checks(torch, gen)
     d256_times = {**flash_train_times(torch, card, gen, FLASH_D256, True),
                   **flash_decode_d256_times(torch, card, gen)}
+    mix_flash_err = flash_bwd_checks(
+        torch, gen, list(FLASH_MIXTRAL.values()), FLASH_MIXTRAL,
+        tuple(str(c) for c in FLASH_MIXTRAL.values()))
+    mix_flash_times = flash_train_times(torch, card, gen, FLASH_MIXTRAL,
+                                        True)
 
     print("phase 2: moe_gemm against moe_gemm_reference")
     gemm_errs = {}
@@ -3993,6 +4020,20 @@ def main() -> int:
                       "deepseek": deepseek}, allow_nan=False))
     print(json.dumps({"gemma": gemma}, allow_nan=False))
 
+    def flash_row(direction, row, shape, extra, launches, err):
+        """One flash row at head dim 128 or 256: shape, launches, error
+        and times, with ``simt``'s (and its passes) as the previous
+        design's."""
+        if direction == "bwd":
+            extra = dict(extra, passes_ms=row["ms_passes"],
+                         previous_passes_ms=row["simt_ms_passes"])
+        return {"shape": shape, **extra, "launches": launches,
+                "max_abs_err": err,
+                **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms",
+                                       "library_kernel")},
+                "previous_ms": row["simt_ms"]}
+
     def d256_rows(direction):
         """The flash rows at head dim 256: each train shape's launches in
         phase 12c's loop (its attention kind's share; recurrentgemma's loop
@@ -4017,15 +4058,22 @@ def main() -> int:
                 launches = ((2 if direction == "fwd" else 1) * GEMMA_STEPS
                             * run["kinds"].get(kind, 0))
                 shape, extra = list(case[:6]), {"window": case[7]}
-            row = d256_times[what][direction]
-            if direction == "bwd":
-                extra["passes_ms"] = row["ms_passes"]
-            out[what] = {"shape": shape, **extra, "launches": launches,
-                         "max_abs_err": d256_err[what][direction],
-                         **{k: row[k] for k in (
-                             "ms", "plain_ms", "bound_ms", "bound_by",
-                             "library_ms", "library_kernel")}}
+            out[what] = flash_row(direction, d256_times[what][direction],
+                                  shape, extra, launches,
+                                  d256_err[what][direction])
         return out
+
+    def d128_rows(direction):
+        """The flash rows at mixtral's train shape: launches in phase
+        11b's AdamW steps (the last step's count, which every step
+        matched, times the steps)."""
+        kernel = ("flash_attention" if direction == "fwd"
+                  else "flash_attention_bwd")
+        return {arch: flash_row(direction, mix_flash_times[arch][direction],
+                                list(case[:6]), {},
+                                MIX_STEPS * mix["launches"][kernel],
+                                mix_flash_err[arch][direction])
+                for arch, case in FLASH_MIXTRAL.items()}
 
     def gemm_shape_rows(launches_by, bwd):
         """The phase-11 rows of the forward (``bwd`` False) or backward,
@@ -4067,7 +4115,7 @@ def main() -> int:
         "train_bound_by": tf["bound_by"],
         "train_library_ms": tf["library_ms"],
         "train_shapes": shapes("flash_attention", "fwd"),
-        "d256_shapes": d256_rows("fwd")}, {
+        "d256_shapes": d256_rows("fwd"), "d128_shapes": d128_rows("fwd")}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "variant": ran_variant(qwen_train["variants"]),
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -4085,7 +4133,7 @@ def main() -> int:
         "previous_passes_ms": tb["mma_ms_passes"],
         "simt_ms": tb["simt_ms"],
         "train_shapes": shapes("flash_attention_bwd", "bwd"),
-        "d256_shapes": d256_rows("bwd")}, {
+        "d256_shapes": d256_rows("bwd"), "d128_shapes": d128_rows("bwd")}, {
         "name": "moe_gemm", "route": "cuda",
         "variant": ran_variant(moe_variants["moe_gemm"]),
         "source": "src/repro_torch/kernels/csrc/moe_gemm.cu",

@@ -29,12 +29,20 @@
 // wrapper's plan before the launch; the C entry point refuses a variant it
 // cannot take, and nothing falls back.
 //
-// `wgmma` (bf16, D in {32, 64, 128}, 16-byte-aligned bases).  What bounds
-// it: decode reads a few hundred KB of K/V (microseconds at 3.35 TB/s) and
-// is bound by latency on a grid of B * Hkv blocks; prefill is bound by the
-// tensor cores.  The design: a block is one consumer warpgroup that owns 64
-// query rows and one producer warp; the heaviest causal row tiles start
-// first.  Q is staged once, zero-padded, in 128-byte-swizzled shared
+// `wgmma` (bf16, D in {32, 64, 128, 256}, 16-byte-aligned bases).  What
+// bounds it: decode reads a few hundred KB of K/V (microseconds at 3.35
+// TB/s) and is bound by latency on a grid of B * Hkv blocks; prefill and
+// training are bound by the tensor cores.  The design: a block is one
+// consumer warpgroup that owns 64 query rows and one producer warp; the
+// heaviest causal row tiles start first.  At D 256 a block of more than 64
+// rows' work (gemma3-1b's and recurrentgemma-2b's train and prefill calls)
+// is two consumer warpgroups of 64 rows each, 128 a block, as FA3 has it:
+// they share every K/V tile (Q 64 KiB, a stage of K and V 64 KiB, two
+// stages: 193 KiB of shared memory), each holds its 64 x 256 f32 output in
+// registers (128 a thread, 237 in all, no spill), thread 0 issues the
+// copies, a consumer skips the tiles its own rows cannot see, and the ring
+// refills a stage once both have released it; decode at D 256 (4 or 10
+// rows) keeps the one-warpgroup block and the split keys.  Q is staged once, zero-padded, in 128-byte-swizzled shared
 // memory; one producer thread streams 64-key K and V tiles by TMA into a
 // two-stage ring guarded by mbarriers (TMA fills keys past Skv, and head
 // dims past D = 32, with zeros).  S = Q K^T is one m64n64 wgmma chain from
@@ -43,7 +51,8 @@
 // over the four threads that hold it; tiles that every row sees whole skip
 // the mask); P is rounded to bf16, as the Pallas kernel rounds it to v's
 // dtype before P.V, and O += P V is a wgmma with P as the register A
-// operand and V (D-contiguous) as the MN-major B operand.  V rows between
+// operand and V (D-contiguous) as the MN-major B operand (m64n256k16 at D
+// 256).  V rows between
 // kv_len and Skv are zeroed in shared memory, since 0 x junk is NaN.  When
 // B * Hkv * (row tiles) is far below the 132 SMs, the plan splits the key
 // range over blocks (flash-decoding): each block writes f32 partials (row
@@ -60,8 +69,10 @@
 // (no TF32, which would change the f32 function); P stays f32.
 //
 // Not yet: a persistent schedule, warp specialisation with setmaxnreg,
-// overlap of one tile's softmax with the next tile's wgmma, strided K/V
-// reads (the model layout still needs three copies before the call).
+// overlap of one tile's softmax with the next tile's wgmma (at D 256 the
+// two consumers overlap only as the scheduler interleaves them; no
+// ping-pong barriers), strided K/V reads (the model layout still needs
+// three copies before the call).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -271,17 +282,38 @@ constexpr int FW_CHUNK = FW_BKV * hopper::ROW_BYTES;  // 64 rows x 64 columns
 constexpr double LOG2E = 1.4426950408889634;
 constexpr double LN2 = 0.6931471805599453;
 
-constexpr int FW_THREADS = 128 + 32;  // one consumer warpgroup, a producer
-
-// DP: the head dim padded to whole 64-column chunks.
-template <int DP>
+// DP: the head dim padded to whole 64-column chunks.  NC: the consumer
+// warpgroups of a block, each owning 64 query rows.  One consumer has a
+// producer warp beside it; with two, thread 0 issues the copies, as a
+// producer warp would make the block 288 threads and ptxas then caps a
+// thread at 168 registers, below the 64 x 256 f32 output's 128 and S's 32.
+template <int DP, int NC>
 struct FlashTile {
   static constexpr int CHUNKS = DP / 64;
-  static constexpr int TILE = CHUNKS * FW_CHUNK;     // Q (64 rows), K or V
+  static constexpr int TILE = CHUNKS * FW_CHUNK;     // 64 rows of Q, K or V
   static constexpr int STAGE = 2 * TILE;             // K, then V
-  static constexpr int SMEM = TILE + FW_STAGES * STAGE + 2 * FW_STAGES * 8 +
-                              16 + 1024;
+  static constexpr int ROWS = NC * FW_BQ;            // query rows a block
+  static constexpr int CONSUMERS = NC * 128;
+  static constexpr bool PRODUCER_WARP = NC == 1;
+  static constexpr int THREADS = CONSUMERS + (PRODUCER_WARP ? 32 : 0);
+  static constexpr int SMEM = NC * TILE + FW_STAGES * STAGE +
+                              2 * FW_STAGES * 8 + 16 + 1024;
+  // Named barriers (0 is __syncthreads'): 1 + w holds consumer warpgroup w
+  // alone, BAR_ALL every consumer.  Every id is a constant, so ptxas
+  // reserves only these (an id computed from the thread index reserves all
+  // 16, and one consumer's block then held fewer blocks an SM).
+  static constexpr int BAR_ALL = NC == 1 ? 1 : 3;
 };
+
+// Consumer warpgroup wg alone.
+template <int NC>
+__device__ __forceinline__ void bar_consumer(int wg) {
+  if (NC == 1 || wg == 0) {
+    hopper::bar_sync(1, 128);
+  } else {
+    hopper::bar_sync(2, 128);
+  }
+}
 
 struct FlashArgs {
   const __nv_bfloat16* q;
@@ -295,16 +327,17 @@ struct FlashArgs {
   float scale_log2;           // 1/sqrt(D) * log2(e): softmax in base 2
 };
 
-template <int DP>
-__global__ void __launch_bounds__(FW_THREADS)
+template <int DP, int NC>
+__global__ void __launch_bounds__(FlashTile<DP, NC>::THREADS)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
                    const FlashArgs a) {
-  using Tile = FlashTile<DP>;
-  constexpr int BQ = FW_BQ;
+  using Tile = FlashTile<DP, NC>;
+  constexpr int BQ = Tile::ROWS;
+  constexpr int CONSUMERS = Tile::CONSUMERS;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* q_s = hopper::align_1024(smem_raw);
-  uint8_t* ring = q_s + Tile::TILE;
+  uint8_t* q_all = hopper::align_1024(smem_raw);
+  uint8_t* ring = q_all + NC * Tile::TILE;
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + FW_STAGES * Tile::STAGE);
   uint64_t* empty = full + FW_STAGES;
   int* last_flag = reinterpret_cast<int*>(empty + FW_STAGES);
@@ -340,43 +373,55 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
   if (threadIdx.x == 0) {
     for (int s = 0; s < FW_STAGES; ++s) {
       hopper::mbar_init(&full[s], 1);
-      hopper::mbar_init(&empty[s], 1);
+      hopper::mbar_init(&empty[s], NC);
     }
     hopper::fence_barrier_init();
   }
   __syncthreads();
 
-  if (threadIdx.x >= 128) {  // producer: one thread streams the K/V tiles
-    if (threadIdx.x == 128) {
-      int s = 0;
-      uint32_t phase = 0;
-      for (int t = t_begin; t < t_end; ++t) {
-        hopper::mbar_wait(&empty[s], phase ^ 1);
-        uint8_t* st = ring + s * Tile::STAGE;
-        hopper::mbar_expect_tx(&full[s], Tile::STAGE);
-        for (int c = 0; c < Tile::CHUNKS; ++c) {
-          hopper::tma_load_3d(st + c * FW_CHUNK, &kmap, &full[s], 64 * c,
-                              t * FW_BKV, bk);
-          hopper::tma_load_3d(st + Tile::TILE + c * FW_CHUNK, &vmap,
-                              &full[s], 64 * c, t * FW_BKV, bk);
-        }
-        if (++s == FW_STAGES) { s = 0; phase ^= 1; }
-      }
+  // K and V tile t into stage (t - t_begin) % FW_STAGES, once every
+  // consumer has released that stage's previous tile.
+  auto issue = [&](int t) {
+    const int n = t - t_begin;
+    const int st = n % FW_STAGES;
+    hopper::mbar_wait(&empty[st], ((n / FW_STAGES) & 1) ^ 1);
+    uint8_t* dst = ring + st * Tile::STAGE;
+    hopper::mbar_expect_tx(&full[st], Tile::STAGE);
+    for (int c = 0; c < Tile::CHUNKS; ++c) {
+      hopper::tma_load_3d(dst + c * FW_CHUNK, &kmap, &full[st], 64 * c,
+                          t * FW_BKV, bk);
+      hopper::tma_load_3d(dst + Tile::TILE + c * FW_CHUNK, &vmap, &full[st],
+                          64 * c, t * FW_BKV, bk);
     }
-    return;
+  };
+  if constexpr (Tile::PRODUCER_WARP) {
+    if (threadIdx.x >= CONSUMERS) {  // one thread streams every tile
+      if (threadIdx.x == CONSUMERS)
+        for (int t = t_begin; t < t_end; ++t) issue(t);
+      return;
+    }
+  } else {
+    if (threadIdx.x == 0)            // the first stages; the rest below
+      for (int t = t_begin; t < min(t_end, t_begin + FW_STAGES); ++t)
+        issue(t);
+    __syncwarp();
   }
 
-  // The consumer warpgroup.  Thread tid holds rows r and r + 8 of the
-  // tile's 64 (r = 16 warp + lane / 4), columns 8j + 2 (lane % 4) + {0, 1}.
-  const int tid = threadIdx.x;
+  // Consumer warpgroup wg owns the block's rows crow0 .. crow0 + 63.
+  // Thread tid holds rows r and r + 8 of them (r = 16 warp + lane / 4),
+  // columns 8j + 2 (lane % 4) + {0, 1}.
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
   const int lane = tid % 32;
   const int quad = lane % 4;
   const int kvh = bk % a.Hkv;
+  const int crow0 = row0 + wg * FW_BQ;
+  uint8_t* q_s = q_all + wg * Tile::TILE;
   // Q rows, zero past the live rows and past D, 128-byte swizzled.
   for (int idx = tid; idx < FW_BQ * DP / 8; idx += 128) {
     const int r = idx / (DP / 8);
     const int c = idx % (DP / 8);      // 16-byte chunk of the row
-    const int row = row0 + r;
+    const int row = crow0 + r;
     uint4 val = make_uint4(0, 0, 0, 0);
     if (row < rows && c * 8 < a.D) {
       const int h = kvh * group + row % group;
@@ -388,12 +433,25 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
                               (((c % 8) ^ (r % 8)) * 16)) = val;
   }
   hopper::fence_proxy_async();
-  hopper::bar_sync(1, 128);
+  bar_consumer<NC>(wg);
+
+  // Keys this warpgroup's rows can see: the block's tiles outside them
+  // give P = 0 in every row, so the warpgroup skips their products (the
+  // same bits: alpha is 1 and O, l do not change).
+  const bool live = crow0 < rows;
+  const int c_lo = crow0 / group;
+  const int c_hi = (min(crow0 + FW_BQ, rows) - 1) / group;
+  int c_end = live ? L : 0;
+  int c_begin = 0;
+  if (a.causal && live) {
+    c_end = max(0, min(L, c_hi + offs + 1));
+    if (a.window > 0) c_begin = max(0, c_lo + offs - a.window + 1);
+  }
 
   int qpos[2];
   const int r_own = 16 * (tid / 32) + lane / 4;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) qpos[h] = (row0 + r_own + 8 * h) / group + offs;
+  for (int h = 0; h < 2; ++h) qpos[h] = (crow0 + r_own + 8 * h) / group + offs;
 
   float o[DP / 2];
 #pragma unroll
@@ -407,91 +465,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
     uint8_t* k_s = ring + s * Tile::STAGE;
     uint8_t* v_s = k_s + Tile::TILE;
 
-    // S = Q K^T: both operands K-major, 16 head-dim columns a step.
-    float sc[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
-    hopper::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      const int off = (kk / 4) * FW_CHUNK + (kk % 4) * 32;
-      hopper::Wgmma<64>::template ss<0, 0>(
-          sc, hopper::smem_desc(q_s + off, 16, 1024),
-          hopper::smem_desc(k_s + off, 16, 1024), 1);
-    }
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(sc);
-
-    // Mask (only where some key of the tile is hidden from some row),
-    // scale in f32, online softmax in base 2.
-    const int key0 = t * FW_BKV + 2 * quad;
-    const int k_hi = t * FW_BKV + FW_BKV - 1;
-    const bool whole = k_hi < L &&
-        (!a.causal || (k_hi <= i_lo + offs &&
-                       (a.window == 0 || i_hi + offs - t * FW_BKV < a.window)));
-    float mx[2] = {-INFINITY, -INFINITY};
-    if (whole) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        sc[i] *= a.scale_log2;
-        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int h = e >> 1;
-          const int key = key0 + 8 * j + (e & 1);
-          bool vis = key < L;
-          if (a.causal) {
-            vis = vis && key <= qpos[h];
-            if (a.window > 0) vis = vis && qpos[h] - key < a.window;
-          }
-          sc[4 * j + e] = vis ? sc[4 * j + e] * a.scale_log2 : -INFINITY;
-          mx[h] = fmaxf(mx[h], sc[4 * j + e]);
-        }
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 2));
-      const float m_new = fmaxf(m[h], mx[h]);
-      // m_new = -inf: nothing visible yet, and p = 0 (never NaN).
-      alpha[h] = m_new == -INFINITY ? 1.f : exp2f(m[h] - m_new);
-      m[h] = m_new;
-    }
-    float row_sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int h = (i >> 1) & 1;
-      const float p = m[h] == -INFINITY ? 0.f : exp2f(sc[i] - m[h]);
-      sc[i] = p;
-      row_sum[h] += p;
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + row_sum[h];
-#pragma unroll
-    for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-    // P in bf16 as the A operand: keys 16 kt .. + 15 are sc[8 kt .. + 7].
-    uint32_t pa[FW_BKV / 16][4];
-#pragma unroll
-    for (int kt = 0; kt < FW_BKV / 16; ++kt)
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        pa[kt][u] = hopper::pack_bf16(sc[8 * kt + 2 * u],
-                                      sc[8 * kt + 2 * u + 1]);
-
     // V rows between kv_len and Skv hold data the mask hides; P is 0 there,
-    // and 0 x junk would be NaN, so they are zeroed (past Skv TMA did it).
+    // and 0 x junk would be NaN, so every consumer zeroes its share of them
+    // before any reads V (past Skv TMA did it).
     const int first_dead = L - t * FW_BKV;
     if (first_dead < FW_BKV && L < a.Skv) {
       const int r_lo = max(first_dead, 0);
-      for (int idx = tid; idx < (FW_BKV - r_lo) * Tile::CHUNKS * 8;
-           idx += 128) {
+      for (int idx = threadIdx.x; idx < (FW_BKV - r_lo) * Tile::CHUNKS * 8;
+           idx += CONSUMERS) {
         const int r = r_lo + idx / (Tile::CHUNKS * 8);
         const int c = idx % (Tile::CHUNKS * 8);
         *reinterpret_cast<uint4*>(v_s + (c / 8) * FW_CHUNK +
@@ -499,21 +480,107 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
             make_uint4(0, 0, 0, 0);
       }
       hopper::fence_proxy_async();
-      hopper::bar_sync(1, 128);
+      hopper::bar_sync(Tile::BAR_ALL, CONSUMERS);
     }
 
-    // O += P V: V is MN-major (D-contiguous), 16 keys a step.
-    hopper::wgmma_fence();
+    // (One consumer's range is the block's: nothing to skip.)
+    if (NC == 1 || (t * FW_BKV < c_end && (t + 1) * FW_BKV > c_begin)) {
+      // S = Q K^T: both operands K-major, 16 head-dim columns a step.
+      float sc[32];
 #pragma unroll
-    for (int kt = 0; kt < FW_BKV / 16; ++kt)
-      hopper::Wgmma<DP>::template rs<1>(
-          o, pa[kt],
-          hopper::smem_desc(v_s + kt * 16 * hopper::ROW_BYTES, FW_CHUNK,
-                            1024), 1);
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(o);
+      for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int off = (kk / 4) * FW_CHUNK + (kk % 4) * 32;
+        hopper::Wgmma<64>::template ss<0, 0>(
+            sc, hopper::smem_desc(q_s + off, 16, 1024),
+            hopper::smem_desc(k_s + off, 16, 1024), 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+
+      // Mask (only where some key of the tile is hidden from some row),
+      // scale in f32, online softmax in base 2.
+      const int key0 = t * FW_BKV + 2 * quad;
+      const int k_hi = t * FW_BKV + FW_BKV - 1;
+      const bool whole = k_hi < L &&
+          (!a.causal || (k_hi <= c_lo + offs &&
+                         (a.window == 0 ||
+                          c_hi + offs - t * FW_BKV < a.window)));
+      float mx[2] = {-INFINITY, -INFINITY};
+      if (whole) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          sc[i] *= a.scale_log2;
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1;
+            const int key = key0 + 8 * j + (e & 1);
+            bool vis = key < L;
+            if (a.causal) {
+              vis = vis && key <= qpos[h];
+              if (a.window > 0) vis = vis && qpos[h] - key < a.window;
+            }
+            sc[4 * j + e] = vis ? sc[4 * j + e] * a.scale_log2 : -INFINITY;
+            mx[h] = fmaxf(mx[h], sc[4 * j + e]);
+          }
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        // m_new = -inf: nothing visible yet, and p = 0 (never NaN).
+        alpha[h] = m_new == -INFINITY ? 1.f : exp2f(m[h] - m_new);
+        m[h] = m_new;
+      }
+      float row_sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i >> 1) & 1;
+        const float p = m[h] == -INFINITY ? 0.f : exp2f(sc[i] - m[h]);
+        sc[i] = p;
+        row_sum[h] += p;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + row_sum[h];
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      // P in bf16 as the A operand: keys 16 kt .. + 15 are sc[8 kt .. + 7].
+      uint32_t pa[FW_BKV / 16][4];
+#pragma unroll
+      for (int kt = 0; kt < FW_BKV / 16; ++kt)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          pa[kt][u] = hopper::pack_bf16(sc[8 * kt + 2 * u],
+                                        sc[8 * kt + 2 * u + 1]);
+
+      // O += P V: V is MN-major (D-contiguous), 16 keys a step.
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kt = 0; kt < FW_BKV / 16; ++kt)
+        hopper::Wgmma<DP>::template rs<1>(
+            o, pa[kt],
+            hopper::smem_desc(v_s + kt * 16 * hopper::ROW_BYTES, FW_CHUNK,
+                              1024), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+    }
     if (tid == 0) hopper::mbar_arrive(&empty[s]);
+    if constexpr (!Tile::PRODUCER_WARP) {
+      if (threadIdx.x == 0 && t + FW_STAGES < t_end) issue(t + FW_STAGES);
+      __syncwarp();
+    }
     if (++s == FW_STAGES) { s = 0; phase ^= 1; }
   }
 #pragma unroll
@@ -525,7 +592,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
   if (a.splits == 1) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row = row0 + r_own + 8 * h;
+      const int row = crow0 + r_own + 8 * h;
       if (row >= rows) continue;
       __nv_bfloat16* o_row =
           a.out + ((static_cast<size_t>(b) * a.Hq + kvh * group +
@@ -549,11 +616,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
 
   // Split: f32 partials (row max in base 2, row sum, unnormalised output).
   const int tile_slot = (bk * a.row_tiles + rt) * a.splits;
-  const int slot = (tile_slot + blockIdx.z) * BQ;
+  const int slot = (tile_slot + blockIdx.z) * BQ + wg * FW_BQ;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = r_own + 8 * h;
-    if (row0 + r >= rows) continue;
+    if (crow0 + r >= rows) continue;
     float* po = a.part_o + static_cast<size_t>(slot + r) * DP;
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j) {
@@ -567,16 +634,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
                                      slot + r)) = make_float2(m[h], l[h]);
   }
   __threadfence();
-  hopper::bar_sync(1, 128);
+  hopper::bar_sync(Tile::BAR_ALL, CONSUMERS);
   int* ticket = a.tickets + bk * a.row_tiles + rt;
-  if (tid == 0) *last_flag = atomicAdd(ticket, 1) == a.splits - 1;
-  hopper::bar_sync(1, 128);
+  if (threadIdx.x == 0) *last_flag = atomicAdd(ticket, 1) == a.splits - 1;
+  hopper::bar_sync(Tile::BAR_ALL, CONSUMERS);
   if (!*last_flag) return;
 
   // The last block of this row tile to finish combines every split.
   __threadfence();
-  const int live = min(BQ, rows - row0);
-  for (int idx = tid; idx < live * a.D; idx += 128) {
+  const int live_rows = min(BQ, rows - row0);
+  for (int idx = threadIdx.x; idx < live_rows * a.D; idx += CONSUMERS) {
     const int r = idx / a.D;
     const int col = idx % a.D;
     float mm = -INFINITY;
@@ -598,13 +665,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
                a.Sq + row / group) * a.D + col] =
         __float2bfloat16(num / fmaxf(den, 1e-20f));
   }
-  if (tid == 0) *ticket = 0;  // ready for the next launch
+  if (threadIdx.x == 0) *ticket = 0;  // ready for the next launch
 }
 
-template <int DP>
+template <int DP, int NC>
 cudaError_t launch_wgmma(const FlashArgs& args, const void* k, const void* v,
                          int B, cudaStream_t stream) {
-  using Tile = FlashTile<DP>;
+  using Tile = FlashTile<DP, NC>;
   CUtensorMap kmap, vmap;
   // k/v [B * Hkv, Skv, D]: boxes of 64 head-dim columns x 64 keys (a D of
   // 32 loads zeros in columns 32-63).
@@ -619,11 +686,11 @@ cudaError_t launch_wgmma(const FlashArgs& args, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   static bool smem_set[hopper::MAX_DEVICES] = {};
   err = hopper::allow_smem(
-      reinterpret_cast<const void*>(flash_wgmma_kernel<DP>), Tile::SMEM,
+      reinterpret_cast<const void*>(flash_wgmma_kernel<DP, NC>), Tile::SMEM,
       smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * args.Hkv, args.row_tiles, args.splits);
-  flash_wgmma_kernel<DP><<<grid, FW_THREADS, Tile::SMEM, stream>>>(
+  flash_wgmma_kernel<DP, NC><<<grid, Tile::THREADS, Tile::SMEM, stream>>>(
       kmap, vmap, args);
   return cudaGetLastError();
 }
@@ -634,12 +701,13 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  kv_len and lse (f32 [B*Hq*Sq], the
 // rows' log-sum-exp, only with splits = 1) may be NULL.  variant: 0 =
-// simt; 1 = wgmma (bf16, D in {32, 64, 128}, 16-byte-aligned q/k/v/out)
-// with 64 query rows a block (row_tiles = ceil(Hq / Hkv * Sq / 64)) and
-// the key range split over `splits` blocks; splits > 1 needs f32 scratch
-// part_o [B*Hkv*row_tiles*splits*64*DP] (DP: D rounded up to 64), part_ml
-// [B*Hkv*row_tiles*splits*64*2] and zeroed int32 tickets
-// [B*Hkv*row_tiles].
+// simt; 1 = wgmma (bf16, D in {32, 64, 128, 256}, 16-byte-aligned
+// q/k/v/out) with `block_q` query rows a block (64; at D 256 also 128, two
+// consumer warpgroups; row_tiles = ceil(Hq / Hkv * Sq / block_q)) and the
+// key range split over `splits` blocks; splits > 1 needs f32 scratch
+// part_o [B*Hkv*row_tiles*splits*block_q*DP] (DP: D rounded up to 64),
+// part_ml [B*Hkv*row_tiles*splits*block_q*2] and zeroed int32 tickets
+// [B*Hkv*row_tiles].  `block_q` is read by the wgmma variant only.
 // Returns a cudaError_t: 0 on a successful launch (the kernel itself runs
 // async), cudaErrorInvalidValue for a variant the shape does not allow.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
@@ -647,8 +715,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                         int Hq, int Hkv,
                         int Sq, int Skv, int D, int dtype, int causal,
                         int window, int variant, int splits,
-                        float* part_o, float* part_ml, int* tickets,
-                        void* stream) {
+                        int block_q, float* part_o, float* part_ml,
+                        int* tickets, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0 || Hq % Hkv ||
       D <= 0 || D % 8 || D > MAX_D || window < 0 || B * Hkv > 65535 ||
       (lse && splits != 1))
@@ -659,20 +727,26 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                           reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v) |
                           reinterpret_cast<uintptr_t>(out)) % 16 == 0;
-    if (dtype != 1 || !aligned || (D != 32 && D != 64 && D != 128) ||
+    if (dtype != 1 || !aligned ||
+        (D != 32 && D != 64 && D != 128 && D != 256) ||
+        (block_q != FW_BQ && !(D == 256 && block_q == 2 * FW_BQ)) ||
         splits < 1 || splits > 65535 ||
         (splits > 1 && (!part_o || !part_ml || !tickets)))
       return static_cast<int>(cudaErrorInvalidValue);
     const long long rows = static_cast<long long>(Hq / Hkv) * Sq;
-    const long long row_tiles = (rows + FW_BQ - 1) / FW_BQ;
+    const long long row_tiles = (rows + block_q - 1) / block_q;
     if (row_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
     FlashArgs args{static_cast<const __nv_bfloat16*>(q), kv_len,
                    static_cast<__nv_bfloat16*>(out), lse, part_o, part_ml,
                    tickets, Hq, Hkv, Sq, Skv, D, causal, window, splits,
                    static_cast<int>(row_tiles),
                    static_cast<float>(LOG2E / sqrt(static_cast<double>(D)))};
-    return static_cast<int>(D == 128 ? launch_wgmma<128>(args, k, v, B, s)
-                                     : launch_wgmma<64>(args, k, v, B, s));
+    if (D == 256)
+      return static_cast<int>(block_q == FW_BQ
+                                  ? launch_wgmma<256, 1>(args, k, v, B, s)
+                                  : launch_wgmma<256, 2>(args, k, v, B, s));
+    return static_cast<int>(D == 128 ? launch_wgmma<128, 1>(args, k, v, B, s)
+                                     : launch_wgmma<64, 1>(args, k, v, B, s));
   }
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)

@@ -28,11 +28,13 @@
 // inputs and outputs (0.020 ms at 3.35 TB/s): the tensor cores bound it.
 // Three variants, chosen by the wrapper's plan:
 //
-// `wgmma` (bf16, D = 64; 16-byte-aligned tensors, as TMA needs): four
-// passes.  Each tile block is one warpgroup of 128 threads whose thread 0
-// also issues the copies: no producer warp, so that its registers (the
-// dK/dV block needs about 164 a thread) leave room for three blocks an SM
-// (the dQ block, about 128, four); a producer warp held both at two.
+// `wgmma` (bf16, D = 64, 128 or 256; 16-byte-aligned tensors, as TMA
+// needs): four passes.  At D 64 each tile block is one warpgroup of 128
+// threads whose thread 0 also issues the copies: no producer warp, so that
+// its registers (the dK/dV block needs about 164 a thread) leave room for
+// three blocks an SM (the dQ block, about 128, four); a producer warp held
+// both at two.  At D 128 and 256 a tile block is two warpgroups (below,
+// "two consumer warpgroups"); the passes are the same.
 //   1. `rowstat`: eight threads per query row, D_i and lse * log2(e), into
 //      f32 rows padded to whole 64-row tiles (rows past Sq hold 0), so a
 //      tile's 64 values are one 256-byte bulk copy.
@@ -91,9 +93,11 @@
 // recurrentgemma's D 256: 137 KiB of shared memory a block, so one block
 // an SM, and 128 f32 dK/dV accumulators a thread).
 //
-// Not yet: warp specialisation with setmaxnreg and two consumer
-// warpgroups, dQ fused into the dK/dV pass, D = 128 and 256 on the tensor
-// cores.
+// Not yet: warp specialisation with setmaxnreg, dQ fused into the dK/dV
+// pass, overlap of one step's P^T / dS^T with the next step's S^T at D 128
+// and 256 (the two warpgroups meet at one named barrier a step).  At DP
+// 256 the dK/dV block takes 231,464 bytes of shared memory (Q and dO
+// double-buffered, P^T and dS^T double-buffered), one block an SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -894,8 +898,8 @@ constexpr double LOG2E = 1.4426950408889634;
 struct WgArgs {
   const float* lse2;          // [B * Hq, sq_pad]: lse * log2(e)
   const float* delta;         // [B * Hq, sq_pad]: rowsum(dO * O)
-  float* part_k;              // [B * Hq, Skv, 64]: each head's dK / scale
-  float* part_v;              // [B * Hq, Skv, 64]: each head's dV
+  float* part_k;              // [B * Hq, Skv, DP]: each head's dK / scale
+  float* part_v;              // [B * Hq, Skv, DP]: each head's dV
   __nv_bfloat16* dq;
   int Hq, Hkv, Sq, Skv, sq_pad, causal, window, q_tiles;
   float scale;                // 1/sqrt(D)
@@ -903,20 +907,21 @@ struct WgArgs {
 };
 
 // The scratch (floats) the wgmma variant needs: the padded lse and D rows,
-// then the partial dK and dV of every query head.
-long long wgmma_scratch_floats(int B, int Hq, int Sq, int Skv) {
+// then the partial dK and dV of every query head, DP columns a row.
+long long wgmma_scratch_floats(int B, int Hq, int Sq, int Skv, int DP) {
   const long long sq_pad = (Sq + WT - 1) / WT * WT;
-  return 2ll * B * Hq * sq_pad + 2ll * B * Hq * Skv * 64;
+  return 2ll * B * Hq * sq_pad + 2ll * B * Hq * Skv * DP;
 }
 
-// D and lse * log2(e) of each padded row: eight threads a row, 16 bytes
-// of O and of dO each.  rows_pad is a multiple of THREADS / 8.
+// D and lse * log2(e) of each padded row: eight threads a row, each 16
+// bytes of O and of dO at a time, D / 64 times.  rows_pad is a multiple
+// of THREADS / 8.
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_rowstat_kernel(const __nv_bfloat16* __restrict__ o,
                          const __nv_bfloat16* __restrict__ dout,
                          const float* __restrict__ lse,
                          float* __restrict__ lse2, float* __restrict__ delta,
-                         long long rows_pad, int Sq, int sq_pad) {
+                         long long rows_pad, int Sq, int sq_pad, int D) {
   const long long row =
       (static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x) >> 3;
   const int part = threadIdx.x & 7;
@@ -925,16 +930,18 @@ flash_bwd_rowstat_kernel(const __nv_bfloat16* __restrict__ o,
   const int i = static_cast<int>(row - bh * sq_pad);
   float acc = 0.f;
   if (i < Sq) {
-    const size_t at = (static_cast<size_t>(bh) * Sq + i) * 64 + 8 * part;
-    uint4 ou = *reinterpret_cast<const uint4*>(o + at);
-    uint4 du = *reinterpret_cast<const uint4*>(dout + at);
-    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ou);
-    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&du);
+    for (int c = 8 * part; c < D; c += 64) {
+      const size_t at = (static_cast<size_t>(bh) * Sq + i) * D + c;
+      uint4 ou = *reinterpret_cast<const uint4*>(o + at);
+      uint4 du = *reinterpret_cast<const uint4*>(dout + at);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ou);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&du);
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float2 a = __bfloat1622float2(o2[u]);
-      const float2 b = __bfloat1622float2(d2[u]);
-      acc = fmaf(a.y, b.y, fmaf(a.x, b.x, acc));
+      for (int u = 0; u < 4; ++u) {
+        const float2 a = __bfloat1622float2(o2[u]);
+        const float2 b = __bfloat1622float2(d2[u]);
+        acc = fmaf(a.y, b.y, fmaf(a.x, b.x, acc));
+      }
     }
   }
 #pragma unroll
@@ -1161,17 +1168,17 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // dK and dV of each kv head: the G heads' partials summed in head order,
-// four columns a thread.
+// four columns a thread (DP columns a row, DP = D).
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_reduce_kernel(const float* __restrict__ part_k,
                         const float* __restrict__ part_v,
                         __nv_bfloat16* __restrict__ dk,
                         __nv_bfloat16* __restrict__ dv, long long n4,
-                        int group, int Skv, float scale) {
+                        int group, int Skv, int DP, float scale) {
   const long long idx =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (idx >= n4) return;
-  const long long per_head = static_cast<long long>(Skv) * 16;
+  const long long per_head = static_cast<long long>(Skv) * (DP / 4);
   const long long bkv = idx / per_head;
   const long long rem = idx - bkv * per_head;
   float4 sk = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -1337,49 +1344,477 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// ---- two consumer warpgroups at D = 128 and 256 ----------------------------
+//
+// One warpgroup cannot hold dK and dV for 64 keys at these widths (DP / 2
+// f32 accumulators a thread each: 256 registers at DP 256), so a block has
+// two, which split every product so that none is computed twice and no sum
+// crosses them: S^T and dP^T (dK/dV block) or S and dP (dQ block) by
+// the 64 query (key) columns, 32 each (m64n32k16 chains over DP); P^T and
+// dS^T (dS) go to shared memory in bf16, and each warpgroup then
+// accumulates its own DP / 2 head columns of dV and dK (dQ), reading them
+// there as the A operand (m64n(DP/2)k16).  The tiles in shared memory are
+// DP / 64 swizzled 64-column chunks; P^T and dS^T are double-buffered by
+// step, so one named barrier a step (after both warpgroups have written
+// them) orders the writes against the other warpgroup's reads, which
+// completed before it reached that barrier in the step before.
+
+constexpr int W2_THREADS = 256;     // two warpgroups; thread 0 also copies
+constexpr int W2_BAR = 1;           // the named barrier of both warpgroups
+
+template <int DP>
+struct W2Tile {
+  static constexpr int CHUNKS = DP / 64;
+  static constexpr int TILE = CHUNKS * W_TILE;  // 64 rows x DP, swizzled
+  static constexpr int HALF = DP / 2;           // a warpgroup's head columns
+  // dK/dV: K and V, the Q and dO ring, P^T and dS^T twice, the ring's row
+  // statistics, the barriers, the alignment slack (231,464 bytes at DP
+  // 256, of the 232,448 a block may have).
+  static constexpr int SMEM_DKDV = 2 * TILE + 2 * W_STAGES * TILE +
+                                   4 * W_TILE + W_STAGES * W_STATS * 4 +
+                                   W_BARS * 8 + 1024;
+  // dQ: Q and dO, the K and V ring, dS twice, the barriers, the slack.
+  static constexpr int SMEM_DQ = 2 * TILE + 2 * W_STAGES * TILE +
+                                 2 * W_TILE + W_BARS * 8 + 1024;
+};
+
+// d = a b^T over DP columns, overwriting d: a, b K-major DP-wide tiles, b
+// from its 32 rows at `b_row` on (m64n32k16, DP / 16 k-steps).
+template <int DP>
+__device__ __forceinline__ void wg2_nt(float (&d)[16], const uint8_t* a,
+                                       const uint8_t* b, int b_row) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const int off = (kk / 4) * W_TILE + (kk % 4) * 32;
+    hopper::Wgmma<32>::ss<0, 0>(
+        d, hopper::smem_desc(a + off, 16, 1024),
+        hopper::smem_desc(b + off + b_row * hopper::ROW_BYTES, 16, 1024),
+        kk > 0);
+  }
+}
+
+// d += A b[:, cols]: A a 64 x 64 bf16 K-major tile in shared memory, b an
+// MN-major DP-wide tile (64 rows of the contraction), cols the HALF
+// columns from chunk `chunk` on.
+template <int DP>
+__device__ __forceinline__ void wg2_acc(float (&d)[DP / 4],
+                                        const uint8_t* a, const uint8_t* b,
+                                        int chunk) {
+#pragma unroll
+  for (int kt = 0; kt < 4; ++kt)
+    hopper::Wgmma<DP / 2>::template ss<0, 1>(
+        d, hopper::smem_desc(a + kt * 32, 16, 1024),
+        hopper::smem_desc(b + chunk * W_TILE + kt * 16 * hopper::ROW_BYTES,
+                          W_TILE, 1024),
+        1);
+}
+
+// Two values of an accumulator's row as bf16 into a 64 x 64 K-major
+// swizzled tile at (row, col), col even.
+__device__ __forceinline__ void put_bf16x2(uint8_t* tile, int row, int col,
+                                           float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(tile + row * hopper::ROW_BYTES +
+                               (((col / 8) ^ (row % 8)) * 16) +
+                               (col % 8) * 2) = hopper::pack_bf16(lo, hi);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(W2_THREADS, 1)
+flash_bwd_dkdv_wg2_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap domap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const WgArgs a) {
+  using T = W2Tile<DP>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* k_s = hopper::align_1024(smem_raw);
+  uint8_t* v_s = k_s + T::TILE;
+  uint8_t* q_ring = v_s + T::TILE;
+  uint8_t* do_ring = q_ring + W_STAGES * T::TILE;
+  uint8_t* pds = do_ring + W_STAGES * T::TILE;  // [2 steps][P^T, dS^T]
+  float* stats = reinterpret_cast<float*>(pds + 4 * W_TILE);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(stats + W_STAGES * W_STATS);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + W_STAGES;
+
+  const int group = a.Hq / a.Hkv;
+  const int bh = blockIdx.x;              // b * Hq + q head
+  const int bkv = bh / group;             // b * Hkv + its kv head
+  const int j0 = blockIdx.y * WB;         // tile 0, the heaviest, first
+  const int n_keys = min(WB, a.Skv - j0);
+  const int offs = a.Skv - a.Sq;
+  int q_lo = 0;                           // bwd_query_range
+  int q_hi = a.Sq;
+  if (a.causal) {
+    q_lo = max(0, j0 - offs);
+    if (a.window > 0)
+      q_hi = min(a.Sq, j0 + n_keys - 1 + a.window - offs);
+  }
+  const int i_first = q_lo / WT * WT;
+  const int steps = q_hi > q_lo ? (q_hi - i_first + WT - 1) / WT : 0;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < W_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], W2_THREADS);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Thread 0 issues every copy: K and V once, then query tile n into stage
+  // n % W_STAGES as soon as all 256 threads have released it.
+  int ps = 0;
+  uint32_t pphase = 0;
+  auto issue = [&](int n) {
+    const int i0 = i_first + n * WT;
+    hopper::mbar_wait(&empty[ps], pphase ^ 1);
+    hopper::mbar_expect_tx(&full[ps], 2 * T::TILE + W_STATS * 4);
+    for (int c = 0; c < T::CHUNKS; ++c) {
+      hopper::tma_load_3d(q_ring + ps * T::TILE + c * W_TILE, &qmap,
+                          &full[ps], 64 * c, i0, bh);
+      hopper::tma_load_3d(do_ring + ps * T::TILE + c * W_TILE, &domap,
+                          &full[ps], 64 * c, i0, bh);
+    }
+    const size_t row = static_cast<size_t>(bh) * a.sq_pad + i0;
+    hopper::bulk_load(stats + ps * W_STATS, a.lse2 + row, WT * 4, &full[ps]);
+    hopper::bulk_load(stats + ps * W_STATS + WT, a.delta + row, WT * 4,
+                      &full[ps]);
+    if (++ps == W_STAGES) { ps = 0; pphase ^= 1; }
+  };
+  if (threadIdx.x == 0) {
+    hopper::mbar_expect_tx(kv_full, 2 * T::TILE);
+    for (int c = 0; c < T::CHUNKS; ++c) {
+      hopper::tma_load_3d(k_s + c * W_TILE, &kmap, kv_full, 64 * c, j0, bkv);
+      hopper::tma_load_3d(v_s + c * W_TILE, &vmap, kv_full, 64 * c, j0, bkv);
+    }
+    for (int n = 0; n < min(W_STAGES, steps); ++n) issue(n);
+  }
+  __syncwarp();  // warp 0 converges before the warpgroup's wgmma
+
+  // Warpgroup wg: query columns 32 wg .. 32 wg + 31 of S^T and dP^T, head
+  // columns wg * HALF .. + HALF - 1 of dK and dV.  Thread tid holds key
+  // rows r and r + 8 of the tile (r = 16 warp + lane / 4); in S^T the
+  // query columns 32 wg + 8 jj + 2 quad + {0, 1}.
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int quad = lane % 4;
+  const int r_own = 16 * (tid / 32) + lane / 4;
+  float acc_k[DP / 4], acc_v[DP / 4];
+#pragma unroll
+  for (int i = 0; i < DP / 4; ++i) { acc_k[i] = 0.f; acc_v[i] = 0.f; }
+
+  hopper::mbar_wait(kv_full, 0);
+  int s = 0;
+  uint32_t phase = 0;
+  for (int n = 0; n < steps; ++n) {
+    const int i0 = i_first + n * WT;
+    hopper::mbar_wait(&full[s], phase);
+    const uint8_t* q_s = q_ring + s * T::TILE;
+    const uint8_t* do_s = do_ring + s * T::TILE;
+    const float* lse_s = stats + s * W_STATS;
+    const float* delta_s = lse_s + WT;
+    uint8_t* pt_s = pds + (n & 1) * 2 * W_TILE;
+    uint8_t* dst_s = pt_s + W_TILE;
+
+    float st[16], dpt[16];
+    hopper::wgmma_fence();
+    wg2_nt<DP>(st, k_s, q_s, 32 * wg);
+    hopper::wgmma_commit();
+    wg2_nt<DP>(dpt, v_s, do_s, 32 * wg);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(st);
+    const bool whole = whole_tile(i0, j0, a.Sq, a.Skv, offs, a.causal,
+                                  a.window);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int c = 32 * wg + 8 * jj + 2 * quad;
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x =
+            st[4 * jj + e] * a.scale_log2 - ((e & 1) ? l2.y : l2.x);
+        const bool vis = whole || visible(i0 + c + (e & 1),
+                                          j0 + r_own + 8 * (e >> 1), a.Sq,
+                                          a.Skv, offs, a.causal, a.window);
+        st[4 * jj + e] = vis ? exp2f(x) : 0.f;
+      }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dpt);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int c = 32 * wg + 8 * jj + 2 * quad;
+      const float2 dl = *reinterpret_cast<const float2*>(delta_s + c);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e = 2 * h;
+        const float d0 = st[4 * jj + e] * (dpt[4 * jj + e] - dl.x);
+        const float d1 = st[4 * jj + e + 1] * (dpt[4 * jj + e + 1] - dl.y);
+        put_bf16x2(pt_s, r_own + 8 * h, c, st[4 * jj + e],
+                   st[4 * jj + e + 1]);
+        put_bf16x2(dst_s, r_own + 8 * h, c, d0, d1);
+      }
+    }
+    hopper::fence_proxy_async();
+    hopper::bar_sync(W2_BAR, W2_THREADS);
+
+    // dV += P^T dO and dK += dS^T Q over the tile's 64 queries, on this
+    // warpgroup's head columns.
+    hopper::wgmma_fence();
+    wg2_acc<DP>(acc_v, pt_s, do_s, wg * T::CHUNKS / 2);
+    wg2_acc<DP>(acc_k, dst_s, q_s, wg * T::CHUNKS / 2);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc_v);
+    hopper::fence_regs(acc_k);
+    hopper::mbar_arrive(&empty[s]);
+    if (threadIdx.x == 0 && n + W_STAGES < steps) issue(n + W_STAGES);
+    __syncwarp();
+    if (++s == W_STAGES) { s = 0; phase ^= 1; }
+  }
+
+  // This head's f32 partials; `reduce` sums the G heads of a kv head.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = j0 + r_own + 8 * h;
+    if (j >= a.Skv) continue;
+    const size_t at = (static_cast<size_t>(bh) * a.Skv + j) * DP +
+                      wg * T::HALF;
+#pragma unroll
+    for (int jj = 0; jj < T::HALF / 8; ++jj) {
+      const int col = 8 * jj + 2 * quad;
+      *reinterpret_cast<float2*>(a.part_k + at + col) =
+          make_float2(acc_k[4 * jj + 2 * h], acc_k[4 * jj + 2 * h + 1]);
+      *reinterpret_cast<float2*>(a.part_v + at + col) =
+          make_float2(acc_v[4 * jj + 2 * h], acc_v[4 * jj + 2 * h + 1]);
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(W2_THREADS, 1)
+flash_bwd_dq_wg2_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap domap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const WgArgs a) {
+  using T = W2Tile<DP>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = hopper::align_1024(smem_raw);
+  uint8_t* do_s = q_s + T::TILE;
+  uint8_t* k_ring = do_s + T::TILE;
+  uint8_t* v_ring = k_ring + W_STAGES * T::TILE;
+  uint8_t* ds_buf = v_ring + W_STAGES * T::TILE;  // [2 steps] dS
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ds_buf + 2 * W_TILE);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + W_STAGES;
+
+  const int group = a.Hq / a.Hkv;
+  const int bh = blockIdx.x;              // b * Hq + q head
+  const int bkv = bh / group;
+  // Row tiles in reverse: under a causal mask the last see the most keys,
+  // and they start first.
+  const int i0 = (a.q_tiles - 1 - static_cast<int>(blockIdx.y)) * WB;
+  const int n_rows = min(WB, a.Sq - i0);
+  const int offs = a.Skv - a.Sq;
+  int k_lo = 0;                           // bwd_key_range
+  int k_hi = a.Skv;
+  if (a.causal) {
+    k_hi = min(a.Skv, i0 + n_rows + offs);
+    if (a.window > 0) k_lo = max(0, i0 + offs - a.window + 1);
+  }
+  const int t_first = k_lo / WT * WT;
+  const int steps = k_hi > k_lo ? (k_hi - t_first + WT - 1) / WT : 0;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < W_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], W2_THREADS);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Thread 0 issues every copy: Q and dO once, then key tile n into stage
+  // n % W_STAGES as soon as all 256 threads have released it.
+  int ps = 0;
+  uint32_t pphase = 0;
+  auto issue = [&](int n) {
+    const int t0 = t_first + n * WT;
+    hopper::mbar_wait(&empty[ps], pphase ^ 1);
+    hopper::mbar_expect_tx(&full[ps], 2 * T::TILE);
+    for (int c = 0; c < T::CHUNKS; ++c) {
+      hopper::tma_load_3d(k_ring + ps * T::TILE + c * W_TILE, &kmap,
+                          &full[ps], 64 * c, t0, bkv);
+      hopper::tma_load_3d(v_ring + ps * T::TILE + c * W_TILE, &vmap,
+                          &full[ps], 64 * c, t0, bkv);
+    }
+    if (++ps == W_STAGES) { ps = 0; pphase ^= 1; }
+  };
+  if (threadIdx.x == 0) {
+    hopper::mbar_expect_tx(q_full, 2 * T::TILE);
+    for (int c = 0; c < T::CHUNKS; ++c) {
+      hopper::tma_load_3d(q_s + c * W_TILE, &qmap, q_full, 64 * c, i0, bh);
+      hopper::tma_load_3d(do_s + c * W_TILE, &domap, q_full, 64 * c, i0,
+                          bh);
+    }
+    for (int n = 0; n < min(W_STAGES, steps); ++n) issue(n);
+  }
+  __syncwarp();  // warp 0 converges before the warpgroup's wgmma
+
+  // Warpgroup wg: key columns 32 wg .. 32 wg + 31 of S and dP, head
+  // columns wg * HALF .. + HALF - 1 of dQ.  Thread tid holds rows r and
+  // r + 8 (r = 16 warp + lane / 4), key columns 32 wg + 8 jj + 2 quad +
+  // {0, 1}.
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int quad = lane % 4;
+  const int r_own = 16 * (tid / 32) + lane / 4;
+  float l2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {   // rows past Sq read the padding's zeros
+    const size_t row = static_cast<size_t>(bh) * a.sq_pad + i0 + r_own +
+                       8 * h;
+    l2[h] = a.lse2[row];
+    dl[h] = a.delta[row];
+  }
+  float acc[DP / 4];
+#pragma unroll
+  for (int i = 0; i < DP / 4; ++i) acc[i] = 0.f;
+
+  hopper::mbar_wait(q_full, 0);
+  int s = 0;
+  uint32_t phase = 0;
+  for (int n = 0; n < steps; ++n) {
+    const int t0 = t_first + n * WT;
+    hopper::mbar_wait(&full[s], phase);
+    const uint8_t* k_s = k_ring + s * T::TILE;
+    const uint8_t* v_s = v_ring + s * T::TILE;
+    uint8_t* ds_s = ds_buf + (n & 1) * W_TILE;
+
+    float sc[16], dp[16];
+    hopper::wgmma_fence();
+    wg2_nt<DP>(sc, q_s, k_s, 32 * wg);
+    hopper::wgmma_commit();
+    wg2_nt<DP>(dp, do_s, v_s, 32 * wg);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(sc);
+    const bool whole = whole_tile(i0, t0, a.Sq, a.Skv, offs, a.causal,
+                                  a.window);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const float x = sc[4 * jj + e] * a.scale_log2 - l2[h];
+        const bool vis = whole || visible(
+            i0 + r_own + 8 * h, t0 + 32 * wg + 8 * jj + 2 * quad + (e & 1),
+            a.Sq, a.Skv, offs, a.causal, a.window);
+        sc[4 * jj + e] = vis ? exp2f(x) : 0.f;
+      }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dp);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e = 2 * h;
+        put_bf16x2(ds_s, r_own + 8 * h, 32 * wg + 8 * jj + 2 * quad,
+                   sc[4 * jj + e] * (dp[4 * jj + e] - dl[h]),
+                   sc[4 * jj + e + 1] * (dp[4 * jj + e + 1] - dl[h]));
+      }
+    hopper::fence_proxy_async();
+    hopper::bar_sync(W2_BAR, W2_THREADS);
+
+    // dQ += dS K over the tile's 64 keys, on this warpgroup's columns.
+    hopper::wgmma_fence();
+    wg2_acc<DP>(acc, ds_s, k_s, wg * T::CHUNKS / 2);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::mbar_arrive(&empty[s]);
+    if (threadIdx.x == 0 && n + W_STAGES < steps) issue(n + W_STAGES);
+    __syncwarp();
+    if (++s == W_STAGES) { s = 0; phase ^= 1; }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = i0 + r_own + 8 * h;
+    if (i >= a.Sq) continue;
+    __nv_bfloat16* q_row =
+        a.dq + (static_cast<size_t>(bh) * a.Sq + i) * DP + wg * T::HALF;
+#pragma unroll
+    for (int jj = 0; jj < T::HALF / 8; ++jj)
+      *reinterpret_cast<__nv_bfloat162*>(q_row + 8 * jj + 2 * quad) =
+          __floats2bfloat162_rn(acc[4 * jj + 2 * h] * a.scale,
+                                acc[4 * jj + 2 * h + 1] * a.scale);
+  }
+}
+
+template <int DP>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          const void* o, const float* lse, const void* dout,
                          void* dq, void* dk, void* dv, float* scratch, int B,
                          const BwdArgs& a, cudaStream_t stream) {
   using bf = __nv_bfloat16;
+  // One warpgroup a tile block at DP 64, two at 128 and 256.
+  constexpr bool ONE = DP == 64;
+  constexpr int BLOCK_THREADS = ONE ? W_THREADS : W2_THREADS;
+  constexpr int SMEM_DKDV = ONE ? W_SMEM : W2Tile<DP>::SMEM_DKDV;
+  constexpr int SMEM_DQ = ONE ? W_SMEM : W2Tile<DP>::SMEM_DQ;
+  const void* dkdv_fn;
+  const void* dq_fn;
+  if constexpr (ONE) {
+    dkdv_fn = reinterpret_cast<const void*>(flash_bwd_dkdv_wgmma_kernel);
+    dq_fn = reinterpret_cast<const void*>(flash_bwd_dq_wgmma_kernel);
+  } else {
+    dkdv_fn = reinterpret_cast<const void*>(flash_bwd_dkdv_wg2_kernel<DP>);
+    dq_fn = reinterpret_cast<const void*>(flash_bwd_dq_wg2_kernel<DP>);
+  }
   const int sq_pad = (a.Sq + WT - 1) / WT * WT;
   const long long rows_pad = static_cast<long long>(B) * a.Hq * sq_pad;
   float* lse2 = scratch;
   float* delta = lse2 + rows_pad;
   float* part_k = delta + rows_pad;
-  float* part_v = part_k + static_cast<long long>(B) * a.Hq * a.Skv * 64;
-  // q/dO [B * Hq, Sq, 64] and k/v [B * Hkv, Skv, 64], boxes of 64 rows.
-  constexpr uint64_t ROW = 64 * 2;
+  float* part_v = part_k + static_cast<long long>(B) * a.Hq * a.Skv * DP;
+  // q/dO [B * Hq, Sq, DP] and k/v [B * Hkv, Skv, DP], boxes of 64 columns
+  // x 64 rows.
+  constexpr uint64_t ROW = DP * 2;
   CUtensorMap qmap, domap, kmap, vmap;
   const uint64_t bhq = static_cast<uint64_t>(B) * a.Hq;
   const uint64_t bhkv = static_cast<uint64_t>(B) * a.Hkv;
-  cudaError_t err = hopper::tensor_map_3d(&qmap, q, 64, a.Sq, bhq, ROW,
+  cudaError_t err = hopper::tensor_map_3d(&qmap, q, DP, a.Sq, bhq, ROW,
                                           ROW * a.Sq, WT);
   if (err == cudaSuccess)
-    err = hopper::tensor_map_3d(&domap, dout, 64, a.Sq, bhq, ROW,
+    err = hopper::tensor_map_3d(&domap, dout, DP, a.Sq, bhq, ROW,
                                 ROW * a.Sq, WT);
   if (err == cudaSuccess)
-    err = hopper::tensor_map_3d(&kmap, k, 64, a.Skv, bhkv, ROW,
+    err = hopper::tensor_map_3d(&kmap, k, DP, a.Skv, bhkv, ROW,
                                 ROW * a.Skv, WT);
   if (err == cudaSuccess)
-    err = hopper::tensor_map_3d(&vmap, v, 64, a.Skv, bhkv, ROW,
+    err = hopper::tensor_map_3d(&vmap, v, DP, a.Skv, bhkv, ROW,
                                 ROW * a.Skv, WT);
   if (err != cudaSuccess) return err;
   static bool dkdv_smem[hopper::MAX_DEVICES] = {};
   static bool dq_smem[hopper::MAX_DEVICES] = {};
-  err = hopper::allow_smem(
-      reinterpret_cast<const void*>(flash_bwd_dkdv_wgmma_kernel), W_SMEM,
-      dkdv_smem);
+  err = hopper::allow_smem(dkdv_fn, SMEM_DKDV, dkdv_smem);
   if (err != cudaSuccess) return err;
-  err = hopper::allow_smem(
-      reinterpret_cast<const void*>(flash_bwd_dq_wgmma_kernel), W_SMEM,
-      dq_smem);
+  err = hopper::allow_smem(dq_fn, SMEM_DQ, dq_smem);
   if (err != cudaSuccess) return err;
 
   flash_bwd_rowstat_kernel<<<static_cast<unsigned>(rows_pad / (THREADS / 8)),
                              THREADS, 0, stream>>>(
       static_cast<const bf*>(o), static_cast<const bf*>(dout), lse, lse2,
-      delta, rows_pad, a.Sq, sq_pad);
+      delta, rows_pad, a.Sq, sq_pad, DP);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const WgArgs w{lse2, delta, part_k, part_v, static_cast<bf*>(dq),
@@ -1387,21 +1822,29 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                  sq_pad / WB, a.scale,
                  static_cast<float>(LOG2E * static_cast<double>(a.scale))};
   const dim3 grid_kv(static_cast<unsigned>(bhq), (a.Skv + WB - 1) / WB);
-  flash_bwd_dkdv_wgmma_kernel<<<grid_kv, W_THREADS, W_SMEM, stream>>>(
-      qmap, domap, kmap, vmap, w);
+  if constexpr (ONE)
+    flash_bwd_dkdv_wgmma_kernel<<<grid_kv, BLOCK_THREADS, SMEM_DKDV,
+                                  stream>>>(qmap, domap, kmap, vmap, w);
+  else
+    flash_bwd_dkdv_wg2_kernel<DP><<<grid_kv, BLOCK_THREADS, SMEM_DKDV,
+                                    stream>>>(qmap, domap, kmap, vmap, w);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long n4 = static_cast<long long>(bhkv) * a.Skv * 16;
+  const long long n4 = static_cast<long long>(bhkv) * a.Skv * (DP / 4);
   flash_bwd_reduce_kernel<<<static_cast<unsigned>((n4 + THREADS - 1) /
                                                   THREADS),
                             THREADS, 0, stream>>>(
       part_k, part_v, static_cast<bf*>(dk), static_cast<bf*>(dv), n4,
-      a.Hq / a.Hkv, a.Skv, a.scale);
+      a.Hq / a.Hkv, a.Skv, DP, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_q(static_cast<unsigned>(bhq), sq_pad / WB);
-  flash_bwd_dq_wgmma_kernel<<<grid_q, W_THREADS, W_SMEM, stream>>>(
-      qmap, domap, kmap, vmap, w);
+  if constexpr (ONE)
+    flash_bwd_dq_wgmma_kernel<<<grid_q, BLOCK_THREADS, SMEM_DQ, stream>>>(
+        qmap, domap, kmap, vmap, w);
+  else
+    flash_bwd_dq_wg2_kernel<DP><<<grid_q, BLOCK_THREADS, SMEM_DQ, stream>>>(
+        qmap, domap, kmap, vmap, w);
   return cudaGetLastError();
 }
 
@@ -1414,11 +1857,12 @@ extern "C" {
 // [B*Hq*Sq].  scratch: f32, `scratch_floats` of them, 16-byte aligned: D
 // (B*Hq*Sq floats) for simt and mma; for wgmma the padded lse and D rows
 // and each query head's partial dK and dV (wgmma_scratch_floats).  variant:
-// 0 = simt, 1 = mma (bf16, D = 64), 2 = wgmma (bf16, D = 64).  block, step,
-// dp: the wrapper's schedule (keys of a dK/dV block and rows of a dQ block;
-// queries of a dK/dV step and keys of a dQ step; the padded head dim),
-// which must be the variant's own: simt BT, BT and 64, 128 or 256, mma MB, MT
-// and 64, wgmma WB, WT and 64.  Three kernels on `stream` (wgmma: four).
+// 0 = simt, 1 = mma (bf16, D = 64), 2 = wgmma (bf16, D = 64, 128 or 256).
+// block, step, dp: the wrapper's schedule (keys of a dK/dV block and rows
+// of a dQ block; queries of a dK/dV step and keys of a dQ step; the padded
+// head dim), which must be the variant's own: simt BT, BT and 64, 128 or
+// 256, mma MB, MT and 64, wgmma WB, WT and D.  Three kernels on `stream`
+// (wgmma: four).
 // Returns a cudaError_t: 0 on a successful launch, cudaErrorInvalidValue
 // for a shape, variant, schedule, scratch or alignment the kernels do not
 // take.
@@ -1444,14 +1888,20 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   if (any % 16 || reinterpret_cast<uintptr_t>(lse) % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   if (variant == 2) {
-    // TMA reads q, dO, k and v as [rows, 64] bf16 (128-byte rows) from
-    // 16-byte-aligned bases; the grid's y axis holds the tiles.
-    if (dtype != 1 || D != 64 || block != WB || step != WT || dp != 64 ||
-        scratch_floats < wgmma_scratch_floats(B, Hq, Sq, Skv) ||
+    // TMA reads q, dO, k and v as [rows, D] bf16 in boxes of 64 columns
+    // from 16-byte-aligned bases; the grid's y axis holds the tiles.
+    if (dtype != 1 || (D != 64 && D != 128 && D != 256) || block != WB ||
+        step != WT || dp != D ||
+        scratch_floats < wgmma_scratch_floats(B, Hq, Sq, Skv, D) ||
         (Sq + WB - 1) / WB > 65535 || (Skv + WB - 1) / WB > 65535)
       return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(launch_wgmma(q, k, v, o, lse, dout, dq, dk, dv,
-                                         scratch, B, a, s));
+    cudaError_t (*launch)(const void*, const void*, const void*, const void*,
+                          const float*, const void*, void*, void*, void*,
+                          float*, int, const BwdArgs&, cudaStream_t) =
+        D == 64 ? launch_wgmma<64>
+                : D == 128 ? launch_wgmma<128> : launch_wgmma<256>;
+    return static_cast<int>(launch(q, k, v, o, lse, dout, dq, dk, dv,
+                                   scratch, B, a, s));
   }
   if (scratch_floats < static_cast<long long>(B) * Hq * Sq)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -31,19 +31,22 @@ from .ref import (BLOCKED_ATTN_THRESHOLD, flash_backward_reference,
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = {"simt": 0, "wgmma": 1}
-WGMMA_HEAD_DIMS = (32, 64, 128)
+WGMMA_HEAD_DIMS = (32, 64, 128, 256)
 SMS = 132              # H100 SXM
 MAX_SPLITS = 8
 MAX_GRID_Y = 65535
 BWD_MAX_HEAD_DIM = 256
 BWD_VARIANTS = {"simt": 0, "mma": 1, "wgmma": 2}
+# Head dims the ``wgmma`` backward takes (bf16): one warpgroup a tile block
+# at 64, two at 128 and 256, which split the head columns.
+BWD_WGMMA_HEAD_DIMS = (64, 128, 256)
 # (block, step) of each backward variant: keys of a dK/dV block and rows of
 # a dQ block; queries of a dK/dV step and keys of a dQ step.
 BWD_TILES = {"simt": (32, 32), "mma": (64, 32), "wgmma": (64, 64)}
 # q, k, v, kv_len, out, lse; B, Hq, Hkv, Sq, Skv, D, dtype, causal, window,
-# variant, splits; part_o, part_ml, tickets, stream
+# variant, splits, block_q; part_o, part_ml, tickets, stream
 _SIGNATURES = {"flash_attention_fwd": (
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 4,
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 4,
     ctypes.c_int)}
 # q, k, v, o, lse, dout, dq, dk, dv, scratch; scratch_floats; B, Hq, Hkv,
 # Sq, Skv, D, dtype, causal, window, variant, block, step, dp; stream
@@ -61,18 +64,23 @@ def plan(b: int, hq: int, hkv: int, sq: int, skv: int, d: int,
          save_lse: bool = False) -> dict:
     """The kernel variant, tiles and kv splits for one call, from its shape.
 
-    bf16 with D in (32, 64, 128) and 16-byte-aligned bases goes to
-    ``wgmma``: blocks of 64 query rows (a whole GQA group at decode) over
-    64-key K/V tiles, the row tiles on the grid's y axis (at most
-    ``MAX_GRID_Y``).  When the grid of B * Hkv * row_tiles blocks is at
-    most a quarter of the card's SMs and the keys span several tiles, the
-    key range is split over up to ``MAX_SPLITS`` blocks.  The rest (f32,
-    whose products the tensor cores would round to TF32, other head dims,
-    longer query ranges) goes to ``simt``: 8 rows a block, 32-key tiles.
-    A call that saves the LSE for the backward (``save_lse``) never splits.
+    bf16 with D in (32, 64, 128, 256) and 16-byte-aligned bases goes to
+    ``wgmma``: blocks of 64 query rows (a whole GQA group at decode), one
+    consumer warpgroup each, over 64-key K/V tiles, the row tiles on the
+    grid's y axis (at most ``MAX_GRID_Y``).  At D 256 a block of more than
+    64 rows' work (gemma3-1b's and recurrentgemma-2b's train and prefill
+    calls) holds 128 rows, two consumer warpgroups sharing each K/V tile;
+    their decode (G * Sq <= 64 rows: 4 and 10) keeps the 64-row block.
+    When the grid of B * Hkv * row_tiles blocks is at most a quarter of the
+    card's SMs and the keys span several tiles, the key range is split over
+    up to ``MAX_SPLITS`` blocks.  The rest (f32, whose products the tensor
+    cores would round to TF32, other head dims, longer query ranges) goes to
+    ``simt``: 8 rows a block, 32-key tiles.  A call that saves the LSE for
+    the backward (``save_lse``) never splits.
     """
     rows = (hq // hkv) * sq
-    row_tiles = -(-rows // 64)
+    block_q = 128 if d == 256 and rows > 64 else 64
+    row_tiles = -(-rows // block_q)
     if (dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS and aligned
             and row_tiles <= MAX_GRID_Y):
         blocks = b * hkv * row_tiles
@@ -80,7 +88,7 @@ def plan(b: int, hq: int, hkv: int, sq: int, skv: int, d: int,
         splits = 1
         if 4 * blocks <= SMS and kv_tiles > 1 and not save_lse:
             splits = min(kv_tiles, SMS // blocks, MAX_SPLITS)
-        return {"variant": "wgmma", "block_q": 64, "block_kv": 64,
+        return {"variant": "wgmma", "block_q": block_q, "block_kv": 64,
                 "row_tiles": row_tiles, "kv_splits": splits}
     return {"variant": "simt", "block_q": 8, "block_kv": 32,
             "row_tiles": -(-rows // 8), "kv_splits": 1}
@@ -118,17 +126,19 @@ def plan_backward(b: int, hq: int, hkv: int, sq: int, skv: int, d: int,
                   dtype: torch.dtype) -> dict:
     """The backward kernels' variant, tiles and grids for one call.
 
-    bf16 with D 64 (qwen2's train path) goes to ``wgmma``: tensor cores
-    through ``wgmma``, tiles brought by TMA, and the dK/dV work split over
-    the G query heads of each kv head.  The rest (f32, other head dims:
-    mixtral's D 128, gemma3's and recurrentgemma's D 256) goes to
-    ``simt``.  ``mma``, the design
-    before ``wgmma``, is reached only through :func:`backward_schedule`.
+    bf16 with D 64 (qwen2, llama3.2-1b, smollm-135m), 128 (mixtral) or 256
+    (gemma3-1b, recurrentgemma-2b) goes to ``wgmma``: tensor cores through
+    ``wgmma``, tiles brought by TMA, and the dK/dV work split over the G
+    query heads of each kv head.  The rest (f32, whose products the tensor
+    cores would round to TF32, and other head dims) goes to ``simt``.
+    ``mma``, the design before ``wgmma`` at D 64, and ``simt`` for bf16
+    are reached through :func:`backward_schedule`.
     """
     if d % 8 or d > BWD_MAX_HEAD_DIM:
         raise ValueError(f"head dim {d}: the backward kernel takes multiples "
                          f"of 8 up to {BWD_MAX_HEAD_DIM}")
-    variant = "wgmma" if dtype == torch.bfloat16 and d == 64 else "simt"
+    variant = ("wgmma" if dtype == torch.bfloat16
+               and d in BWD_WGMMA_HEAD_DIMS else "simt")
     return backward_schedule(variant, b, hq, hkv, sq, skv, d)
 
 
@@ -153,7 +163,11 @@ def backward_schedule(variant: str, b: int, hq: int, hkv: int, sq: int,
       sums the G heads of a kv head in head order.  ``grid_dkdv`` is
       (b * hq, key tiles) and ``grid_dq`` (b * hq, query tiles); the walks
       start at the multiple of ``step`` at or below the range's first row
-      (key), and the row statistics are padded to ``sq_pad`` rows.
+      (key), and the row statistics are padded to ``sq_pad`` rows.  A tile
+      block is ``warpgroups`` warpgroups: one at ``dp`` 64; two at 128 and
+      256, which split S^T and dP^T (S and dP) by their 64 query (key)
+      columns, 32 each, and dK, dV (dQ) by their head columns, ``dp / 2``
+      each.  The partials hold ``dp`` columns a key.
 
     The tiles are each variant's ``BWD_TILES``, compiled into the kernels,
     which refuse a launch whose ``block``, ``step``, ``dp`` or
@@ -167,6 +181,7 @@ def backward_schedule(variant: str, b: int, hq: int, hkv: int, sq: int,
     if variant == "wgmma":
         sq_pad = q_tiles * block
         s.update(grid_dkdv=(b * hq, kv_tiles), grid_dq=(b * hq, q_tiles),
+                 warpgroups=1 if dp == 64 else 2,
                  grid_reduce=-(-b * hkv * skv * dp // (4 * 128)),
                  sq_pad=sq_pad,
                  scratch_floats=2 * b * hq * sq_pad + 2 * b * hq * skv * dp)
@@ -273,8 +288,8 @@ def _forward(q, k, v, causal, window, kv_len, save_lse):
             None if kv_len is None else kv_len.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
             b, hq, hkv, sq, skv, d, _DTYPES[q.dtype], int(causal),
-            int(window), VARIANTS[p["variant"]], p["kv_splits"], *scratch,
-            stream)
+            int(window), VARIANTS[p["variant"]], p["kv_splits"],
+            p["block_q"], *scratch, stream)
     _build.check(lib, err, f"flash_attention launch ({p['variant']})")
     flash_attention.launches += 1
     flash_attention.variant_launches[p["variant"]] += 1

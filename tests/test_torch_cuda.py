@@ -493,8 +493,18 @@ BWD_SHAPES = [  # chip_smoke.py phase 2's backward cases, then the smoke dim
     (2, 4, 1, 100, 100, 256, True, 0),     # gemma3 heads, D 256
     (1, 10, 1, 77, 140, 256, True, 40),    # recurrentgemma heads, a window
 ]
-# The cases the tensor-core variants take (bf16 at D 64).
-BWD_SHAPES_D64 = [s for s in BWD_SHAPES if s[5] == 64]
+# The cases the tensor-core backward takes in bf16: ``wgmma`` at D 64 (one
+# warpgroup a block), 128 and 256 (two); ``mma`` at D 64 only.
+BWD_SHAPES_TC = [s for s in BWD_SHAPES if s[5] in fa.BWD_WGMMA_HEAD_DIMS]
+BWD_SHAPES_D64 = [s for s in BWD_SHAPES_TC if s[5] == 64]
+# bf16 forwards at head dim 256 on ``wgmma``: gemma3's heads causal in
+# 128-row blocks (two consumer warpgroups), recurrentgemma's with a window
+# and Sq < Skv; then decode (64-row blocks, the keys split) at gemma3's
+# local ring and recurrentgemma's cache, with per-slot kv_len.
+D256_FWD = [(2, 4, 1, 300, 300, 256, True, 0),
+            (1, 10, 1, 200, 260, 256, True, 64)]
+D256_DECODE = [(4, 4, 1, 512, (512, 300, 77, 1)),
+               (4, 10, 1, 1024, (601, 734, 867, 1000))]
 # Each gradient within this share of its largest magnitude: f32 sums the
 # same products in another order; bf16 rounds dq/dk/dv once on both sides,
 # and the tensor-core variants also round P and dS to bf16 as operands.
@@ -558,6 +568,72 @@ def test_flash_backward_mma_matches_plain_in_bf16(cuda, monkeypatch, b, hq,
     test_flash_backward_matches_plain(cuda, b, hq, hkv, sq, skv, d, causal,
                                       window, torch.bfloat16)
     assert fa.flash_attention_bwd.variant_launches["mma"] == before + 1
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", BWD_SHAPES_TC)
+def test_flash_backward_wgmma_repeats_its_bits(cuda, b, hq, hkv, sq, skv, d,
+                                               causal, window):
+    """bf16 at D 64, 128 and 256 runs the ``wgmma`` backward, and a second
+    call gives the same bits: every partial is summed in one fixed order,
+    the head columns split over two warpgroups at D 128 and 256 included."""
+    args = _flash_bwd_case(b, hq, hkv, sq, skv, d, causal, window,
+                           torch.bfloat16, cuda)
+    before = fa.flash_attention_bwd.variant_launches["wgmma"]
+    one = fa.flash_attention_bwd(*args, causal=causal, window=window)
+    two = fa.flash_attention_bwd(*args, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.variant_launches["wgmma"] == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(one, two))
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", D256_FWD)
+def test_flash_forward_d256_wgmma_matches_plain(cuda, b, hq, hkv, sq, skv, d,
+                                                causal, window):
+    """bf16 D 256 forwards run ``wgmma`` (without the LSE, where the plan
+    may split the keys, and with it, where it never does), match the plain
+    version and repeat their bits."""
+    q, k, v = _qkv(b, hq, hkv, sq, skv, d, torch.bfloat16, cuda)
+    before = fa.flash_attention.variant_launches["wgmma"]
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    out2 = flash_attention(q, k, v, causal=causal, window=window)
+    with_lse, lse = fa._forward(q, k, v, causal, window, None,
+                                save_lse=True)
+    again, lse2 = fa._forward(q, k, v, causal, window, None, save_lse=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.variant_launches["wgmma"] == before + 4
+    assert torch.equal(out, out2) and torch.equal(with_lse, again)
+    assert torch.equal(lse, lse2)
+    want, want_lse = ref.flash_reference_lse(q, k, v, causal=causal,
+                                             window=window)
+    for got in (out, with_lse):
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,hq,hkv,skv,lens", D256_DECODE)
+def test_flash_decode_d256_wgmma_matches_plain(cuda, b, hq, hkv, skv, lens):
+    """bf16 D 256 decode with per-slot kv_len runs ``wgmma`` with the keys
+    split over blocks, matches the plain version and repeats its bits; K/V
+    rows past kv_len hold NaN, which the kernel never lets into P.V."""
+    q, k, v = _qkv(b, hq, hkv, 1, skv, 256, torch.bfloat16, cuda)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    past = (torch.arange(skv, device=cuda)[None, :]
+            >= kv_len[:, None])[:, None, :, None]
+    p = fa.plan(b, hq, hkv, 1, skv, 256, torch.bfloat16)
+    assert p["variant"] == "wgmma" and p["kv_splits"] > 1
+    before = fa.flash_attention.variant_launches["wgmma"]
+    kn, vn = k.masked_fill(past, float("nan")), v.masked_fill(past,
+                                                              float("nan"))
+    one = flash_attention(q, kn, vn, kv_len=kv_len)
+    two = flash_attention(q, kn, vn, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.variant_launches["wgmma"] == before + 2
+    assert torch.equal(one, two) and torch.isfinite(one).all()
+    want = ref.flash_reference(q, k.masked_fill(past, 0),
+                               v.masked_fill(past, 0), kv_len=kv_len)
+    torch.testing.assert_close(one.float(), want.float(),
+                               **TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("variant,tiles", [("simt", (64, 32)),

@@ -6,7 +6,8 @@ forward's LSE against a float64 log-sum-exp; each backward variant's tile
 schedule (``plan_backward``, ``backward_schedule``, ``bwd_query_range``,
 ``bwd_key_range``; for ``wgmma`` the dK/dV work split over the query heads
 and the fixed-order sum of their partials) written out in plain PyTorch
-against the plain backward; and the blocked
+against the plain backward (at D 128 and 256 with the head columns split
+over the block's two warpgroups); and the blocked
 plain attention of long sequences against JAX.
 
 All in f32 on the CPU.  Tolerance: each gradient within 1e-5 of its largest
@@ -128,9 +129,12 @@ def schedule_backward(q, k, v, o, lse, do, *, causal, window, variant):
     head's partials, walking from the multiple of ``step`` at or below the
     range's first row, and a reduce pass sums the G heads of each kv head
     in head order; dQ blocks walk from the multiple of ``step`` at or below
-    the first key, the last row tile first.  Also returns the (b, head,
-    query, key) pairs each pass visits with a visible mask, as lists, so
-    that a pair visited twice shows."""
+    the first key, the last row tile first.  At ``dp`` 128 and 256 a
+    ``wgmma`` block's two warpgroups each accumulate their own ``dp / 2``
+    head columns of dK and dV (dQ); S and dP are split by query (key)
+    columns, which changes no element.  Also returns the (b, head, query,
+    key) pairs each pass visits with a visible mask, as lists, so that a
+    pair visited twice shows."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     group = hq // hkv
@@ -162,6 +166,11 @@ def schedule_backward(q, k, v, o, lse, do, *, causal, window, variant):
     seen_kv, seen_q = [], []
     keys, step = p["block"], p["step"]
     split = p["split_heads"]
+    # Each warpgroup's head columns of the dK/dV and dQ accumulators.
+    wgs = p["warpgroups"] if split else 1
+    if split:
+        assert p["dp"] == d and wgs == (1 if d == 64 else 2)
+    cols = [slice(w * d // wgs, (w + 1) * d // wgs) for w in range(wgs)]
 
     def first(lo):
         return lo // step * step if split else lo
@@ -186,8 +195,9 @@ def schedule_backward(q, k, v, o, lse, do, *, causal, window, variant):
                     pt, ds, qs, dos, _, pairs = tile(bi, h, kh, i0, nr, j0,
                                                      nk)
                     if split:
-                        part_v[bi, h, j0:j0 + nk] += pt.T @ dos
-                        part_k[bi, h, j0:j0 + nk] += ds.T @ qs
+                        for c in cols:
+                            part_v[bi, h, j0:j0 + nk, c] += pt.T @ dos[:, c]
+                            part_k[bi, h, j0:j0 + nk, c] += ds.T @ qs[:, c]
                     else:
                         dv[bi, kh, j0:j0 + nk] += pt.T @ dos
                         dk[bi, kh, j0:j0 + nk] += ds.T @ qs * scale
@@ -217,7 +227,8 @@ def schedule_backward(q, k, v, o, lse, do, *, causal, window, variant):
                     nk = min(step, skv - j0)
                     _, ds, _, _, ks, pairs = tile(bi, h, h // group, i0, nr,
                                                   j0, nk)
-                    dq[bi, h, i0:i0 + nr] += ds @ ks * scale
+                    for c in cols:
+                        dq[bi, h, i0:i0 + nr, c] += ds @ ks[:, c] * scale
                     seen_q += pairs
     return (dq, dk, dv), seen_kv, seen_q
 
@@ -238,15 +249,24 @@ def schedule_backward(q, k, v, o, lse, do, *, causal, window, variant):
     ("wgmma", 1, 4, 1, 150, 150, 64, True, 40),
     ("wgmma", 1, 14, 2, 77, 131, 64, True, 33),
     ("wgmma", 1, 2, 2, 37, 70, 64, False, 0),
+    ("wgmma", 1, 10, 1, 77, 140, 256, True, 40),
+    ("wgmma", 1, 4, 1, 100, 100, 256, True, 0),
+    ("wgmma", 1, 4, 1, 45, 130, 256, True, 0),
+    ("wgmma", 1, 8, 2, 70, 130, 128, True, 0),
+    ("wgmma", 1, 10, 1, 60, 100, 128, True, 33),
 ], ids=["causal-70", "sq<skv", "window-33", "full", "qwen2-heads",
         "d256-window-24", "mma-qwen2-heads", "mma-sq<skv", "mma-window-40",
         "mma-full",
         "wgmma-qwen2-heads", "wgmma-sq<skv", "wgmma-window-40",
-        "wgmma-window-33-sq<skv", "wgmma-full"])
+        "wgmma-window-33-sq<skv", "wgmma-full",
+        "wgmma-d256-g10-window-40-sq<skv", "wgmma-d256-g4-causal",
+        "wgmma-d256-g4-sq<skv", "wgmma-d128-g4-sq<skv",
+        "wgmma-d128-g10-window-33"])
 def test_backward_schedule_matches_plain(variant, b, hq, hkv, sq, skv, d,
                                          causal, window):
     """The schedule the plan picks (``simt`` for f32, ``wgmma`` for bf16 at
-    D 64), and ``mma`` as the forced schedule ``chip_smoke.py`` times."""
+    D 64, 128 and 256), and ``mma`` as the forced schedule
+    ``chip_smoke.py`` times."""
     if variant != "mma":
         dtype = torch.bfloat16 if variant == "wgmma" else torch.float32
         assert fa.plan_backward(b, hq, hkv, sq, skv, d, dtype)["variant"] \
@@ -278,16 +298,31 @@ def test_backward_schedule_matches_plain(variant, b, hq, hkv, sq, skv, d,
      (64, 8), (64, 56)),
     ((4, 14, 2, 2048, 2048, 64), torch.float32, True, "simt", 64, (64, 8),
      (64, 56)),
-    ((1, 32, 8, 96, 96, 128), torch.bfloat16, True, "simt", 128, (3, 8),
+    ((1, 32, 8, 96, 96, 128), torch.bfloat16, True, "wgmma", 128, (32, 2),
+     (32, 2)),
+    ((1, 32, 8, 96, 96, 128), torch.bfloat16, False, "simt", 128, (3, 8),
      (3, 32)),
+    ((1, 32, 8, 96, 96, 128), torch.float32, True, "simt", 128, (3, 8),
+     (3, 32)),
+    # mixtral-8x7b's train shape, 32/8 heads of 128, batch 2 x 2048
+    ((2, 32, 8, 2048, 2048, 128), torch.bfloat16, True, "wgmma", 128,
+     (64, 32), (64, 32)),
+    ((2, 32, 8, 2048, 2048, 128), torch.bfloat16, False, "simt", 128,
+     (64, 16), (64, 64)),
     ((2, 4, 1, 33, 70, 8), torch.bfloat16, True, "simt", 64, (3, 2),
      (2, 8)),
     ((1, 14, 2, 77, 131, 64), torch.bfloat16, True, "wgmma", 64, (14, 3),
      (14, 2)),
-    # gemma3-1b's and recurrentgemma-2b's train shapes: D 256 on simt
-    ((2, 4, 1, 2048, 2048, 256), torch.bfloat16, True, "simt", 256,
+    # gemma3-1b's and recurrentgemma-2b's train shapes: bf16 D 256 on
+    # wgmma, a dK/dV block per (b, q head, key tile); simt, the previous
+    # design, forced beside it
+    ((2, 4, 1, 2048, 2048, 256), torch.bfloat16, True, "wgmma", 256,
+     (8, 32), (8, 32)),
+    ((1, 10, 1, 2048, 2048, 256), torch.bfloat16, True, "wgmma", 256,
+     (10, 32), (10, 32)),
+    ((2, 4, 1, 2048, 2048, 256), torch.bfloat16, False, "simt", 256,
      (64, 2), (64, 8)),
-    ((1, 10, 1, 2048, 2048, 256), torch.bfloat16, True, "simt", 256,
+    ((1, 10, 1, 2048, 2048, 256), torch.bfloat16, False, "simt", 256,
      (64, 1), (64, 10)),
     ((2, 4, 1, 2048, 2048, 256), torch.float32, True, "simt", 256,
      (64, 2), (64, 8)),
@@ -328,6 +363,46 @@ def test_backward_scratch(variant, scratch, extra):
         assert ragged["scratch_floats"] == 2 * 14 * 128 + 2 * 14 * 131 * 64
     else:
         assert ragged["scratch_floats"] == 14 * 77
+
+
+@pytest.mark.parametrize("shape,scratch,grid_reduce", [
+    # gemma3-1b and recurrentgemma-2b train: 33.7 and 42.1 MB of scratch
+    ((2, 4, 1, 2048, 2048, 256), 2 * 8 * 2048 + 2 * 8 * 2048 * 256, 2048),
+    ((1, 10, 1, 2048, 2048, 256), 2 * 10 * 2048 + 2 * 10 * 2048 * 256,
+     1024),
+    # mixtral train: 2 x 67.1 MB of partials
+    ((2, 32, 8, 2048, 2048, 128), 2 * 64 * 2048 + 2 * 64 * 2048 * 128,
+     8192),
+    # ragged: the lse and D rows padded to 128, the partials to 131 keys
+    ((1, 10, 1, 77, 131, 256), 2 * 10 * 128 + 2 * 10 * 131 * 256, 66),
+])
+def test_backward_scratch_at_head_dims_128_and_256(shape, scratch,
+                                                   grid_reduce):
+    """The ``wgmma`` scratch at D 128 and 256: each query head's partial
+    dK and dV hold ``dp`` columns a key; the reduce pass sums them four
+    columns a thread."""
+    p = fa.plan_backward(*shape, torch.bfloat16)
+    assert (p["variant"], p["dp"], p["warpgroups"]) == ("wgmma", shape[5], 2)
+    assert p["scratch_floats"] == scratch
+    assert p["grid_reduce"] == grid_reduce
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 1, 2048, 2048, 256),
+                                   (1, 10, 1, 2048, 2048, 256),
+                                   (1, 10, 1, 77, 140, 256)])
+def test_simt_schedule_at_head_dim_256_is_unchanged(shape):
+    """``backward_schedule("simt", ...)``, which ``chip_smoke.py`` forces to
+    time the previous design beside ``wgmma``, still gives the CUDA-core
+    schedule of bf16 D 256: 32-key and 32-row tiles, a dK/dV block per
+    (key tile, b, kv head) walking the G heads, D per query row as its
+    scratch."""
+    b, hq, hkv, sq, skv, d = shape
+    p = fa.backward_schedule("simt", *shape)
+    assert p == {"variant": "simt", "block": 32, "step": 32, "dp": 256,
+                 "split_heads": False,
+                 "grid_dkdv": (-(-skv // 32), b * hkv),
+                 "grid_dq": (-(-sq // 32), b * hq),
+                 "scratch_floats": b * hq * sq}
 
 
 @pytest.mark.parametrize("d", [12, 264])

@@ -156,22 +156,30 @@ def test_moe_gemm_backward_plan(shape, dtype, aligned, expect):
     ((40, 8, 8, 1, 4096, 64), BF16, True, ("wgmma", 1, 1)),  # grid full
     ((4, 14, 2, 1, 128, 64), F32, True, ("simt", 1, 1)),   # f32 stays f32
     ((2, 7, 1, 1, 40, 8), BF16, True, ("simt", 1, 1)),     # smoke head dim
-    ((3, 4, 2, 33, 70, 256), BF16, True, ("simt", 9, 1)),  # widest head
+    # widest head: 66 rows, one 128-row block, keys split in two
+    ((3, 4, 2, 33, 70, 256), BF16, True, ("wgmma", 1, 2)),
     ((4, 14, 2, 1, 128, 64), BF16, False, ("simt", 1, 1)),  # unaligned
     # 65536 row tiles: more than the grid's y axis holds
     ((1, 64, 1, 65536, 65536, 64), BF16, True, ("simt", 524288, 1)),
-    # gemma3-1b's train shape (4/1 heads of 256) and decode (4 slots),
-    # recurrentgemma-2b's (10/1 heads of 256): D 256 stays on simt
-    ((2, 4, 1, 2048, 2048, 256), BF16, True, ("simt", 1024, 1)),
-    ((4, 4, 1, 1, 512, 256), BF16, True, ("simt", 1, 1)),
-    ((1, 10, 1, 2048, 2048, 256), BF16, True, ("simt", 2560, 1)),
-    ((4, 10, 1, 1, 1024, 256), BF16, True, ("simt", 2, 1)),
+    # gemma3-1b's train shape (4/1 heads of 256) and decode (4 slots,
+    # local ring and global cache), recurrentgemma-2b's (10/1 heads of
+    # 256): bf16 D 256 on wgmma, 128-row blocks (two consumer warpgroups)
+    # where a block has more than 64 rows' work, 64-row blocks with the
+    # keys split at decode
+    ((2, 4, 1, 2048, 2048, 256), BF16, True, ("wgmma", 64, 1)),
+    ((4, 4, 1, 1, 512, 256), BF16, True, ("wgmma", 1, 8)),
+    ((4, 4, 1, 1, 1024, 256), BF16, True, ("wgmma", 1, 8)),
+    ((1, 10, 1, 2048, 2048, 256), BF16, True, ("wgmma", 160, 1)),
+    ((4, 10, 1, 1, 1024, 256), BF16, True, ("wgmma", 1, 8)),
+    ((2, 4, 1, 2048, 2048, 256), F32, True, ("simt", 1024, 1)),  # f32
 ])
 def test_flash_plan(shape, dtype, aligned, expect):
     p = fa.plan(*shape, dtype, aligned=aligned)
     assert (p["variant"], p["row_tiles"], p["kv_splits"]) == expect
+    b, hq, hkv, sq, skv, d = shape
+    wide = d == 256 and hq // hkv * sq > 64
     assert (p["block_q"], p["block_kv"]) == (
-        (64, 64) if p["variant"] == "wgmma" else (8, 32))
+        ((128 if wide else 64), 64) if p["variant"] == "wgmma" else (8, 32))
 
 
 @pytest.mark.parametrize("shape,dtype,aligned,expect", [
@@ -277,22 +285,57 @@ def test_split_kv_main_path_plan_matches_one_block():
                                **SPLIT_TOL)
 
 
-@pytest.mark.parametrize("shape,dtype,dp,grid_dkdv,grid_dq", [
-    ((2, 4, 1, 2048, 2048, 256), BF16, 256, (64, 2), (64, 8)),   # gemma3
-    ((1, 10, 1, 2048, 2048, 256), BF16, 256, (64, 1), (64, 10)),  # rg-2b
-    ((2, 4, 1, 2048, 2048, 256), F32, 256, (64, 2), (64, 8)),
-    ((1, 2, 1, 40, 40, 200), BF16, 256, (2, 1), (2, 2)),   # padded to 256
+@pytest.mark.parametrize("shape,lens", [
+    # gemma3-1b's global decode: 4 slots behind 1024 rows, 8 splits
+    ((4, 4, 1, 1, 1024, 256), (601, 734, 867, 1000)),
+    # 66 rows in one 128-row block (two consumer warpgroups), 2 splits
+    ((3, 4, 2, 33, 70, 256), None),
 ])
-def test_flash_backward_plan_at_head_dim_256(shape, dtype, dp, grid_dkdv,
-                                             grid_dq):
-    """D 256 trains on the CUDA-core backward: 32-key and 32-row tiles
-    over the head dim padded to 256, D per query row as its scratch."""
+def test_split_kv_d256_plan_matches_one_block(shape, lens):
+    """The D 256 ``wgmma`` plans as the card runs them (64-row blocks at
+    decode, 128-row blocks above 64 rows, the plan's splits) equal the
+    unsplit plain version."""
+    p = fa.plan(*shape, BF16)
+    assert p["variant"] == "wgmma" and p["kv_splits"] > 1
+    q, k, v = map(torch.from_numpy, _qkv(*shape, seed=8))
+    kv_len = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+    out = split_reference(
+        q, k, v, kv_len=kv_len, splits=p["kv_splits"],
+        block_q=p["block_q"], block_kv=p["block_kv"])
+    torch.testing.assert_close(out, ref.flash_reference(q, k, v,
+                                                        kv_len=kv_len),
+                               **SPLIT_TOL)
+
+
+@pytest.mark.parametrize("shape,dtype,variant,grid_dkdv,grid_dq,scratch", [
+    # gemma3-1b: 8 heads x 32 key tiles; the lse and D rows, then 2 x
+    # 16.8 MB of f32 partials
+    ((2, 4, 1, 2048, 2048, 256), BF16, "wgmma", (8, 32), (8, 32),
+     2 * 8 * 2048 + 2 * 8 * 2048 * 256),
+    # recurrentgemma-2b: 10 heads, 2 x 21.0 MB of partials
+    ((1, 10, 1, 2048, 2048, 256), BF16, "wgmma", (10, 32), (10, 32),
+     2 * 10 * 2048 + 2 * 10 * 2048 * 256),
+    # f32 stays on the CUDA cores, D per query row as its scratch
+    ((2, 4, 1, 2048, 2048, 256), F32, "simt", (64, 2), (64, 8),
+     8 * 2048),
+    # D 200 is padded to 256 on simt, in bf16 too
+    ((1, 2, 1, 40, 40, 200), BF16, "simt", (2, 1), (2, 2), 2 * 40),
+])
+def test_flash_backward_plan_at_head_dim_256(shape, dtype, variant,
+                                             grid_dkdv, grid_dq, scratch):
+    """bf16 D 256 trains on the tensor-core backward: 64-key and 64-row
+    tiles, the dK/dV work split over the query heads, two warpgroups a
+    block splitting the head columns, and each head's f32 partials in its
+    scratch; f32 and other head dims on the CUDA cores, 32-key and 32-row
+    tiles over the head dim padded to 256."""
     p = fa.plan_backward(*shape, dtype)
-    b, hq, _, sq = shape[:4]
-    assert (p["variant"], p["block"], p["step"], p["dp"]) == (
-        "simt", 32, 32, dp)
+    tiles = (64, 64) if variant == "wgmma" else (32, 32)
+    assert (p["variant"], (p["block"], p["step"]), p["dp"]) == (
+        variant, tiles, 256)
     assert (p["grid_dkdv"], p["grid_dq"]) == (grid_dkdv, grid_dq)
-    assert p["scratch_floats"] == b * hq * sq and not p["split_heads"]
+    assert p["scratch_floats"] == scratch
+    assert p["split_heads"] == (variant == "wgmma")
+    assert p.get("warpgroups") == (2 if variant == "wgmma" else None)
 
 
 @pytest.mark.parametrize("sq,skv,window", [(2048, 2048, 512),
