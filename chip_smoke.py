@@ -196,10 +196,14 @@ Phases; any failure exits non-zero before the last line is printed:
     same call).
     Per model: (a) the smoke config on the card against the CPU, logits at
     S 16 and 2048 and 8 requests served under phase 10's admission flags;
-    (b) full width cut to one group and the tail: loss and every gradient
-    through the kernels against the plain path (f32 worst leaf within 1e-3,
-    bf16 by the bf16 rule), and a decode step at 4 slots at positions
-    600-999 behind 1024 rows (past gemma3's 512-row ring); (c) the train
+    (b) full width cut to one group and the tail: every flash call of the
+    forward, f32 and bf16, against its plain version on the q/k/v the
+    model feeds it; loss and every gradient through the kernels against
+    the plain path (f32: each leaf within 1e-3, or within twice its
+    distance between the plain path and the plain path with f64
+    attention; bf16 by the bf16 rule), and a decode step at 4 slots at
+    positions 600-999 behind 1024 rows (past gemma3's 512-row ring);
+    (c) the train
     launcher's loop (remat dtr, AdamW, batch 2 x 2048, 3 steps) at full
     depth (recurrentgemma at 8 layers): flash launches per step by variant,
     all ``wgmma``, finite losses, step wall, device busy, idle share,
@@ -207,17 +211,47 @@ Phases; any failure exits non-zero before the last line is printed:
     slots, 16 tokens each, every flash launch on ``wgmma``, and one decode
     step's wall and busy.
 
+13. llama-3.2-vision-11b and musicgen-large (each model's wall time
+    printed): cross attention (text rows against 1601 image rows, no mask,
+    Sq != Skv, on the flash kernels with ``causal=False``) and MHA (G 1) at
+    D 64, with codebook embeddings and heads; phase 2 holds the flash
+    forward (LSE) and backward at their train shapes (``FLASH_NEW``) and
+    the forward at their decode shapes (``NEW_DECODE``), and phase 5 times
+    them beside ``simt``, the plain versions and SDPA (non-causal with GQA,
+    and its backward).  Per model: (a) the smoke config on the card
+    against the CPU: logits (with an image; ``[B,S,K,V]`` for musicgen) at
+    S 16 and 2048, greedy tokens through ``make_serve_step`` on both
+    position clocks, and for musicgen 3 steps of the train launcher's
+    loop; (b) full width cut to one group (vision: 4 self + 1 cross layer,
+    batch 1 x 2048 against a [1,1601,7680] image) or 2 layers (musicgen),
+    held as phase 12's (b) (vision's f32 gradient at this cut moves
+    1e-2 when only the plain attention's rounding changes, so its leaves
+    are held by the second limit); (c)
+    vision at that cut trains 3 steps at batch 2 x 2048 through
+    ``make_train_step`` (remat dtr, AdamW), musicgen whole (48 layers)
+    through the train launcher's loop: flash launches per step by
+    variant, all ``wgmma`` (vision's also by mask, self and cross), finite
+    losses, wall, busy, idle share,
+    tokens/s, peak; (d) the whole model decodes 32 greedy steps for 4
+    slots (vision against a [4,1601,7680] image): tokens, launches (every
+    self layer with ``kv_len``, every cross layer's cross call, all
+    ``wgmma``), ms a step, one step's wall and busy.  The launchers refuse
+    vision (no ``img_embed``) and musicgen's serve launcher (a ``[slots,
+    1]`` token buffer), as the reference's fail there.
+
 Phase 4 also holds layer 0 alone in bf16 (attention output, MLP or MoE
 output), kernel against plain on the same inputs, to the kernels' own
 tolerances.  The qwen2 phases run first and free their tensors before
 mixtral's 36 GB (f32 weights and their bf16 copy) arrive; rwkv6 comes
-next, then phase 11 (MoE training and deepseek-v3), phase 12, the eager
-executor, the planner, phase 9 and phase 10.  Then
-the JSON line of phase 9's rows, phase 11's and phase 12's JSON lines, one
+next, then phase 11 (MoE training and deepseek-v3), phases 12 and 13, the
+eager executor, the planner, phase 9 and phase 10.  Then
+the JSON line of phase 9's rows, phase 11's, 12's and 13's JSON lines, one
 JSON line per kernel table (the flash rows with each train shape's
 launches, times, bound and SDPA's time, at head dim 256 under
-``d256_shapes`` and at mixtral's under ``d128_shapes``, each with its
-``simt`` time as ``previous_ms``; the grouped GEMM's rows at phase 11's shapes, and its
+``d256_shapes``, at mixtral's under ``d128_shapes`` (with phase 13a's
+self-attention launches) and at phase 13's under
+``vision_musicgen_shapes``, each with its ``simt`` time as
+``previous_ms``; the grouped GEMM's rows at phase 11's shapes, and its
 backward's), the card line, and ``{"ok": true, "device": {...}}`` as the
 last line.
 """
@@ -451,6 +485,41 @@ D256_DECODE = {
     "recurrentgemma-2b decode": dict(b=4, hq=10, hkv=1, sq=1, skv=1024,
                                      d=256, kv_len=tuple(p + 1
                                                          for p in D256_POS))}
+# Phase 13: llama-3.2-vision-11b and musicgen-large at full width.  Their
+# flash shapes, held in phase 2 like the cases above (forward with the LSE,
+# backward, a second call's bits) and timed there beside ``simt``, the
+# plain versions and SDPA: vision's cross layers at batch 2 x 2048 text
+# rows against the 1601 image rows, no mask (1601 = 25 key tiles of 64 and
+# one of 1 key), GQA 32/8 at D 128; musicgen's train step, MHA 32/32 at D
+# 64 (G 1).  Then their decode shapes: one row a slot against the 1601
+# image rows (no kv_len: the keys split over blocks), and musicgen's cache
+# at phase 12's positions (G 1: one live row of a 64-row block).
+VISION_ARCH, MUSIC_ARCH = "llama-3.2-vision-11b", "musicgen-large"
+FLASH_NEW = {
+    "llama-3.2-vision-11b cross": (2, 32, 8, 2048, 1601, 128, False, 0),
+    "musicgen-large": (2, 32, 32, 2048, 2048, 64, True, 0)}
+NEW_DECODE = {
+    "llama-3.2-vision-11b cross decode": dict(
+        b=4, hq=32, hkv=8, sq=1, skv=1601, d=128, kv_len=None,
+        causal=False),
+    "musicgen-large decode": dict(b=4, hq=32, hkv=32, sq=1,
+                                  skv=D256_MAX_LEN, d=64,
+                                  kv_len=tuple(p + 1 for p in D256_POS))}
+# 13a cuts vision to one group, 4 self + 1 cross layer (2.19 B parameters),
+# for kernel-vs-plain parity at batch 1 x 2048 and the train step at batch
+# 2 x 2048; its whole 40 layers (10.17 B parameters, 40.7 GB in f32, a
+# 20.3 GB bf16 copy kept) decode.  13b cuts musicgen to 2 layers for parity;
+# its train launcher and decode run the whole 48 layers (3.23 B parameters,
+# 51.7 GB of f32 parameters, gradients and AdamW moments before the
+# activations).  Images are N(0, 1) x 0.1, as tests/test_archs.py draws
+# them.
+VISION_CUT = 5
+VISION_PARITY_BATCH = 1
+MUSIC_PARITY_LAYERS = 2
+NEW_BATCH, NEW_SEQ, NEW_STEPS = 2, 2048, 3
+NEW_DECODE_SLOTS, NEW_DECODE_STEPS = 4, 32
+SMOKE_DECODE_STEPS = 12
+IMG_SCALE = 0.1
 # The forward's row log-sum-exp, f32 on both sides.
 LSE_TOL = 1e-4
 # qwen2-0.5b training (phases 5, 6): full width, batch 4 x 2048.
@@ -752,13 +821,13 @@ def flash_bwd_bound_ms(case, itemsize):
     """Least time for the attention backward: q, k, v, o, dO and the f32
     LSE read once and dq, dk, dv written once, over the memory rate,
     against its five score-area products (S, dP, dV, dQ, dK: 2 * D FLOPs
-    each per visible pair and query head) at the bf16 tensor-core peak."""
+    each per visible pair and query head) at the bf16 tensor-core peak.
+    A non-causal call sees all Sq * Skv pairs."""
     b, hq, hkv, sq, skv, d, causal, window = case
-    require(causal, "bound for causal calls")
+    pairs = visible_pairs(b, sq, skv, window) if causal else b * sq * skv
     nbytes = (4 * b * hq * sq * d + 4 * b * hkv * skv * d) * itemsize \
         + 4 * b * hq * sq
-    return bound(nbytes, 10 * hq * d * visible_pairs(b, sq, skv, window),
-                 "bfloat16")
+    return bound(nbytes, 10 * hq * d * pairs, "bfloat16")
 
 
 def flash_bwd_checks(torch, gen, cases=FLASH_BWD_CASES,
@@ -859,11 +928,18 @@ def flash_bwd_checks(torch, gen, cases=FLASH_BWD_CASES,
 
 
 @contextmanager
-def plain_kernels(ops, ref):
+def plain_kernels(ops, ref, f64=False):
     """Route the model's kernels to their plain versions, CUDA tensors
-    too."""
+    too; ``f64``: flash attention's plain version computes in f64 and its
+    output is cast back to the inputs' dtype (the same function rounded
+    once, with no kernel in it)."""
     kernels = ops.flash_attention, ops.moe_gemm, ops.rwkv6_chunk
-    ops.flash_attention = ref.flash_reference
+
+    def flash64(q, k, v, **kw):
+        return ref.flash_reference(q.double(), k.double(), v.double(),
+                                   **kw).to(q.dtype)
+
+    ops.flash_attention = flash64 if f64 else ref.flash_reference
     ops.moe_gemm = ref.moe_gemm_reference
     ops.rwkv6_chunk = ref.rwkv6_reference
     try:
@@ -1557,11 +1633,12 @@ def rwkv_train_phases(torch, card, gen) -> dict:
 
 
 def _train_batch(torch, cfg, step=0, batch=QWEN_BATCH, seq=QWEN_SEQ):
-    """Step ``step``'s tokens of the synthetic stream, on the card."""
+    """Step ``step``'s tokens of the synthetic stream (``[B,S,K]`` for a
+    codebook model), on the card."""
     from repro_torch.data.pipeline import SyntheticLM
     return {"tokens": torch.from_numpy(SyntheticLM(
-        vocab=cfg.vocab, seq_len=seq, batch=batch,
-        seed=0).batch_at(step)["tokens"]).cuda()}
+        vocab=cfg.vocab, seq_len=seq, batch=batch, seed=0,
+        n_codebooks=cfg.n_codebooks).batch_at(step)["tokens"]).cuda()}
 
 
 def _step_kernels_ms(names, parts, calls):
@@ -1573,34 +1650,38 @@ def _step_kernels_ms(names, parts, calls):
                                          for p, ms in found.items()}
 
 
-def flash_train_times(torch, card, gen, shapes=None, fresh=False) -> dict:
+def flash_train_times(torch, card, gen, shapes=None, fresh=False,
+                      simt=False) -> dict:
     """Phase 5 for the flash kernels at each train shape of ``shapes``
     (phase 5's by default), before any large profile: the forward that
     saves the LSE and the backward (with each pass's device time) on
     their planned variants, beside their bounds, their plain versions and
     SDPA's forward and backward on the same call (timed apart; a windowed
-    call with an explicit boolean mask); at qwen2's shape also the
-    backward's earlier designs, ``mma`` and ``simt``; at head dims 128 and
-    256 the forward's and the backward's earlier design, ``simt``, on the
-    same inputs.  ``fresh``: each shape draws from a generator of its own.
+    call with an explicit boolean mask, a non-causal one with none); at
+    qwen2's shape also the backward's earlier designs, ``mma`` and
+    ``simt``; at head dims 128 and 256, and everywhere with ``simt``, the
+    forward's and the backward's earlier design, ``simt``, on the same
+    inputs.  ``fresh``: each shape draws from a generator of its own.
     Returns the rows by name."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     rows = {}
     for arch, case in (shapes or FLASH_TRAIN_SHAPES).items():
-        b, hq, hkv, sq, skv, d, _, window = case
+        b, hq, hkv, sq, skv, d, causal, window = case
         shape = dict(b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, d=d, kv_len=None)
         g = own_gen(torch, f"{arch} times", gen,
                     (f"{arch} times",) if fresh else ())
         q, k, v, _ = inputs(torch, shape, torch.bfloat16, g)
         do = torch.randn(q.shape, generator=g,
                          device="cuda").to(torch.bfloat16)
-        out, lse = fa._forward(q, k, v, True, window, None, save_lse=True)
+        out, lse = fa._forward(q, k, v, causal, window, None, save_lse=True)
         xs = [t.detach().requires_grad_() for t in (q, k, v)]
         # A window as long as the sequence is plain causal attention.
-        lib_kw = (dict(is_causal=True) if window in (0, sq) else
+        lib_kw = ({} if not causal else
+                  dict(is_causal=True) if window in (0, sq) else
                   dict(attn_mask=_window_mask(torch, sq, skv, window)))
+        earlier_fwd = simt or d != 64
         lib_out = F.scaled_dot_product_attention(*xs, enable_gqa=True,
                                                  **lib_kw)
         variant = fa.plan_backward(*case[:6], torch.bfloat16)["variant"]
@@ -1609,36 +1690,37 @@ def flash_train_times(torch, card, gen, shapes=None, fresh=False) -> dict:
             f"{arch}'s train forward and backward planned on wgmma")
 
         def fwd_call():
-            return fa._forward(q, k, v, True, window, None, save_lse=True)
+            return fa._forward(q, k, v, causal, window, None, save_lse=True)
 
         fwd = time_row(torch, (
             ("ms", fwd_call),
-            *((("simt_ms", fwd_call),) if d != 64 else ()),
+            *((("simt_ms", fwd_call),) if earlier_fwd else ()),
             ("plain_ms", lambda: ref.flash_reference_lse(
-                q, k, v, causal=True, window=window)),
+                q, k, v, causal=causal, window=window)),
             ("library_ms", lambda: F.scaled_dot_product_attention(
                 q, k, v, enable_gqa=True, **lib_kw))), 10,
-            attention_bound_ms(shape, True, 2, "bfloat16", window),
-            f"flash_attention train forward, {arch} {list(case[:6])} window "
-            f"{window} bf16, saving the LSE (library: SDPA forward"
-            f"{'; simt_ms: the previous design' if d != 64 else ''})", card,
-            {"ms": 1, "simt_ms": 1})
+            attention_bound_ms(shape, causal, 2, "bfloat16", window),
+            f"flash_attention train forward, {arch} {list(case[:6])} causal "
+            f"{causal} window {window} bf16, saving the LSE (library: SDPA "
+            f"forward"
+            f"{'; simt_ms: the previous design' if earlier_fwd else ''})",
+            card, {"ms": 1, "simt_ms": 1})
         bwd = (lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
-                                              causal=True, window=window))
+                                              causal=causal, window=window))
         earlier = ((("mma_ms", bwd), ("simt_ms", bwd))
                    if case == FLASH_TRAIN else
-                   (("simt_ms", bwd),) if d != 64 else ())
+                   (("simt_ms", bwd),) if earlier_fwd else ())
         rows[arch] = {"fwd": fwd, "bwd": time_row(torch, (
             ("ms", bwd), *earlier,
             ("plain_ms", lambda: ref.flash_backward_reference(
-                q, k, v, out, lse, do, causal=True, window=window)),
+                q, k, v, out, lse, do, causal=causal, window=window)),
             ("library_ms", lambda: torch.autograd.grad(
                 lib_out, xs, do, retain_graph=True))), 5,
             flash_bwd_bound_ms(case, 2),
-            f"flash_attention_bwd, {arch} {list(case[:6])} window {window} "
-            f"bf16 (ms: {variant}"
+            f"flash_attention_bwd, {arch} {list(case[:6])} causal {causal} "
+            f"window {window} bf16 (ms: {variant}"
             f"{'; mma_ms: the previous design' if case == FLASH_TRAIN else ''}"
-            f"{'; simt_ms: the previous design' if d != 64 else ''}; "
+            f"{'; simt_ms: the previous design' if earlier_fwd else ''}; "
             f"library: SDPA's backward alone)", card,
             {"ms": 4, "mma_ms": 3, "simt_ms": 3},
             {"ms": FLASH_STEP_KERNELS["flash_attention_bwd"],
@@ -1662,12 +1744,24 @@ def d256_kernel_checks(torch, gen) -> dict:
     errs = flash_bwd_checks(torch, gen, list(FLASH_D256.values()),
                             FLASH_D256,
                             tuple(str(c) for c in FLASH_D256.values()))
+    return {**errs, **decode_kernel_checks(torch, gen, D256_DECODE)}
+
+
+def decode_kernel_checks(torch, gen, shapes) -> dict:
+    """Phase 2 for the flash forward at the decode shapes ``shapes`` (by
+    name; a shape without ``causal`` is causal, one with ``kv_len`` None
+    sees every key): against ``flash_reference`` and a second call's bits,
+    f32 on ``simt`` and bf16 on ``wgmma``.  Each shape draws from a
+    generator of its own.  Returns the bf16 max abs errors by name."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    errs = {}
     for dtype_name, dtype in (("float32", torch.float32),
                               ("bfloat16", torch.bfloat16)):
-        for what, shape in D256_DECODE.items():
+        for what, shape in shapes.items():
             q, k, v, kv_len = inputs(torch, shape, dtype,
                                      own_gen(torch, what, gen, (what,)))
-            kw = dict(causal=True, kv_len=kv_len)
+            kw = dict(causal=shape.get("causal", True), kv_len=kv_len)
             want = "wgmma" if dtype == torch.bfloat16 else "simt"
             require(fa.plan(*(shape[n] for n in ("b", "hq", "hkv", "sq",
                                                   "skv", "d")),
@@ -1694,28 +1788,31 @@ def _window_mask(torch, sq, skv, window):
     return (j <= i) & (i - j < window)
 
 
-def flash_decode_d256_times(torch, card, gen) -> dict:
-    """Phase 5 for the flash forward at each decode shape of
-    ``D256_DECODE`` (``wgmma``), beside its previous design (``simt``) on
-    the same inputs, the bound, the plain version and SDPA with ``kv_len``
-    as its mask.  Returns the rows by shape name."""
+def flash_decode_times(torch, card, gen, shapes) -> dict:
+    """Phase 5 for the flash forward at each decode shape of ``shapes``
+    (``wgmma``; causal unless the shape says otherwise), beside its
+    previous design (``simt``) on the same inputs, the bound, the plain
+    version and SDPA with ``kv_len`` as its mask (none where ``kv_len`` is
+    None).  Returns the rows by shape name."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     rows = {}
-    for what, shape in D256_DECODE.items():
+    for what, shape in shapes.items():
         q, k, v, kv_len = inputs(torch, shape, torch.bfloat16, own_gen(
             torch, f"{what} times", gen, (f"{what} times",)))
-        kw = dict(causal=True, kv_len=kv_len)
-        keep = (torch.arange(shape["skv"], device="cuda")[None, :]
-                < kv_len[:, None])[:, None, None, :]
+        causal = shape.get("causal", True)
+        kw = dict(causal=causal, kv_len=kv_len)
+        keep = None if kv_len is None else (
+            torch.arange(shape["skv"], device="cuda")[None, :]
+            < kv_len[:, None])[:, None, None, :]
         rows[what] = {"fwd": time_row(torch, (
             ("ms", lambda: fa.flash_attention(q, k, v, **kw)),
             ("simt_ms", lambda: fa.flash_attention(q, k, v, **kw)),
             ("plain_ms", lambda: ref.flash_reference(q, k, v, **kw)),
             ("library_ms", lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=keep, enable_gqa=True))), 100,
-            attention_bound_ms(shape, True, 2, "bfloat16"),
+            attention_bound_ms(shape, causal, 2, "bfloat16"),
             f"flash_attention, {what} {shape} bf16, wgmma (simt_ms: the "
             f"previous design)", card)}
         del q, k, v, kv_len, keep
@@ -3458,17 +3555,19 @@ def deepseek_phase(torch, card, gen) -> dict:
 
 
 def attention_kinds(cfg) -> collections.Counter:
-    """Layers of each attention kind (``attn``, ``attn_local``) in the
-    order-free count of ``cfg``'s stacks."""
+    """Layers of each attention kind (``attn``, ``attn_local``, ``cross``)
+    in the order-free count of ``cfg``'s stacks."""
     kinds = (["attn"] * cfg.n_dense_layers + list(cfg.pattern) * cfg.n_groups
              + list(cfg.tail))
-    return collections.Counter(k for k in kinds if k.startswith("attn"))
+    return collections.Counter(k for k in kinds
+                               if k.startswith("attn") or k == "cross")
 
 
 def decode_logits(torch, cfg, params, base, tok, pos, dtype, plain,
-                  want) -> "torch.Tensor":
+                  want, img=None) -> "torch.Tensor":
     """One decode step's f32 logits at ``dtype`` through the kernels or
-    (``plain``) their plain versions, on a copy of the cache ``base``.  A
+    (``plain``) their plain versions, on a copy of the cache ``base``
+    (against the image ``img`` for a model with ``cross`` blocks).  A
     kernel step must launch flash attention (and the grouped GEMM, for an
     MoE model) on the variant ``want[dtype]`` only."""
     from repro_torch.kernels import ops, ref
@@ -3480,7 +3579,7 @@ def decode_logits(torch, cfg, params, base, tok, pos, dtype, plain,
     with torch.inference_mode(), (plain_kernels(ops, ref) if plain
                                   else nullcontext()):
         logits, _ = M.decode_step(c, M.prepare_params(c, params), tok,
-                                  cache, pos)
+                                  cache, pos, img)
     torch.cuda.synchronize()
     if not plain:
         variants = read_variants()
@@ -3492,9 +3591,15 @@ def decode_logits(torch, cfg, params, base, tok, pos, dtype, plain,
                     if name in ("flash_attention", "moe_gemm")),
                 f"{dtype} decode step on the {want[dtype]} variants")
     require(bool(torch.isfinite(logits).all())
-            and logits.shape == (len(pos), 1, cfg.vocab),
-            f"finite {dtype} logits of shape [slots, 1, vocab]")
+            and logits.shape == token_shape(cfg, len(pos), 1)
+            + (cfg.vocab,),
+            f"finite {dtype} logits of shape [slots, 1, (K,) vocab]")
     return logits.float()
+
+
+def token_shape(cfg, b, s) -> tuple:
+    """``(b, s)``, or ``(b, s, K)`` for a codebook model."""
+    return (b, s, cfg.n_codebooks) if cfg.n_codebooks else (b, s)
 
 
 def decode_inputs(torch, cfg, slots, max_len, g):
@@ -3504,78 +3609,322 @@ def decode_inputs(torch, cfg, slots, max_len, g):
     base = tree_map(lambda c: torch.randn(c.shape, generator=g,
                                           device="cuda"),
                     M.cache_defs(cfg, slots, max_len))
-    tok = torch.randint(0, cfg.vocab, (slots, 1), generator=g,
-                        device="cuda", dtype=torch.int32)
+    tok = torch.randint(0, cfg.vocab, token_shape(cfg, slots, 1),
+                        generator=g, device="cuda", dtype=torch.int32)
     return base, tok
 
 
-def gemma_smoke_phase(torch, arch) -> None:
-    """Phase 12a: the smoke config on the card against the CPU: forward
-    logits at S 16 and at S 2048 (the plain attention's blocked branch on
-    the CPU), flash launches once an attention layer; then 8 requests
+def flash_layers(cfg) -> tuple:
+    """``(self, cross)``: the layers of ``cfg`` that run self attention (a
+    ``cross`` block's first half included) and those that also run cross
+    attention; each is one flash call a forward."""
+    kinds = attention_kinds(cfg)
+    return sum(kinds.values()), kinds["cross"]
+
+
+def image(torch, cfg, b, g):
+    """``[b, cross_attn_tokens, cross_attn_dim]`` image embeddings, N(0, 1)
+    x ``IMG_SCALE``, drawn from ``g`` on its device; None (and nothing
+    drawn) for a model without ``cross`` blocks."""
+    if not cfg.cross_attn_dim:
+        return None
+    return torch.randn(b, cfg.cross_attn_tokens, cfg.cross_attn_dim,
+                       generator=g, device=g.device) * IMG_SCALE
+
+
+@contextmanager
+def flash_by_mask():
+    """Count flash launches by direction and mask while the block runs:
+    yields a Counter keyed ``(fwd or bwd, self or cross)``, read off each
+    launch's ``causal`` flag (a model's only non-causal calls are its cross
+    attention): the forward's at ``_forward``, the backward's at the
+    autograd function's ``backward``, each of which launches its kernels
+    once.  It observes the launches; the wrappers' counts are untouched."""
+    from repro_torch.kernels import flash_attention as fa
+    tally = collections.Counter()
+    forward, backward = fa._forward, fa._Flash.backward
+
+    def counted_forward(q, k, v, causal, window, kv_len, save_lse):
+        out = forward(q, k, v, causal, window, kv_len, save_lse)
+        tally["fwd", "self" if causal else "cross"] += 1
+        return out
+
+    def counted_backward(ctx, do):
+        grads = backward(ctx, do)
+        tally["bwd", "self" if ctx.causal else "cross"] += 1
+        return grads
+
+    fa._forward, fa._Flash.backward = (counted_forward,
+                                       staticmethod(counted_backward))
+    try:
+        yield tally
+    finally:
+        fa._forward, fa._Flash.backward = forward, staticmethod(backward)
+
+
+def smoke_phase(torch, arch, phase) -> None:
+    """Phases 12a and 13a/13b, first part: the smoke config on the card
+    against the CPU.  Forward logits at S 16 and at S 2048 (the plain
+    attention's blocked branch on the CPU), with an image for a model with
+    ``cross`` blocks and ``[B,S,K,V]`` for codebooks; flash launches once a
+    self-attention layer and once more a cross layer.  Then, where the
+    serve launcher takes the model (gemma3, recurrentgemma), 8 requests
     served over 4 slots under phase 10's admission flags (preemptions on):
-    the same tokens and counters."""
+    the same tokens and counters; where it refuses the model, as the
+    reference's fails on it (vision, musicgen), greedy decode through
+    ``make_serve_step`` on the scalar clock and on per-slot clocks,
+    ``SMOKE_DECODE_STEPS`` steps: the same tokens.  A codebook model also
+    runs 3 steps of the train launcher's loop (its defaults): the same
+    losses."""
     from repro_torch import configs
-    from repro_torch.launch import serve
+    from repro_torch.launch import train
     from repro_torch.models import model as M
     from repro_torch.models.params import tree_map
     smoke = configs.get_smoke(arch)
-    n_attn = sum(attention_kinds(smoke).values())
+    calls = sum(flash_layers(smoke))
     cpu_params = M.init_params(smoke, torch.Generator().manual_seed(0))
     card_params = tree_map(lambda t: t.cuda(), cpu_params)
     cpu_gen = torch.Generator().manual_seed(1)
     for b, s in ((2, 16), (1, 2048)):
-        tokens = torch.randint(0, smoke.vocab, (b, s), generator=cpu_gen,
-                               dtype=torch.int32)
+        tokens = torch.randint(0, smoke.vocab, token_shape(smoke, b, s),
+                               generator=cpu_gen, dtype=torch.int32)
+        img = image(torch, smoke, b, cpu_gen)
         reset_launches()
         with torch.no_grad():
-            on_cpu = M.forward(smoke, cpu_params, tokens)
-            on_card = M.forward(smoke, card_params, tokens.cuda()).cpu()
+            on_cpu = M.forward(smoke, cpu_params, tokens, img)
+            on_card = M.forward(smoke, card_params, tokens.cuda(),
+                                None if img is None else img.cuda()).cpu()
         err = (on_card - on_cpu).abs().max().item()
         scale = on_cpu.abs().max().item()
         n = read_launches()
-        print(f"phase 12a: {arch} smoke forward [{b},{s}], card vs CPU: "
-              f"max|d| {err!r} of max|logits| {scale!r} (limit "
+        print(f"phase {phase}: {arch} smoke forward {list(on_card.shape)}, "
+              f"card vs CPU: max|d| {err!r} of max|logits| {scale!r} (limit "
               f"{DS_SMOKE_TOL} x max), flash launches "
               f"{n['flash_attention']}")
-        require(err <= DS_SMOKE_TOL * scale, f"12a {arch} logits at S {s}")
-        require(n["flash_attention"] == n_attn, f"12a launches {n}")
+        require(on_card.shape == token_shape(smoke, b, s) + (smoke.vocab,),
+                f"{phase} {arch} logits shape")
+        require(err <= DS_SMOKE_TOL * scale,
+                f"{phase} {arch} logits at S {s}")
+        require(n["flash_attention"] == calls, f"{phase} launches {n}")
+    if M.has_cross(smoke) or smoke.n_codebooks:
+        _smoke_decode(torch, smoke, cpu_params, card_params, cpu_gen, phase)
+    else:
+        _smoke_serve(torch, smoke, cpu_params, card_params, phase)
+    if not smoke.n_codebooks:
+        return
+    args = train.parse_args(["--arch", arch, "--smoke", "--steps", "3",
+                             "--batch", "2", "--seq", "32"])
+    cfg = train.config_from_args(args)
+    losses = {}
+    for device in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(device, copy=True), cpu_params)
+        losses[device] = train.train_loop(cfg, params, args,
+                                          verbose=False).losses
+    print(f"phase {phase}: {arch} smoke train launcher loop (remat "
+          f"{cfg.remat}, AdamW), 3 steps, card vs CPU: losses "
+          f"{losses['cuda']} vs {losses['cpu']} (rtol {TRAIN_LOSS_RTOL})")
+    require(all(abs(a - b) <= TRAIN_LOSS_RTOL * abs(b)
+                for a, b in zip(losses["cuda"], losses["cpu"]))
+            and len(losses["cuda"]) == 3, f"{phase} smoke train losses")
+
+
+def _smoke_serve(torch, smoke, cpu_params, card_params, phase) -> None:
+    """``smoke_phase``'s serve launcher loop, card against CPU."""
+    from repro_torch.launch import serve
+    arch = smoke.name
     flags = serve.parse_args(["--arch", arch, "--smoke"] + SURFACE_FLAGS)
     on_cpu = serve.serve_loop(smoke, cpu_params, flags)
     reset_launches()
     on_card = serve.serve_loop(smoke, card_params, flags)
     n = read_launches()["flash_attention"]
-    print(f"phase 12a: {arch} smoke served card vs CPU: tokens equal "
+    print(f"phase {phase}: {arch} smoke served card vs CPU: tokens equal "
           f"{on_card.completed == on_cpu.completed}, counters "
           f"{on_card.counters}, flash launches {n} over {on_card.steps} "
           f"steps")
     require(on_card.completed == on_cpu.completed
             and on_card.counters == on_cpu.counters,
-            f"12a {arch} serve, card vs CPU")
+            f"{phase} {arch} serve, card vs CPU")
     require(len(on_card.completed) == 8
-            and on_card.counters["preemptions"] > 0, "12a preempted, 8/8")
-    require(n == on_card.steps * n_attn, f"12a {arch} serve launches")
+            and on_card.counters["preemptions"] > 0,
+            f"{phase} preempted, 8/8")
+    require(n == on_card.steps * sum(flash_layers(smoke)),
+            f"{phase} {arch} serve launches")
 
 
-def gemma_parity_phase(torch, arch, gen) -> dict:
-    """Phase 12b: full width cut to one group and the tail
-    (``GEMMA_PARITY_LAYERS``), batch 2 x 2048: the loss and every gradient
-    through the kernels against the plain path, f32 (worst leaf within
-    ``TRAIN_PARITY_F32``) and bf16 (``bf16_train_draws``); then one decode
-    step at 4 slots, positions ``D256_POS`` behind ``D256_MAX_LEN`` rows,
-    f32 within ``PARITY_F32`` of max|logits| and bf16 by the bf16 rule.
-    Returns the f32 gradient's worst leaf and the decode's max|d|."""
+def _smoke_decode(torch, smoke, cpu_params, card_params, cpu_gen,
+                  phase) -> None:
+    """``smoke_phase``'s greedy decode on both clocks, card against CPU."""
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import model as M
+    arch = smoke.name
+    for clock, start in (("scalar", (0, 0, 0, 0)),
+                         ("per-slot", (0, 3, 5, 14))):
+        tok0 = torch.randint(0, smoke.vocab, token_shape(smoke, 4, 1),
+                             generator=cpu_gen, dtype=torch.int32)
+        img = image(torch, smoke, 4, cpu_gen)
+        runs = {}
+        for device, params in (("cpu", cpu_params), ("cuda", card_params)):
+            serve = make_serve_step(smoke)
+            cache = M.init_cache(smoke, 4, 32, device)
+            tok, im = tok0.to(device), None if img is None else img.to(device)
+            pos = torch.tensor(start, dtype=torch.int32, device=device)
+            out = []
+            reset_launches()
+            with torch.inference_mode():
+                for _ in range(SMOKE_DECODE_STEPS):
+                    tok, cache = serve(params, cache, tok,
+                                       pos[0] if clock == "scalar" else pos,
+                                       im)
+                    out.append(tok.cpu())
+                    pos = pos + 1
+            runs[device] = (torch.stack(out), read_launches())
+        same = torch.equal(runs["cpu"][0], runs["cuda"][0])
+        n = runs["cuda"][1]["flash_attention"]
+        print(f"phase {phase}: {arch} smoke greedy decode, {clock} clock "
+              f"from {start}, {SMOKE_DECODE_STEPS} steps of tokens "
+              f"{list(runs['cuda'][0].shape[1:])}: card vs CPU the same "
+              f"tokens {same}, flash launches {n}")
+        require(same, f"{phase} {arch} greedy decode, card vs CPU")
+        require(n == SMOKE_DECODE_STEPS * sum(flash_layers(smoke)),
+                f"{phase} decode launches {n}")
+
+
+def flash_call_checks(torch, cfg, params, batch, what) -> dict:
+    """Every flash call of one forward of ``cfg`` on ``batch`` (its tokens,
+    and its image), f32 and bf16, on the q/k/v the model feeds it: the
+    forward kernel's output and LSE against ``flash_reference_lse``, and the
+    backward kernels against ``flash_backward_reference`` on that output
+    and LSE with an N(0, 1) output gradient.  Each gradient within
+    ``FLASH_BWD_REL`` of its max|.|, as in phase 2.  The output within
+    ``TOL`` of its max|.|, and the LSE within ``TOL["float32"]`` of
+    max|lse|, or either within ``BF16_RATIO`` times the plain version's own
+    distance from the plain version computed in f64: the model's q and k
+    are not phase 2's unit ones, and logits of a few hundred carry f32
+    rounding of ~1e-4 into every probability, on both sides.  Returns the
+    worst of each by dtype (``out_f64``, ``lse_f64``: the plain version's
+    own distances), with the calls' variants and max|lse|."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model as M
+    g = torch.Generator("cuda").manual_seed(13)
+    kernel = ops.flash_attention
+    worst = {}
+    for dtype in ("float32", "bfloat16"):
+        rows = []
+
+        def probe(q, k, v, *, causal=True, window=0, kv_len=None):
+            before = read_variants()
+            out, lse = fa._forward(q, k, v, causal, window, kv_len,
+                                   save_lse=True)
+            want, want_lse = ref.flash_reference_lse(
+                q, k, v, causal=causal, window=window, kv_len=kv_len)
+            exact, exact_lse = ref.flash_reference_lse(
+                q.double(), k.double(), v.double(), causal=causal,
+                window=window, kv_len=kv_len)
+            do = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+            grads = fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                           causal=causal, window=window)
+            expect = ref.flash_backward_reference(
+                q, k, v, out, lse, do, causal=causal, window=window)
+            after = read_variants()
+            ran = {name: ran_variant({x: n - before[name][x]
+                                      for x, n in after[name].items()})
+                   for name in ("flash_attention", "flash_attention_bwd")}
+            top = max(1.0, want_lse.abs().max().item())
+            scale = want.float().abs().max().item()
+
+            def dist(a, b, by):
+                return (a.double() - b.double()).abs().max().item() / by
+            rows.append({
+                "call": (tuple(q.shape), tuple(k.shape),
+                         "causal" if causal else "cross"),
+                "variants": ran,
+                "out": dist(out, want, scale),
+                "out_f64": dist(want, exact, scale),
+                "lse": dist(lse, want_lse, top),
+                "lse_f64": dist(want_lse, exact_lse, top),
+                "max_lse": top,
+                "bwd": max((a.float() - e.float()).abs().max().item()
+                           / e.float().abs().max().item()
+                           for a, e in zip(grads, expect))})
+            return out
+
+        ops.flash_attention = probe
+        try:
+            with torch.no_grad():
+                M.forward(cfg.replace(dtype=dtype), params, batch["tokens"],
+                          batch.get("img_embed"))
+        finally:
+            ops.flash_attention = kernel
+        torch.cuda.synchronize()
+        want = "simt" if dtype == "float32" else "wgmma"
+        worst[dtype] = {key: max(r[key] for r in rows)
+                        for key in ("out", "out_f64", "lse", "lse_f64",
+                                    "bwd", "max_lse")}
+        worst[dtype]["calls"] = len(rows)
+        for r in rows:
+            print(f"  {what} {dtype} flash call {r['call']} "
+                  f"[{r['variants']['flash_attention']}/"
+                  f"{r['variants']['flash_attention_bwd']}]: out "
+                  f"max|d|/max {r['out']:.3g} (plain vs f64 "
+                  f"{r['out_f64']:.3g}), lse max|d|/max|lse| {r['lse']:.3g} "
+                  f"(plain vs f64 {r['lse_f64']:.3g}; max|lse| "
+                  f"{r['max_lse']:.4g}), dq/dk/dv worst max|d|/max "
+                  f"{r['bwd']:.3g}")
+        far = [r["call"] for r in rows
+               if r["out"] > max(TOL[dtype], BF16_RATIO * r["out_f64"])
+               or r["lse"] > max(TOL["float32"], BF16_RATIO * r["lse_f64"])
+               or r["bwd"] > FLASH_BWD_REL[dtype]]
+        require(len(rows) == sum(flash_layers(cfg))
+                and all(r["variants"]["flash_attention"] == want
+                        and r["variants"]["flash_attention_bwd"] == want
+                        for r in rows), f"{what} {dtype} flash calls on "
+                f"{want}: {[r['variants'] for r in rows]}")
+        require(not far, f"{what} {dtype} flash calls against their plain "
+                f"versions on the model's q/k/v: {far} past the limits "
+                f"(out max({TOL[dtype]}, {BF16_RATIO} x plain vs f64), lse "
+                f"max({TOL['float32']}, {BF16_RATIO} x plain vs f64), bwd "
+                f"{FLASH_BWD_REL[dtype]}); worst {worst[dtype]}")
+    print(f"{what}: every flash call of the f32 and bf16 forwards against "
+          f"its plain version on the model's q/k/v, worst: {worst}")
+    return worst
+
+
+def parity_phase(torch, arch, phase, layers, shape, gen) -> dict:
+    """Phases 12b and 13a/13b, second part: full width cut to ``layers``
+    layers, batch ``shape`` (``(B, S)``), against one image for a model
+    with ``cross`` blocks.
+
+    1. Every flash call of the forward, f32 and bf16, kernel against plain
+       on the q/k/v the model feeds it (:func:`flash_call_checks`).
+    2. The loss and every gradient, kernel path against plain path.  f32:
+       the loss within ``TRAIN_PARITY_F32`` relative; each leaf within
+       ``TRAIN_PARITY_F32``, or within ``BF16_RATIO`` times that leaf's
+       distance between the plain path and the plain path with its
+       attention computed in f64 (how far the gradient moves when the
+       attention is rounded otherwise, with no kernel in either path).
+       bf16 by the bf16 rule (``bf16_train_draws``).
+    3. One decode step at 4 slots, positions ``D256_POS`` behind
+       ``D256_MAX_LEN`` rows (against a [4,1601,7680] image): f32 within
+       ``PARITY_F32`` of max|logits| and bf16 by the bf16 rule.
+
+    Returns the per-call errors, the f32 gradients' worst leaf and its
+    witness, and the decode's max|d|."""
     from repro_torch import configs
     from repro_torch.kernels import ops, ref
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models import model as M
-    cut = configs.get(arch).replace(n_layers=GEMMA_PARITY_LAYERS[arch])
-    n_attn = sum(attention_kinds(cut).values())
-    batch = _train_batch(torch, cut, 0, GEMMA_BATCH, GEMMA_SEQ)
+    from repro_torch.models.params import tree_items
+    cut = configs.get(arch).replace(n_layers=layers)
+    calls = sum(flash_layers(cut))
+    batch = _train_batch(torch, cut, 0, *shape)
+    img = image(torch, cut, shape[0], torch.Generator("cuda").manual_seed(7))
+    if img is not None:
+        batch["img_embed"] = img
 
-    def run(params, dtype, plain):
+    def run(params, dtype, plain, f64=False):
         reset_launches()
-        with plain_kernels(ops, ref) if plain else nullcontext():
+        with plain_kernels(ops, ref, f64) if plain else nullcontext():
             loss, grads = loss_and_grads(cut.replace(dtype=dtype), params,
                                          batch)
         torch.cuda.synchronize()
@@ -3584,69 +3933,96 @@ def gemma_parity_phase(torch, arch, gen) -> dict:
             n, v = read_launches(), read_variants()
             on = "wgmma" if dtype == "bfloat16" else "simt"
             require(n["flash_attention"] == n["flash_attention_bwd"]
-                    == n_attn and v["flash_attention"][on] == n_attn
-                    and v["flash_attention_bwd"][on] == n_attn,
-                    f"12b {arch} {dtype} launches {n} {v}")
+                    == calls and v["flash_attention"][on] == calls
+                    and v["flash_attention_bwd"][on] == calls,
+                    f"{phase} {arch} {dtype} launches {n} {v}")
         return float(loss), grads
 
     params = M.init_params(cut, torch.Generator("cuda").manual_seed(0))
-    l32, g32 = run(params, "float32", False)
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    what = f"phase {phase}: {arch} full width, {cut.n_layers} layers"
+    per_call = flash_call_checks(torch, cut, params, batch, what)
     p32, gp32 = run(params, "float32", True)
-    d32, at32 = _leaf_rel(torch, g32, gp32)
-    print(f"phase 12b: {arch} full width, {cut.n_layers} layers "
-          f"({cut.n_groups} group, tail {cut.tail}), batch "
-          f"{GEMMA_BATCH}x{GEMMA_SEQ}, kernel vs plain: f32 loss {l32!r} vs "
-          f"{p32!r}, worst leaf ||d||/||g|| {d32!r} ({at32}; limit "
-          f"{TRAIN_PARITY_F32})")
+    w32, gw = run(params, "float32", True, f64=True)
+    witness = _leaf_dists(torch, gw, gp32)
+    l32, g32 = run(params, "float32", False)
+    kernel = _leaf_dists(torch, g32, gp32)
+    from_f64 = _leaf_dists(torch, g32, gw)
+    del g32, gp32, gw
+    far = [p for p in kernel
+           if kernel[p] > max(TRAIN_PARITY_F32, BF16_RATIO * witness[p])]
+    top = sorted(kernel, key=kernel.get, reverse=True)[:3]
+    at = top[0]
+    print(f"{what} ({n_params} parameters; {calls} flash calls a "
+          f"forward), batch {shape[0]}x{shape[1]}"
+          f"{', image ' + str(list(img.shape)) if img is not None else ''}"
+          f", f32 loss: kernels {l32!r}, plain {p32!r}, plain with f64 "
+          f"attention {w32!r}; ||g - g_plain||/||g_plain|| by leaf, the "
+          f"kernel path's beside the f64-attention plain path's (limit "
+          f"max({TRAIN_PARITY_F32}, {BF16_RATIO} x the latter)): "
+          + ", ".join(f"{p} {kernel[p]!r} beside {witness[p]!r}"
+                      for p in top)
+          + f"; the latter's worst {max(witness.values())!r}; the kernel "
+          f"path's worst distance from the f64-attention path "
+          f"{max(from_f64.values())!r}; leaves past the limit {far}")
     require(abs(l32 - p32) <= TRAIN_PARITY_F32 * abs(p32), "f32 loss parity")
-    require(d32 <= TRAIN_PARITY_F32, "f32 gradient parity")
-    del g32, gp32
+    require(not far, f"{phase} {arch} f32 gradient parity")
     gc.collect()
     torch.cuda.empty_cache()
 
     want = {"float32": "simt", "bfloat16": "wgmma"}
+    slots = len(D256_POS)
     pos = torch.tensor(D256_POS, dtype=torch.int32, device="cuda")
-    base, tok = decode_inputs(torch, cut, len(D256_POS), D256_MAX_LEN, gen)
+    base, tok = decode_inputs(torch, cut, slots, D256_MAX_LEN, gen)
+    img = image(torch, cut, slots, gen)
     k32 = decode_logits(torch, cut, params, base, tok, pos, "float32",
-                        False, want)
+                        False, want, img)
     r32 = decode_logits(torch, cut, params, base, tok, pos, "float32", True,
-                        want)
+                        want, img)
     scale = r32.abs().max().item()
     dec32 = (k32 - r32).abs().max().item()
-    print(f"phase 12b: {arch} decode step, 4 slots at {D256_POS} behind "
-          f"{D256_MAX_LEN} rows, kernel vs plain: f32 max|d|={dec32!r} "
-          f"(limit {PARITY_F32} x max|logits|={scale!r})")
-    require(dec32 <= PARITY_F32 * scale, f"12b {arch} f32 decode parity")
-    del params, base, k32, r32
+    print(f"phase {phase}: {arch} decode step, {slots} slots at {D256_POS} "
+          f"behind {D256_MAX_LEN} rows, kernel vs plain: f32 "
+          f"max|d|={dec32!r} (limit {PARITY_F32} x max|logits|={scale!r})")
+    require(dec32 <= PARITY_F32 * scale, f"{phase} {arch} f32 decode parity")
+    del params, base, img, k32, r32
     gc.collect()
     torch.cuda.empty_cache()
 
-    bf16_train_draws(torch, cut, f"phase 12b: {arch} full width, "
-                     f"{cut.n_layers} layers", run)
+    bf16_train_draws(torch, cut, what, run)
     pairs = []
     for i in range(BF16_DRAWS):
-        key = f"phase 12b: {arch} decode draw {i}"
+        key = f"phase {phase}: {arch} decode draw {i}"
         g = own_gen(torch, key, None, (key,))
         w = M.init_params(cut, g)
-        c, t = decode_inputs(torch, cut, len(D256_POS), D256_MAX_LEN, g)
-        r32 = decode_logits(torch, cut, w, c, t, pos, "float32", True, want)
-        r16 = decode_logits(torch, cut, w, c, t, pos, "bfloat16", True, want)
+        c, t = decode_inputs(torch, cut, slots, D256_MAX_LEN, g)
+        im = image(torch, cut, slots, g)
+        r32 = decode_logits(torch, cut, w, c, t, pos, "float32", True, want,
+                            im)
+        r16 = decode_logits(torch, cut, w, c, t, pos, "bfloat16", True, want,
+                            im)
         k16 = decode_logits(torch, cut, w, c, t, pos, "bfloat16", False,
-                            want)
+                            want, im)
         pairs.append((_norm(torch, k16 - r32), _norm(torch, r16 - r32)))
-        del w, c, r32, r16, k16
+        del w, c, im, r32, r16, k16
         gc.collect()
         torch.cuda.empty_cache()
-    require_bf16(pairs, f"phase 12b: {arch} decode-step logits")
+    require_bf16(pairs, f"phase {phase}: {arch} decode-step logits")
     del batch
     gc.collect()
     torch.cuda.empty_cache()
-    return {"f32_worst_leaf": d32, "f32_decode_max_abs": dec32}
+    return {"layers": cut.n_layers, "params": n_params,
+            "flash_calls": per_call, "f32_worst_leaf": (kernel[at], at),
+            "f32_witness_at_worst": witness[at],
+            "f32_witness_worst": max(witness.values()),
+            "f32_worst_from_f64": max(from_f64.values()),
+            "f32_decode_max_abs": dec32}
 
 
-def gemma_train_phase(torch, card, arch) -> dict:
-    """Phase 12c: the train launcher's loop (its defaults: remat dtr,
-    AdamW) at batch 2 x 2048, 3 steps, depth ``GEMMA_TRAIN_LAYERS``: each
+def launcher_train_phase(torch, card, arch, phase="12c") -> dict:
+    """Phase 12c (and 13b): the train launcher's loop (its defaults: remat
+    dtr, AdamW) at batch 2 x 2048, 3 steps, depth ``GEMMA_TRAIN_LAYERS``
+    (the whole model where it names none): each
     step's flash launches per variant (forward twice an attention layer,
     backward once, all on ``wgmma``), finite losses, the step's wall (the
     loop's), device busy and idle share (one more step, profiled),
@@ -3681,15 +4057,17 @@ def gemma_train_phase(torch, card, arch) -> dict:
                     variants["flash_attention_bwd"])
         require(counts["flash_attention"] == fwd["wgmma"] == 2 * n_attn
                 and counts["flash_attention_bwd"] == bwd["wgmma"] == n_attn,
-                f"12c {arch}: flash launches per step {counts} {variants}")
+                f"{phase} {arch}: flash launches per step {counts} "
+                f"{variants}")
     require(all(math.isfinite(x) for x in res.losses)
-            and res.actions == ["ok"] * GEMMA_STEPS, f"12c {arch} finite")
+            and res.actions == ["ok"] * GEMMA_STEPS,
+            f"{phase} {arch} finite")
     opt = adamw(lr=cosine_schedule(args.lr, warmup=20, total=args.steps))
     one, _ = guarded_step(cfg, opt)
     batch = _train_batch(torch, cfg, GEMMA_STEPS, GEMMA_BATCH, GEMMA_SEQ)
     busy = device_ms(torch, lambda: one(params, res.opt_state, batch), 1,
                      top=6)
-    require(busy is not None, f"12c {arch} profiler device time")
+    require(busy is not None, f"{phase} {arch} profiler device time")
     wall = statistics.median(res.step_seconds[1:]) * 1e3
     row = {"layers": cfg.n_layers, "params": n, "losses": res.losses,
            "step_ms": [t * 1e3 for t in res.step_seconds],
@@ -3700,7 +4078,7 @@ def gemma_train_phase(torch, card, arch) -> dict:
            "launches": {k: sum(c[k] for c, _ in per_step)
                         for k in FLASH_STEP_KERNELS},
            "kinds": dict(kinds)}
-    print(f"phase 12c: {arch} ({cfg.n_layers} layers, {n} parameters, "
+    print(f"phase {phase}: {arch} ({cfg.n_layers} layers, {n} parameters, "
           f"attention layers {dict(kinds)}) train loop, batch "
           f"{GEMMA_BATCH}x{GEMMA_SEQ}, remat dtr, AdamW: losses "
           f"{res.losses}, step ms {row['step_ms']}, loop wall per step "
@@ -3778,12 +4156,212 @@ def gemma_phase(torch, card, gen) -> dict:
     out = {}
     for arch in (GEMMA_ARCH, RG_ARCH):
         t12 = time.perf_counter()
-        gemma_smoke_phase(torch, arch)
-        out[arch] = {"parity": gemma_parity_phase(torch, arch, gen),
-                     "train": gemma_train_phase(torch, card, arch),
+        smoke_phase(torch, arch, "12a")
+        out[arch] = {"parity": parity_phase(
+            torch, arch, "12b", GEMMA_PARITY_LAYERS[arch],
+            (GEMMA_BATCH, GEMMA_SEQ), gen),
+                     "train": launcher_train_phase(torch, card, arch),
                      "serve": gemma_serve_phase(torch, card, arch)}
         print(f"phase 12: {arch} {time.perf_counter() - t12:.1f} s of wall "
               f"time")
+    return out
+
+
+def vision_train_phase(torch, card) -> dict:
+    """Phase 13a, third part: vision cut to one group (``VISION_CUT``
+    layers) trains ``NEW_STEPS`` steps at batch 2 x 2048, each against its
+    own [2,1601,7680] image, through ``make_train_step`` (remat dtr, AdamW
+    on the launcher's schedule, clipping at 1.0); the launchers cannot,
+    as the reference's cannot (no ``img_embed``).  Each step's flash
+    launches per variant (forward twice a layer under remat, cross layers
+    twice more, backward once each, all ``wgmma``) and the steps' launches
+    by mask (``flash_by_mask``: self and cross), finite losses, step
+    wall (host clock, synchronized), device busy and idle share (one more
+    step, profiled), tokens/s and ``max_memory_allocated``."""
+    from repro_torch import configs
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_items
+    from repro_torch.optim import adamw, cosine_schedule
+    cfg = configs.get(VISION_ARCH).replace(n_layers=VISION_CUT, remat="dtr")
+    n_self, n_cross = flash_layers(cfg)
+    calls = n_self + n_cross
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    n = sum(t.numel() for _, t in tree_items(params))
+    opt = adamw(lr=cosine_schedule(3e-4, warmup=20, total=NEW_STEPS))
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt)
+    g = torch.Generator("cuda").manual_seed(11)
+    batches = [dict(_train_batch(torch, cfg, i, NEW_BATCH, NEW_SEQ),
+                    img_embed=image(torch, cfg, NEW_BATCH, g))
+               for i in range(NEW_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, per_step = [], [], []
+    with flash_by_mask() as by_mask:
+        for i in range(NEW_STEPS):
+            reset_launches()
+            t0 = time.perf_counter()
+            params, state, metrics = step_fn(params, state, batches[i])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
+            per_step.append((read_launches(), read_variants()))
+    peak = torch.cuda.max_memory_allocated()
+    for counts, variants in per_step:
+        fwd, bwd = (variants["flash_attention"],
+                    variants["flash_attention_bwd"])
+        require(counts["flash_attention"] == fwd["wgmma"] == 2 * calls
+                and counts["flash_attention_bwd"] == bwd["wgmma"] == calls,
+                f"13a: flash launches per step {counts} {variants}")
+    mask = {kind: {d: by_mask[d, kind] for d in ("fwd", "bwd")}
+            for kind in ("self", "cross")}
+    require(mask["cross"] == {"fwd": 2 * n_cross * NEW_STEPS,
+                              "bwd": n_cross * NEW_STEPS}
+            and mask["self"]["fwd"] + mask["cross"]["fwd"]
+            == sum(c["flash_attention"] for c, _ in per_step)
+            and mask["self"]["bwd"] + mask["cross"]["bwd"]
+            == sum(c["flash_attention_bwd"] for c, _ in per_step),
+            f"13a: flash launches by mask {mask}")
+    require(all(math.isfinite(x) for x in losses), "13a finite losses")
+    busy = device_ms(torch, lambda: step_fn(params, state, batches[-1]), 1,
+                     top=6)
+    require(busy is not None, "13a profiler device time")
+    wall = statistics.median(step_ms[1:])
+    row = {"layers": cfg.n_layers, "params": n, "losses": losses,
+           "step_ms": step_ms, "wall_ms": wall, "busy_ms": busy,
+           "idle_share": 1 - busy / wall,
+           "tokens_per_s": NEW_BATCH * NEW_SEQ / (wall / 1e3),
+           "peak_bytes": peak,
+           "launches": {k: sum(c[k] for c, _ in per_step)
+                        for k in FLASH_STEP_KERNELS},
+           "self_launches": mask["self"], "cross_launches": mask["cross"]}
+    print(f"phase 13a: {VISION_ARCH} ({cfg.n_layers} layers: {n_self} "
+          f"self-attention, {n_cross} cross; {n} parameters) train step, "
+          f"batch {NEW_BATCH}x{NEW_SEQ} with [{NEW_BATCH},"
+          f"{cfg.cross_attn_tokens},{cfg.cross_attn_dim}] images, remat "
+          f"dtr, AdamW: losses {losses}, step ms {step_ms}; one more step: "
+          f"device busy {busy!r} ms against the median wall {wall!r} ms, "
+          f"idle share {row['idle_share']!r}, {row['tokens_per_s']!r} "
+          f"tokens/s; flash launches per step (fwd, bwd) "
+          f"{[(c['flash_attention'], c['flash_attention_bwd']) for c, _ in per_step]}"
+          f", per variant {[(v['flash_attention'], v['flash_attention_bwd']) for _, v in per_step]}"
+          f", over the {NEW_STEPS} steps by mask {mask}; "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB [{card}]")
+    del params, state, step_fn, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def decode_loop_phase(torch, card, arch, phase) -> dict:
+    """Phases 13a/13b, last part: the whole model (bf16 activations, its
+    weights cast once by ``prepare_params`` and the f32 draw freed) decodes
+    ``NEW_DECODE_STEPS`` greedy steps through ``make_serve_step`` for
+    ``NEW_DECODE_SLOTS`` slots on per-slot clocks from 0, behind
+    ``D256_MAX_LEN`` cache rows (vision: against one [1601,7680] image a
+    slot, its K/V projected anew every step): the tokens, flash launches
+    (every layer's self attention with ``kv_len``, every cross layer's
+    cross call, all ``wgmma``; counted by mask too), the loop's ms a step,
+    and one more step's
+    wall (CUDA events) and device busy."""
+    from repro_torch import configs
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_items
+    cfg = configs.get(arch)
+    n_self, n_cross = flash_layers(cfg)
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    n = sum(t.numel() for _, t in tree_items(params))
+    prepared = M.prepare_params(cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    slots = NEW_DECODE_SLOTS
+    g = torch.Generator("cuda").manual_seed(12)
+    img = image(torch, cfg, slots, g)
+    cache = M.init_cache(cfg, slots, D256_MAX_LEN, "cuda")
+    tok = torch.randint(0, cfg.vocab, token_shape(cfg, slots, 1),
+                        generator=g, device="cuda", dtype=torch.int32)
+    pos = torch.zeros(slots, dtype=torch.int32, device="cuda")
+    serve = make_serve_step(cfg)
+    out = []
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.inference_mode(), flash_by_mask() as by_mask:
+        for _ in range(NEW_DECODE_STEPS):
+            tok, cache = serve(prepared, cache, tok, pos, img)
+            out.append(tok)
+            pos = pos + 1
+        torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3 / NEW_DECODE_STEPS
+    launches, variants = read_launches(), read_variants()
+    tokens = torch.stack(out).cpu()
+    per_step = n_self + n_cross
+    require(cfg.dtype == "bfloat16", f"{arch} decodes in {cfg.dtype}")
+    require(tokens.shape == (NEW_DECODE_STEPS,) + token_shape(cfg, slots, 1)
+            and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()),
+            f"{phase} {arch} tokens {tuple(tokens.shape)}")
+    require(launches["flash_attention"] == variants["flash_attention"][
+        "wgmma"] == NEW_DECODE_STEPS * per_step
+        and by_mask["fwd", "self"] == NEW_DECODE_STEPS * n_self
+        and by_mask["fwd", "cross"] == NEW_DECODE_STEPS * n_cross,
+        f"{phase} {arch} decode launches {launches} {variants} by mask "
+        f"{dict(by_mask)}")
+
+    def one():
+        with torch.inference_mode():
+            M.decode_step(cfg, prepared, tok, cache, pos, img)
+
+    step_ms = event_ms(torch, one, 10)
+    busy_ms = device_ms(torch, one, 3)
+    require(busy_ms is not None, f"{phase} {arch} profiler device time")
+    row = {"layers": cfg.n_layers, "params": n, "steps": NEW_DECODE_STEPS,
+           "loop_ms_per_step": loop_ms, "decode_wall_ms": step_ms,
+           "decode_busy_ms": busy_ms, "idle_share": 1 - busy_ms / step_ms,
+           "launches": launches["flash_attention"],
+           "self_launches": by_mask["fwd", "self"],
+           "cross_launches": by_mask["fwd", "cross"],
+           "first_tokens": tokens[:4, 0].tolist()}
+    print(f"phase {phase}: {arch} whole ({cfg.n_layers} layers, {n} "
+          f"parameters, bf16 copy on the card) greedy decode, {slots} slots"
+          f"{', image ' + str(list(img.shape)) if img is not None else ''}"
+          f", {NEW_DECODE_STEPS} steps: slot 0's first tokens "
+          f"{row['first_tokens']}, {loop_ms!r} ms a step in the loop, flash "
+          f"launches {launches['flash_attention']} per variant "
+          f"{variants['flash_attention']} ({n_self} self + {n_cross} cross a "
+          f"step); one more step: wall {step_ms!r} ms, device busy "
+          f"{busy_ms!r} ms [{card}]")
+    del prepared, cache, img, out, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def new_model_phase(torch, card) -> dict:
+    """Phase 13: llama-3.2-vision-11b (13a) and musicgen-large (13b)."""
+    out = {}
+    t0 = time.perf_counter()
+    smoke_phase(torch, VISION_ARCH, "13a")
+    out[VISION_ARCH] = {
+        "parity": parity_phase(torch, VISION_ARCH, "13a", VISION_CUT,
+                               (VISION_PARITY_BATCH, NEW_SEQ),
+                               torch.Generator("cuda").manual_seed(8)),
+        "train": vision_train_phase(torch, card),
+        "decode": decode_loop_phase(torch, card, VISION_ARCH, "13a")}
+    print(f"phase 13: {VISION_ARCH} {time.perf_counter() - t0:.1f} s of "
+          f"wall time")
+    t0 = time.perf_counter()
+    smoke_phase(torch, MUSIC_ARCH, "13b")
+    out[MUSIC_ARCH] = {
+        "parity": parity_phase(torch, MUSIC_ARCH, "13b", MUSIC_PARITY_LAYERS,
+                               (NEW_BATCH, NEW_SEQ),
+                               torch.Generator("cuda").manual_seed(8)),
+        "decode": decode_loop_phase(torch, card, MUSIC_ARCH, "13b"),
+        "train": launcher_train_phase(torch, card, MUSIC_ARCH, "13b")}
+    print(f"phase 13: {MUSIC_ARCH} {time.perf_counter() - t0:.1f} s of "
+          f"wall time")
     return out
 
 
@@ -3851,12 +4429,19 @@ def main() -> int:
     flash_train = flash_train_times(torch, card, gen)
     d256_err = d256_kernel_checks(torch, gen)
     d256_times = {**flash_train_times(torch, card, gen, FLASH_D256, True),
-                  **flash_decode_d256_times(torch, card, gen)}
+                  **flash_decode_times(torch, card, gen, D256_DECODE)}
     mix_flash_err = flash_bwd_checks(
         torch, gen, list(FLASH_MIXTRAL.values()), FLASH_MIXTRAL,
         tuple(str(c) for c in FLASH_MIXTRAL.values()))
     mix_flash_times = flash_train_times(torch, card, gen, FLASH_MIXTRAL,
                                         True)
+    new_flash_err = {
+        **flash_bwd_checks(torch, gen, list(FLASH_NEW.values()), FLASH_NEW,
+                           tuple(str(c) for c in FLASH_NEW.values())),
+        **decode_kernel_checks(torch, gen, NEW_DECODE)}
+    new_flash_times = {
+        **flash_train_times(torch, card, gen, FLASH_NEW, True, simt=True),
+        **flash_decode_times(torch, card, gen, NEW_DECODE)}
 
     print("phase 2: moe_gemm against moe_gemm_reference")
     gemm_errs = {}
@@ -3971,6 +4556,15 @@ def main() -> int:
     t12 = time.perf_counter()
     gemma = gemma_phase(torch, card, gen)
     print(f"phase 12: {time.perf_counter() - t12:.1f} s of wall time")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 13. llama-3.2-vision-11b and musicgen-large -------------------------
+    t13 = time.perf_counter()
+    new_models = new_model_phase(torch, card)
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s of wall time")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- 7. the eager DTR executor, f32 (TF32 off since phase 1) -------------
     eager_chain(torch, card)
@@ -4019,6 +4613,7 @@ def main() -> int:
     print(json.dumps({"autotune": autotune_row, "mixtral_train": mix,
                       "deepseek": deepseek}, allow_nan=False))
     print(json.dumps({"gemma": gemma}, allow_nan=False))
+    print(json.dumps({"vision_musicgen": new_models}, allow_nan=False))
 
     def flash_row(direction, row, shape, extra, launches, err):
         """One flash row at head dim 128 or 256: shape, launches, error
@@ -4066,14 +4661,52 @@ def main() -> int:
     def d128_rows(direction):
         """The flash rows at mixtral's train shape: launches in phase
         11b's AdamW steps (the last step's count, which every step
-        matched, times the steps)."""
+        matched, times the steps) and in phase 13a's train steps, whose
+        self-attention layers run the same shape."""
         kernel = ("flash_attention" if direction == "fwd"
                   else "flash_attention_bwd")
+        by = {"mixtral-8x7b 11b": MIX_STEPS * mix["launches"][kernel],
+              f"{VISION_ARCH} 13a": new_models[VISION_ARCH]["train"][
+                  "self_launches"][direction]}
         return {arch: flash_row(direction, mix_flash_times[arch][direction],
-                                list(case[:6]), {},
-                                MIX_STEPS * mix["launches"][kernel],
+                                list(case[:6]), {"launches_by": by},
+                                sum(by.values()),
                                 mix_flash_err[arch][direction])
                 for arch, case in FLASH_MIXTRAL.items()}
+
+    def new_rows(direction):
+        """The flash rows at phase 13's shapes: vision's cross train shape
+        with the cross launches of 13a's train steps and its decode shape
+        with those of 13a's decode loop (each counted by its mask,
+        ``flash_by_mask``); musicgen's train shape with 13b's launcher
+        loop's launches and its decode shape with 13b's decode loop's."""
+        vision, music = new_models[VISION_ARCH], new_models[MUSIC_ARCH]
+        kernel = ("flash_attention" if direction == "fwd"
+                  else "flash_attention_bwd")
+        launches = {
+            "llama-3.2-vision-11b cross":
+                vision["train"]["cross_launches"][direction],
+            "musicgen-large": music["train"]["launches"][kernel],
+            "llama-3.2-vision-11b cross decode":
+                vision["decode"]["cross_launches"],
+            "musicgen-large decode": music["decode"]["launches"]}
+        cases = dict(FLASH_NEW)
+        if direction == "fwd":
+            cases.update(NEW_DECODE)
+        out = {}
+        for what, case in cases.items():
+            if isinstance(case, dict):
+                shape = [case[n] for n in ("b", "hq", "hkv", "sq", "skv",
+                                           "d")]
+                extra = {"kv_len": None if case["kv_len"] is None
+                         else list(case["kv_len"]),
+                         "causal": case.get("causal", True)}
+            else:
+                shape, extra = list(case[:6]), {"causal": case[6]}
+            out[what] = flash_row(direction, new_flash_times[what][direction],
+                                  shape, extra, launches[what],
+                                  new_flash_err[what][direction])
+        return out
 
     def gemm_shape_rows(launches_by, bwd):
         """The phase-11 rows of the forward (``bwd`` False) or backward,
@@ -4115,7 +4748,8 @@ def main() -> int:
         "train_bound_by": tf["bound_by"],
         "train_library_ms": tf["library_ms"],
         "train_shapes": shapes("flash_attention", "fwd"),
-        "d256_shapes": d256_rows("fwd"), "d128_shapes": d128_rows("fwd")}, {
+        "d256_shapes": d256_rows("fwd"), "d128_shapes": d128_rows("fwd"),
+        "vision_musicgen_shapes": new_rows("fwd")}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "variant": ran_variant(qwen_train["variants"]),
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -4133,7 +4767,8 @@ def main() -> int:
         "previous_passes_ms": tb["mma_ms_passes"],
         "simt_ms": tb["simt_ms"],
         "train_shapes": shapes("flash_attention_bwd", "bwd"),
-        "d256_shapes": d256_rows("bwd"), "d128_shapes": d128_rows("bwd")}, {
+        "d256_shapes": d256_rows("bwd"), "d128_shapes": d128_rows("bwd"),
+        "vision_musicgen_shapes": new_rows("bwd")}, {
         "name": "moe_gemm", "route": "cuda",
         "variant": ran_variant(moe_variants["moe_gemm"]),
         "source": "src/repro_torch/kernels/csrc/moe_gemm.cu",

@@ -1,6 +1,6 @@
 """Model-layout adapters over the kernels: causal attention (with an
-optional sliding window and per-row ``kv_len``), the MoE expert FFN's
-grouped GEMM and the RWKV6 recurrence.
+optional sliding window and per-row ``kv_len``), cross attention (no mask),
+the MoE expert FFN's grouped GEMM and the RWKV6 recurrence.
 
 A CUDA tensor goes to the hand-written kernel; a CPU tensor goes to its
 plain version (the wrapper decides by device, and nothing else does).
@@ -29,6 +29,16 @@ def attention(q_bshd, k_bskd, v_bskd, *, window: int = 0,
     v = v_bskd.transpose(1, 2).contiguous()
     return flash_attention(q, k, v, causal=True, window=window,
                            kv_len=kv_len).transpose(1, 2)
+
+
+def cross_attention(q_bshd, k_bskd, v_bskd) -> torch.Tensor:
+    """Attention with no mask in the model layout: q [B,Sq,H,D] against
+    k/v [B,Skv,KV,D] of another stream (Skv need not equal Sq); returns
+    [B,Sq,H,D]."""
+    q = q_bshd.transpose(1, 2).contiguous()
+    k = k_bskd.transpose(1, 2).contiguous()
+    v = v_bskd.transpose(1, 2).contiguous()
+    return flash_attention(q, k, v, causal=False).transpose(1, 2)
 
 
 def expert_ffn(buf_becd, w_edf) -> torch.Tensor:

@@ -14,13 +14,20 @@ BLOCKED_ATTN_THRESHOLD = 2048
 Q_BLOCK = 512
 
 
+def _acc(x):
+    """The dtype the plain attention computes in: f32, or f64 for f64
+    inputs."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def _flash_logits(q, k, causal, window, kv_len):
-    """Scaled f32 logits [B,Hkv,G,Sq,Skv] with hidden pairs at -1e30."""
+    """Scaled logits [B,Hkv,G,Sq,Skv] (f32, or f64 for f64 inputs) with
+    hidden pairs at -1e30."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     qg = q.reshape(b, hkv, hq // hkv, sq, d)
-    logits = torch.einsum("bkgqd,bksd->bkgqs", qg.float(),
-                          k.float()) / math.sqrt(d)
+    logits = torch.einsum("bkgqd,bksd->bkgqs", qg.to(_acc(q)),
+                          k.to(_acc(q))) / math.sqrt(d)
     length = (torch.full((b,), skv, device=q.device) if kv_len is None
               else kv_len.to(q.device).clamp(0, skv))[:, None, None]
     qpos = torch.arange(sq, device=q.device)[None, :, None] + (length - sq)
@@ -43,7 +50,7 @@ def flash_reference(q, k, v, *, causal: bool = True, window: int = 0,
     """
     b, hq, sq, d = q.shape
     probs = torch.softmax(_flash_logits(q, k, causal, window, kv_len), -1)
-    out = torch.einsum("bkgqs,bksd->bkgqd", probs, v.float())
+    out = torch.einsum("bkgqs,bksd->bkgqd", probs, v.to(probs.dtype))
     return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
@@ -75,7 +82,7 @@ def flash_reference_lse(q, k, v, *, causal: bool = True, window: int = 0,
     b, hq, sq, d = q.shape
     logits = _flash_logits(q, k, causal, window, kv_len)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgqs,bksd->bkgqd", probs, v.float())
+    out = torch.einsum("bkgqs,bksd->bkgqd", probs, v.to(probs.dtype))
     lse = torch.logsumexp(logits, dim=-1)
     return out.reshape(b, hq, sq, d).to(q.dtype), lse.reshape(b, hq, sq)
 

@@ -56,7 +56,7 @@ from ..models import model as M
 from ..models.config import ModelConfig
 from ..models.params import tree_items
 from ..trace.capture import WorkloadTrace, step_model_from_config
-from .steps import make_serve_step
+from .steps import make_serve_step, refuse_like_reference
 
 _NO_MESH = ("the port runs on one card: --mesh other than host comes with "
             "the distributed slice (ROADMAP Queue 1 item 11)")
@@ -154,8 +154,11 @@ def serve_loop(cfg: ModelConfig, params, args) -> ServeResult:
     """Serve ``args.requests`` requests greedily with ``params``.
 
     ``params`` lie on the device the loop runs on.  Weights that the layers
-    cast to ``cfg.dtype`` are cast once here, not at every use.
+    cast to ``cfg.dtype`` are cast once here, not at every use.  Its token
+    buffer is ``[slots, 1]`` and it passes no image, as the reference's
+    loop: it refuses a codebook model and one with ``cross`` blocks.
     """
+    refuse_like_reference(cfg, "serve launcher")
     tracer = None
     if args.capture:
         tracer = WorkloadTrace(
@@ -413,6 +416,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get(args.arch))
+    # serve_loop refuses too, but only after the weights are drawn.
+    refuse_like_reference(cfg, "serve launcher")
     params = M.init_params(cfg, torch.Generator(device).manual_seed(0))
     res = serve_loop(cfg, params, args)
     report(args, res, device)

@@ -3,6 +3,8 @@ serve step (greedy decode).
 
 The counterpart of ``repro.launch.steps``'s ``make_train_step`` and
 ``make_serve_step``; the sharding helpers have no counterpart on one card.
+:func:`refuse_like_reference` keeps the launchers and captures to what the
+reference's can run.
 """
 from __future__ import annotations
 
@@ -19,7 +21,9 @@ from ..optim.optimizers import Optimizer
 
 def loss_and_grads(cfg: ModelConfig, params, batch):
     """``(loss, grads)`` of ``M.loss_fn``: ``jax.value_and_grad``'s
-    counterpart.  ``grads`` has the structure and dtypes of ``params``.
+    counterpart.  ``grads`` has the structure and dtypes of ``params``;
+    ``batch`` holds ``tokens`` and, for a model with ``cross`` blocks,
+    ``img_embed`` (an input: it gets no gradient).
 
     Each stacked leaf (``M.STACKS``: ``dense``, ``groups``) is split into
     one autograd leaf per layer (``forward`` indexes a tuple as it indexes
@@ -126,14 +130,48 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, grad_accum: int = 1,
 
 
 def make_serve_step(cfg: ModelConfig):
-    """One-token decode step with greedy argmax over the last position.
+    """One-token decode step with greedy argmax over the vocabulary at the
+    last position: ``[B,1]`` next tokens, ``[B,1,K]`` for a codebook model.
     ``pos`` is one shared position clock (a scalar, a Python int too) or a
-    ``[B]`` vector of per-slot clocks."""
+    ``[B]`` vector of per-slot clocks; ``img_embed`` the image a model with
+    ``cross`` blocks attends to."""
 
-    def serve_step(params, cache, token, pos):
+    def serve_step(params, cache, token, pos, img_embed=None):
         pos = torch.as_tensor(pos, dtype=torch.int32, device=token.device)
-        logits, cache = M.decode_step(cfg, params, token, cache, pos)
+        logits, cache = M.decode_step(cfg, params, token, cache, pos,
+                                      img_embed=img_embed)
         next_tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
         return next_tok, cache
 
     return serve_step
+
+
+def refuse_like_reference(cfg: ModelConfig, surface: str) -> None:
+    """Raise ``NotImplementedError`` where the reference's ``surface`` (its
+    ``train`` or ``serve`` launcher, or its ``train capture`` or ``serve
+    capture``) fails on ``cfg``, naming that failure; the port's model runs
+    both cases, its launchers and captures do what the reference's do.
+
+    - A model with ``cross`` blocks (llama-3.2-vision): no surface passes
+      ``img_embed``, so the reference's cross blocks project the text
+      stream through the ``cross_attn_dim``-wide ``wk`` and its einsum
+      fails ("Size of label 'd' ... does not match").
+    - A codebook model (musicgen) in the serve launcher: its token buffer
+      is ``[slots, 1]``, whose codebook embedding is a rank-2 activation
+      that the reference's sharding constraint refuses ("only valid for
+      values of rank at least 3").
+    """
+    if M.has_cross(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the reference's {surface} passes no img_embed, so "
+            f"its cross blocks project the {cfg.d_model}-wide text stream "
+            f"through the {cfg.cross_attn_dim}-wide wk and fail (Size of "
+            f"label 'd' ... does not match); call models.model.forward, "
+            f"loss_fn or decode_step with img_embed instead")
+    if cfg.n_codebooks and surface == "serve launcher":
+        raise NotImplementedError(
+            f"{cfg.name}: the reference's serve launcher keeps a [slots, 1] "
+            f"token buffer, not [slots, 1, {cfg.n_codebooks}]; its codebook "
+            f"embedding of it is rank 2, which its sharding constraint "
+            f"refuses (only valid for values of rank at least 3); call "
+            f"make_serve_step with [slots, 1, K] tokens instead")

@@ -48,7 +48,7 @@ from ..models.config import ModelConfig
 from ..models.params import tree_items, tree_map
 from ..optim import adafactor, adamw, cosine_schedule
 from .serve import resolve_device
-from .steps import make_train_step
+from .steps import make_train_step, refuse_like_reference
 
 _NO_MESH = ("the port runs on one card: --mesh other than host, --fsdp and "
             "--seq-shard come with the distributed slice (ROADMAP Queue 1 "
@@ -124,6 +124,8 @@ def config_from_args(args) -> ModelConfig:
            else configs.get(args.arch))
     cfg = cfg.replace(remat=args.remat)
     M.remat_policy(cfg)        # raises on a policy the reference lacks
+    # train_loop refuses too, but only after main has drawn the weights.
+    refuse_like_reference(cfg, "train launcher")
     if args.smoke:
         cfg = cfg.replace(dtype="float32")
     return cfg
@@ -183,7 +185,10 @@ def train_loop(cfg: ModelConfig, params, args, *,
     ``max_skips`` in a row, restores the latest checkpoint.
     ``on_step(step)``, if given, runs before each step (the caller resets
     kernel counters there, or interrupts the run); ``result``, if given, is
-    the record to fill."""
+    the record to fill.  Its batches hold tokens only (``[B,S]``, or
+    ``[B,S,K]`` for codebooks), so it refuses a model with ``cross``
+    blocks, as the reference's loop fails on one."""
+    refuse_like_reference(cfg, "train launcher")
     device = next(t for _, t in tree_items(params)).device
     # The reference's choices: Adafactor at a constant rate, AdamW on the
     # cosine schedule.

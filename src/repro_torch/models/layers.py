@@ -1,5 +1,5 @@
-"""Transformer building blocks: the dense and sliding-window attention
-pieces of ``repro.models.layers`` in PyTorch (qwen2, mixtral).
+"""Transformer building blocks: the attention, MLP and embedding pieces of
+``repro.models.layers`` in PyTorch.
 
 Every block ships a ``*_defs(cfg)`` returning a ParamInfo tree and a
 ``*_apply(cfg, params, ...)`` function on tensors.  Attention supports
@@ -8,8 +8,11 @@ single-token decode with one shared position clock or one per slot, against
 a dense KV cache or, for a windowed layer (mixtral's ``attn_local``), a
 ring-buffer cache of the window's length.  It goes through
 ``kernels.ops.attention``: the Hopper kernel for CUDA tensors, its plain
-version for CPU tensors.  Embeddings are tied (the token table unembeds)
-or untied (an ``unembed`` leaf).
+version for CPU tensors.  Cross attention (llama-3.2-vision's ``cross``
+blocks) projects K/V from another stream (``kv_x``, the image embeddings)
+and attends to all of it, with no RoPE, mask or cache, through
+``kernels.ops.cross_attention``.  Embeddings are tied (the token table
+unembeds) or untied (an ``unembed`` leaf).
 """
 from __future__ import annotations
 
@@ -70,14 +73,17 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 # Attention
 # ---------------------------------------------------------------------------
 
-def attention_defs(cfg: ModelConfig) -> dict:
+def attention_defs(cfg: ModelConfig, cross: bool = False) -> dict:
+    """Self attention's projections; ``cross``: wk and wv take
+    ``cfg.cross_attn_dim`` wide inputs (the image embeddings)."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kv_in = cfg.cross_attn_dim if cross else d
     defs = {
         "wq": ParamInfo((d, h, hd), cfg.param_dtype, (None, "heads", None),
                         fsdp_dim=0),
-        "wk": ParamInfo((d, kv, hd), cfg.param_dtype,
+        "wk": ParamInfo((kv_in, kv, hd), cfg.param_dtype,
                         (None, "kv_heads", None), fsdp_dim=0),
-        "wv": ParamInfo((d, kv, hd), cfg.param_dtype,
+        "wv": ParamInfo((kv_in, kv, hd), cfg.param_dtype,
                         (None, "kv_heads", None), fsdp_dim=0),
         "wo": ParamInfo((h, hd, d), cfg.param_dtype, ("heads", None, None),
                         fsdp_dim=2),
@@ -97,11 +103,11 @@ def _proj(x, w):
     return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
 
 
-def _qkv(cfg: ModelConfig, p, x):
+def _qkv(cfg: ModelConfig, p, x, kv_x):
     dt = adtype(cfg)
     q = _proj(x, p["wq"].to(dt))
-    k = _proj(x, p["wk"].to(dt))
-    v = _proj(x, p["wv"].to(dt))
+    k = _proj(kv_x, p["wk"].to(dt))
+    v = _proj(kv_x, p["wv"].to(dt))
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -110,9 +116,10 @@ def _qkv(cfg: ModelConfig, p, x):
 
 
 def attention_apply(cfg: ModelConfig, p, x, *, positions, window: int = 0,
-                    cache: Optional[dict] = None):
+                    cache: Optional[dict] = None, kv_x=None):
     """Causal self-attention; ``window`` > 0 limits each query to the last
-    ``window`` positions.
+    ``window`` positions.  With ``kv_x`` ([B,N,cross_attn_dim]), cross
+    attention instead.
 
     Train (cache None): full-sequence causal (+window) attention.
     Decode (cache dict with k [B,L,KV,D], v, pos): x is [B,1,D]; ``pos`` is
@@ -122,14 +129,22 @@ def attention_apply(cfg: ModelConfig, p, x, *, positions, window: int = 0,
     L <= window: slot b writes row pos[b] mod L.  The cache is updated in
     place (JAX returns a new one and donates the old); the returned dict
     holds the same tensors.
+
+    Cross attention: K/V are projected from ``kv_x`` on every call, decode
+    included (the reference recomputes them each step and caches nothing);
+    every query sees every key, with no RoPE.  Returns ``(y, None)``.
     """
     b, s, _ = x.shape
-    q, k, v = _qkv(cfg, p, x)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    cross = kv_x is not None
+    q, k, v = _qkv(cfg, p, x, kv_x if cross else x)
+    if not cross:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
     new_cache = None
-    if cache is None:
+    if cross:
+        out = ops.cross_attention(q, k, v)
+    elif cache is None:
         out = ops.attention(q, k, v, window=window)
     else:
         pos = cache["pos"]
@@ -225,7 +240,19 @@ def mlp_apply(cfg: ModelConfig, p, x):
 # ---------------------------------------------------------------------------
 
 def embed_defs(cfg: ModelConfig) -> dict:
-    """The token table; untied models add an ``unembed`` [d, vocab]."""
+    """The token table; untied models add an ``unembed`` [d, vocab].  A
+    codebook model (musicgen) has ``n_codebooks`` K of each: ``tokens``
+    [K, vocab, d] and ``unembed`` [K, d, vocab]."""
+    if cfg.n_codebooks > 0:
+        k = cfg.n_codebooks
+        return {
+            "tokens": ParamInfo((k, cfg.vocab, cfg.d_model),
+                                cfg.param_dtype, (None, "vocab", None),
+                                fsdp_dim=2, init_scale=1.0),
+            "unembed": ParamInfo((k, cfg.d_model, cfg.vocab),
+                                 cfg.param_dtype, (None, None, "vocab"),
+                                 fsdp_dim=1),
+        }
     defs = {"tokens": ParamInfo((cfg.vocab, cfg.d_model), cfg.param_dtype,
                                 ("vocab", None), fsdp_dim=1,
                                 init_scale=1.0)}
@@ -239,16 +266,29 @@ def embed_defs(cfg: ModelConfig) -> dict:
 def embed_apply(cfg: ModelConfig, p, tokens):
     """The token rows; gemma models (``gemma*``, ``recurrentgemma*``) scale
     them by sqrt(d_model), rounded to the activation dtype first, as the
-    JAX model's ``_embed`` does."""
+    JAX model's ``_embed`` does.  Codebook tokens [B,S,K]: the sum of the K
+    tables' rows, in codebook order."""
     dt = adtype(cfg)
-    x = F.embedding(tokens.long(), p["tokens"].to(dt))
+    if cfg.n_codebooks > 0:
+        tabs = p["tokens"].to(dt)
+        x = sum(F.embedding(tokens[..., i].long(), tabs[i])
+                for i in range(cfg.n_codebooks))
+    else:
+        x = F.embedding(tokens.long(), p["tokens"].to(dt))
     if cfg.name.startswith(("gemma", "recurrentgemma")):
         x = x * float(torch.tensor(np.sqrt(cfg.d_model), dtype=dt))
     return x
 
 
 def unembed_apply(cfg: ModelConfig, p, x):
+    """Logits [B,S,vocab]; [B,S,K,vocab] for codebooks (one matrix product
+    over the K heads side by side: ``einsum("bsd,kdv->bskv")``)."""
     dt = adtype(cfg)
+    if cfg.n_codebooks > 0:
+        w = p["unembed"].to(dt)                        # [K, d, V]
+        k, d, v = w.shape
+        return (x @ w.permute(1, 0, 2).reshape(d, k * v)).unflatten(
+            -1, (k, v))
     if cfg.tie_embeddings:
         return x @ p["tokens"].to(dt).T
     return x @ p["unembed"].to(dt)

@@ -7,12 +7,15 @@ optional stack of ``n_dense_layers`` dense-FFN attention blocks
 ``cfg.pattern`` (``groups``) and one group of ``cfg.tail`` (``tail``,
 gemma3's and recurrentgemma's remainder layers), in that order.  A group
 mixes any of the block kinds ``attn``, sliding-window ``attn_local``,
-``rglru`` (Griffin's recurrent block, ``models.rglru``) and ``rwkv``
-(rwkv6: time-mix and channel-mix); each attention block has a SwiGLU or
-GeGLU MLP or an MoE FFN (routed experts, and deepseek's shared ones), with
-GQA attention or deepseek's latent attention (``models.mla``).  Embeddings
-are tied or untied; gemma models scale theirs by sqrt(d_model).  Not yet:
-cross attention, codebooks or logit soft-capping.
+``cross`` (llama-3.2-vision: self attention, then cross attention to the
+image embeddings ``img_embed``), ``rglru`` (Griffin's recurrent block,
+``models.rglru``) and ``rwkv`` (rwkv6: time-mix and channel-mix); each
+attention block has a SwiGLU or GeGLU MLP or an MoE FFN (routed experts,
+and deepseek's shared ones), with GQA attention or deepseek's latent
+attention (``models.mla``).  Embeddings are tied or untied; gemma models
+scale theirs by sqrt(d_model); a codebook model (musicgen) embeds
+``[B,S,K]`` tokens as the sum of K tables and unembeds through K heads to
+``[B,S,K,vocab]`` logits.  Not yet: logit soft-capping.
 Parameters keep the JAX tree's layout and key paths (``embed.tokens``,
 ``groups.slot0.attn.wq``, ...): each leaf of a stack is stacked
 ``[layers, ...]``, and the JAX package's ``lax.scan`` over a stack becomes
@@ -22,9 +25,10 @@ group and each dense layer in ``torch.utils.checkpoint`` with a
 selective-checkpoint policy (:func:`remat_policy`, the JAX
 ``checkpoint_policies`` on the scan bodies); ``core.remat.tag``, the
 counterpart of ``checkpoint_name``, marks each block's ``attn_out``,
-``rec_out`` and ``ffn_out`` (a copy only where a policy reads the names:
-``dtr``, ``names:``, and the planner's trace).  Decode takes one
-shared position clock (a scalar ``pos``) or per-slot clocks (``[B]``); a
+``cross_out``, ``rec_out`` and ``ffn_out`` (a copy only where a policy
+reads the names: ``dtr``, ``names:``, and the planner's trace).  Decode
+takes one shared position clock (a scalar ``pos``) or per-slot clocks
+(``[B]``); a
 windowed layer's KV cache is a ring buffer; an rwkv block's cache is its
 f32 recurrent state and the two token-shift rows, an rglru block's its
 state ``h`` and the conv's last inputs, none of which carry a position.
@@ -53,7 +57,7 @@ STACKS = ("dense", "groups", "tail")
 # Leaves read in float32 whatever the activation dtype: norm scales (MLA's
 # too), the MoE router and the RG-LRU's decay parameter.
 _READ_IN_F32 = ("scale", "router", "q_norm", "kv_norm", "lam")
-_KINDS = ("attn", "attn_local", "rglru", "rwkv")
+_KINDS = ("attn", "attn_local", "cross", "rglru", "rwkv")
 
 # ---------------------------------------------------------------------------
 # Parameter definitions
@@ -62,8 +66,7 @@ _KINDS = ("attn", "attn_local", "rglru", "rwkv")
 def _check_supported(cfg: ModelConfig) -> None:
     unsupported = {
         "pattern": any(k not in _KINDS for k in cfg.pattern + cfg.tail),
-        "n_codebooks": cfg.n_codebooks, "logit_softcap": cfg.logit_softcap,
-        "cross_attn": cfg.cross_attn_tokens > 0,
+        "logit_softcap": cfg.logit_softcap,
         "mlp_act": cfg.mlp_act not in ("silu", "gelu"),
     }
     bad = sorted(k for k, v in unsupported.items() if v)
@@ -83,6 +86,9 @@ def _block_defs(cfg: ModelConfig, kind: str, moe_layer: bool) -> dict:
         d["ffn"] = L.mlp_defs(cfg)
     else:
         d["attn"] = MLA.mla_defs(cfg) if cfg.mla else L.attention_defs(cfg)
+        if kind == "cross":
+            d["norm_c"] = L.rmsnorm_defs(cfg)
+            d["cross"] = L.attention_defs(cfg, cross=True)
         d["ffn"] = MOE.moe_defs(cfg) if moe_layer else L.mlp_defs(cfg)
     return d
 
@@ -164,7 +170,8 @@ def remat_policy(cfg: ModelConfig):
     """The group body's selective-checkpoint policy, None for ``none``:
     ``full`` saves nothing, ``dots`` the outputs of matrix products with no
     batch dims (``mm``/``addmm``, not ``bmm``), ``dtr`` the ``attn_out`` and
-    ``ffn_out`` tags, ``names:a,b`` the tags named."""
+    ``ffn_out`` tags (not ``cross_out``, as in the reference), ``names:a,b``
+    the tags named."""
     if cfg.remat == "none":
         return None
     if cfg.remat == "full":
@@ -185,10 +192,12 @@ def remat_policy(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def block_apply(cfg: ModelConfig, kind: str, p, x, *, positions,
-                moe_layer: bool, cache=None):
+                moe_layer: bool, cache=None, img_kv=None):
     """Pre-norm residual block; returns (x, new_cache).  The attention
     (time-mix), recurrence and FFN (channel-mix) outputs are tagged
-    ``attn_out``, ``rec_out`` and ``ffn_out``."""
+    ``attn_out``, ``rec_out`` and ``ffn_out``; a ``cross`` block adds its
+    cross attention to ``img_kv`` after the self attention, tagged
+    ``cross_out``."""
     if kind == "rglru":
         rec_cache = None if cache is None else cache.get("rec")
         h = L.rmsnorm_apply(cfg, p["norm1"], x)
@@ -220,6 +229,11 @@ def block_apply(cfg: ModelConfig, kind: str, p, x, *, positions,
         a, c2 = L.attention_apply(cfg, p["attn"], h, positions=positions,
                                   window=window, cache=attn_cache)
     x = x + R.tag(a, "attn_out")
+    if kind == "cross":
+        hc = L.rmsnorm_apply(cfg, p["norm_c"], x)
+        ca, _ = L.attention_apply(cfg, p["cross"], hc, positions=positions,
+                                  kv_x=img_kv)
+        x = x + R.tag(ca, "cross_out")
     h2 = L.rmsnorm_apply(cfg, p["norm2"], x)
     ffn = MOE.moe_apply if moe_layer else L.mlp_apply
     x = x + R.tag(ffn(cfg, p["ffn"], h2), "ffn_out")
@@ -251,11 +265,33 @@ def _group(tree, g: int):
     return tree_map(lambda t: t[g], tree)
 
 
-def forward(cfg: ModelConfig, params, tokens):
-    """Full-sequence forward -> logits.  tokens: [B,S] int."""
+def has_cross(cfg: ModelConfig) -> bool:
+    """Whether ``cfg`` has ``cross`` blocks, which attend to ``img_embed``."""
+    return "cross" in cfg.pattern + cfg.tail
+
+
+def _img_kv(cfg: ModelConfig, img_embed):
+    """``img_embed`` in the activation dtype, cast once for every cross
+    block; a config with ``cross`` blocks needs it."""
+    if img_embed is None:
+        if has_cross(cfg):
+            raise ValueError(f"{cfg.name}: cross blocks attend to img_embed "
+                             f"[B, {cfg.cross_attn_tokens}, "
+                             f"{cfg.cross_attn_dim}]; none was given")
+        return None
+    return img_embed.to(L.adtype(cfg))
+
+
+def forward(cfg: ModelConfig, params, tokens, img_embed=None):
+    """Full-sequence forward -> logits.
+
+    tokens: [B,S] int (or [B,S,K] for codebook models: logits
+    [B,S,K,vocab]).  img_embed: [B,N,cross_attn_dim] for a model with
+    ``cross`` blocks (the vision frontend's output)."""
     policy = remat_policy(cfg)
     x = L.embed_apply(cfg, params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)
+    img_kv = _img_kv(cfg, img_embed)
     for stack, layers, kinds in _stacks(cfg):
         for g in range(layers):
             blocks = _blocks(cfg, stack, kinds, _group(params[stack], g),
@@ -265,7 +301,7 @@ def forward(cfg: ModelConfig, params, tokens):
                 for kind, blk_params, _, moe_layer in blocks:
                     h, _ = block_apply(cfg, kind, blk_params, h,
                                        positions=positions,
-                                       moe_layer=moe_layer)
+                                       moe_layer=moe_layer, img_kv=img_kv)
                 return h
 
             # Any remat: keep each layer's input and what the policy saves;
@@ -277,9 +313,11 @@ def forward(cfg: ModelConfig, params, tokens):
 
 
 def loss_fn(cfg: ModelConfig, params, batch):
-    """Next-token cross entropy (f32 logits for the softmax)."""
+    """Next-token cross entropy (f32 logits for the softmax); for codebook
+    models the mean over batch, positions and codebooks.  ``batch`` holds
+    ``tokens`` and, for a model with ``cross`` blocks, ``img_embed``."""
     tokens = batch["tokens"]
-    logits = forward(cfg, params, tokens).float()
+    logits = forward(cfg, params, tokens, batch.get("img_embed")).float()
     inp, tgt = logits[:, :-1], tokens[:, 1:].long()
     logp = F.log_softmax(inp, dim=-1)
     nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
@@ -327,16 +365,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         cache_defs(cfg, batch, max_len))
 
 
-def decode_step(cfg: ModelConfig, params, token, cache, pos):
-    """One-token decode: token [B,1] at position ``pos``, a scalar (one
-    shared position clock) or a ``[B]`` vector (per-slot clocks, continuous
-    batching: each slot's request sits at its own position).
+def decode_step(cfg: ModelConfig, params, token, cache, pos,
+                img_embed=None):
+    """One-token decode: token [B,1] (or [B,1,K] for codebooks) at position
+    ``pos``, a scalar (one shared position clock) or a ``[B]`` vector
+    (per-slot clocks, continuous batching: each slot's request sits at its
+    own position).  ``img_embed`` [B,N,cross_attn_dim]: the image the
+    ``cross`` blocks attend to, its K/V projected anew every step.
 
     Returns (logits, cache).  The cache is updated in place and returned;
     ``pos`` reaches the attention caches only (recurrent state carries no
     position).
     """
     x = L.embed_apply(cfg, params["embed"], token)
+    img_kv = _img_kv(cfg, img_embed)
     # rope wants positions broadcastable to [B, S] with S = 1.
     positions = pos[None] if pos.dim() == 0 else pos[:, None]
     for stack, layers, kinds in _stacks(cfg):
@@ -351,7 +393,8 @@ def decode_step(cfg: ModelConfig, params, token, cache, pos):
                              for k, v in blk.items()}
                 x, new = block_apply(cfg, kind, blk_params, x,
                                      positions=positions,
-                                     moe_layer=moe_layer, cache=blk_cache)
+                                     moe_layer=moe_layer, cache=blk_cache,
+                                     img_kv=img_kv)
                 for state in ("mix", "rec"):
                     # A recurrent state is returned anew: write it back.
                     for k, t in blk.get(state, {}).items():

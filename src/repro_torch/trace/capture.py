@@ -125,18 +125,22 @@ def capture_serve_step(arch: str = "qwen2-0.5b", *, smoke: bool = True,
                        slots: int = 4, max_len: int = 64,
                        cost_model: str = "flops") -> Log:
     """Log of one continuous-batching decode step (``make_serve_step``),
-    per-slot positions ``[slots]``."""
+    per-slot positions ``[slots]``; tokens ``[slots, 1]``, or ``[slots, 1,
+    K]`` for a codebook model.  Refuses a model with ``cross`` blocks, as
+    the reference's capture fails on it (``refuse_like_reference``)."""
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
     from .. import configs
-    from ..launch.steps import make_serve_step
+    from ..launch.steps import make_serve_step, refuse_like_reference
     from ..models import model as M
     cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
+    refuse_like_reference(cfg, "serve capture")
     mode = FakeTensorMode()
     params = _fake_tree(M.param_defs(cfg), mode)
     cache = _fake_tree(M.cache_defs(cfg, slots, max_len), mode)
     with mode:
-        token = torch.empty((slots, 1), dtype=torch.int32)
+        token = torch.empty((slots, 1, cfg.n_codebooks) if cfg.n_codebooks
+                            else (slots, 1), dtype=torch.int32)
         pos = torch.empty((slots,), dtype=torch.int32)
     return capture_fn(
         make_serve_step(cfg), params, cache, token, pos,
@@ -149,17 +153,21 @@ def capture_train_step(arch: str = "qwen2-0.5b", *, smoke: bool = True,
                        batch: int = 2, seq: int = 16,
                        cost_model: str = "flops") -> Log:
     """Log of one differentiated train step (``loss_and_grads``: forward
-    and backward lifetimes)."""
+    and backward lifetimes); tokens ``[batch, seq]``, or ``[batch, seq,
+    K]`` for a codebook model.  Refuses a model with ``cross`` blocks, as
+    the reference's capture fails on it (``refuse_like_reference``)."""
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
     from .. import configs
-    from ..launch.steps import loss_and_grads
+    from ..launch.steps import loss_and_grads, refuse_like_reference
     from ..models import model as M
     cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
+    refuse_like_reference(cfg, "train capture")
     mode = FakeTensorMode()
     params = _fake_tree(M.param_defs(cfg), mode)
     with mode:
-        tokens = torch.empty((batch, seq), dtype=torch.int32)
+        tokens = torch.empty((batch, seq, cfg.n_codebooks) if cfg.n_codebooks
+                             else (batch, seq), dtype=torch.int32)
 
     def step(p, t):
         return loss_and_grads(cfg, p, {"tokens": t})

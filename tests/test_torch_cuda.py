@@ -492,6 +492,9 @@ BWD_SHAPES = [  # chip_smoke.py phase 2's backward cases, then the smoke dim
     (8, 9, 3, 1024, 1024, 64, True, 0),    # smollm-135m's: G 3, odd heads
     (2, 4, 1, 100, 100, 256, True, 0),     # gemma3 heads, D 256
     (1, 10, 1, 77, 140, 256, True, 40),    # recurrentgemma heads, a window
+    (1, 32, 8, 200, 161, 128, False, 0),   # vision cross: Sq > Skv, 1 key
+    #                                        in the last tile
+    (2, 8, 8, 130, 130, 64, True, 0),      # musicgen heads: MHA, G 1
 ]
 # The cases the tensor-core backward takes in bf16: ``wgmma`` at D 64 (one
 # warpgroup a block), 128 and 256 (two); ``mma`` at D 64 only.
@@ -505,6 +508,16 @@ D256_FWD = [(2, 4, 1, 300, 300, 256, True, 0),
             (1, 10, 1, 200, 260, 256, True, 64)]
 D256_DECODE = [(4, 4, 1, 512, (512, 300, 77, 1)),
                (4, 10, 1, 1024, (601, 734, 867, 1000))]
+# The new models' attention at their full shapes: llama-3.2-vision-11b's
+# cross layers (batch 2 x 2048 text rows against 1601 image rows, no mask,
+# GQA 32/8 at D 128; 1601 = 25 key tiles of 64 and one of 1) and
+# musicgen-large's train step (MHA 32/32 at D 64, G 1); then their decode
+# shapes: one row a slot against the 1601 image rows (no kv_len: the keys
+# split over blocks) and musicgen's cache with per-slot kv_len.
+MODEL_TRAIN = [(2, 32, 8, 2048, 1601, 128, False, 0),
+               (2, 32, 32, 2048, 2048, 64, True, 0)]
+MODEL_DECODE = [(4, 32, 8, 1601, 128, False, None),
+                (4, 32, 32, 256, 64, True, (33, 100, 201, 256))]
 # Each gradient within this share of its largest magnitude: f32 sums the
 # same products in another order; bf16 rounds dq/dk/dv once on both sides,
 # and the tensor-core variants also round P and dS to bf16 as operands.
@@ -634,6 +647,67 @@ def test_flash_decode_d256_wgmma_matches_plain(cuda, b, hq, hkv, skv, lens):
                                v.masked_fill(past, 0), kv_len=kv_len)
     torch.testing.assert_close(one.float(), want.float(),
                                **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", MODEL_TRAIN)
+def test_model_train_shapes_match_plain(cuda, b, hq, hkv, sq, skv, d, causal,
+                                        window, dtype):
+    """The forward with the LSE and the backward at the vision cross
+    layers' and musicgen's train shapes, on their planned variants
+    (``wgmma`` in bf16, ``simt`` in f32), against the plain versions, and
+    a second call's bits."""
+    want = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert fa.plan(b, hq, hkv, sq, skv, d, dtype,
+                   save_lse=True)["variant"] == want
+    assert fa.plan_backward(b, hq, hkv, sq, skv, d, dtype)["variant"] == want
+    q, k, v, out, lse, do = _flash_bwd_case(b, hq, hkv, sq, skv, d, causal,
+                                            window, dtype, cuda)
+    again, lse2 = fa._forward(q, k, v, causal, window, None, save_lse=True)
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+    want_out, want_lse = ref.flash_reference_lse(q, k, v, causal=causal,
+                                                 window=window)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out.float(), want_out.float(), **TOL[dtype])
+    del again, lse2, want_out, want_lse
+    before = fa.flash_attention_bwd.variant_launches[want]
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                   window=window)
+    two = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                 window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.variant_launches[want] == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(grads, two))
+    expect = ref.flash_backward_reference(q, k, v, out, lse, do,
+                                          causal=causal, window=window)
+    for name, g, e in zip("qkv", grads, expect):
+        assert g.dtype == dtype and torch.isfinite(g).all(), name
+        err = (g.float() - e.float()).abs().max().item()
+        assert err <= BWD_REL[dtype] * e.float().abs().max().item(), \
+            (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,skv,d,causal,lens", MODEL_DECODE)
+def test_model_decode_shapes_match_plain(cuda, b, hq, hkv, skv, d, causal,
+                                         lens, dtype):
+    """One decode row a slot: the vision cross call against every image
+    row (no mask) and musicgen's per-slot cache (G 1: one live row of a
+    64-row block), on the planned variant, against the plain version, and
+    a second call's bits."""
+    q, k, v = _qkv(b, hq, hkv, 1, skv, d, dtype, cuda)
+    kv_len = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                    device=cuda)
+    want = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert fa.plan(b, hq, hkv, 1, skv, d, dtype)["variant"] == want
+    before = fa.flash_attention.variant_launches[want]
+    one = flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    two = flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.variant_launches[want] == before + 2
+    assert torch.equal(one, two)
+    expect = ref.flash_reference(q, k, v, causal=causal, kv_len=kv_len)
+    torch.testing.assert_close(one.float(), expect.float(), **TOL[dtype])
 
 
 @pytest.mark.parametrize("variant,tiles", [("simt", (64, 32)),

@@ -74,7 +74,8 @@ COPIES = [
     "configs/mixtral_8x7b.py", "configs/rwkv6_1_6b.py",
     "configs/llama3_2_1b.py", "configs/smollm_135m.py",
     "configs/deepseek_v3_671b.py", "configs/gemma3_1b.py",
-    "configs/recurrentgemma_2b.py",
+    "configs/recurrentgemma_2b.py", "configs/llama3_2_vision_11b.py",
+    "configs/musicgen_large.py",
     # The analysis package's HLO parsers.
     "analysis/hlo.py", "analysis/hlo_cost.py", "analysis/__init__.py",
     # The training loop's health monitors.
@@ -127,5 +128,23 @@ def test_registry_holds_ported_architectures_only():
         8, ("rglru", "rglru", "attn_local"), ("rglru", "rglru"), 2560, 4,
         2048, 256, "gelu")
     assert configs.get_smoke("recurrentgemma_2b").lru_width == 64
-    with pytest.raises(KeyError, match="not yet ported"):
-        configs.get("musicgen-large")
+    vision = configs.get("llama-3.2-vision-11b")
+    assert (vision.n_groups, vision.pattern, vision.cross_attn_tokens,
+            vision.cross_attn_dim) == (8, ("attn",) * 4 + ("cross",), 1601,
+                                       7680)
+    assert configs.get_smoke("llama3_2_vision_11b").cross_attn_dim == 48
+    music = configs.get("musicgen-large")
+    assert (music.n_codebooks, music.n_heads, music.n_kv_heads,
+            music.head_dim) == (4, 32, 32, 64)
+    assert configs.get_smoke("musicgen_large").n_codebooks == 4
+    with pytest.raises(KeyError, match="unknown architecture"):
+        configs.get("llama-4")
+
+
+def test_registry_equals_the_reference():
+    """Every architecture of the JAX package, in its order, under its
+    aliases."""
+    from repro import configs as jconfigs
+    from repro_torch import configs
+    assert configs.ARCHS == jconfigs.ARCHS
+    assert configs.ALIASES == jconfigs.ALIASES

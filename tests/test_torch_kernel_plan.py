@@ -172,6 +172,15 @@ def test_moe_gemm_backward_plan(shape, dtype, aligned, expect):
     ((1, 10, 1, 2048, 2048, 256), BF16, True, ("wgmma", 160, 1)),
     ((4, 10, 1, 1, 1024, 256), BF16, True, ("wgmma", 1, 8)),
     ((2, 4, 1, 2048, 2048, 256), F32, True, ("simt", 1024, 1)),  # f32
+    # llama-3.2-vision-11b's cross layers: 2048 text rows against 1601
+    # image rows (no mask), GQA 32/8 at D 128; then one decode row a slot
+    # against every image row, the keys split four ways
+    ((2, 32, 8, 2048, 1601, 128), BF16, True, ("wgmma", 128, 1)),
+    ((4, 32, 8, 1, 1601, 128), BF16, True, ("wgmma", 1, 4)),
+    # musicgen-large, MHA (G 1) at D 64: its train shape, and decode with
+    # one live row a 64-row block, 128 blocks: no split
+    ((2, 32, 32, 2048, 2048, 64), BF16, True, ("wgmma", 32, 1)),
+    ((4, 32, 32, 1, 1024, 64), BF16, True, ("wgmma", 1, 1)),
 ])
 def test_flash_plan(shape, dtype, aligned, expect):
     p = fa.plan(*shape, dtype, aligned=aligned)
@@ -305,6 +314,43 @@ def test_split_kv_d256_plan_matches_one_block(shape, lens):
     torch.testing.assert_close(out, ref.flash_reference(q, k, v,
                                                         kv_len=kv_len),
                                **SPLIT_TOL)
+
+
+def test_split_kv_cross_decode_plan_matches_one_block():
+    """llama-3.2-vision's cross call at decode as the card runs it: no
+    mask, 1601 keys (25 tiles of 64 and one of a single key) split four
+    ways, equals the unsplit plain version."""
+    shape = (4, 32, 8, 1, 1601, 128)
+    p = fa.plan(*shape, BF16)
+    assert p["variant"] == "wgmma" and p["kv_splits"] == 4
+    q, k, v = map(torch.from_numpy, _qkv(*shape, seed=9))
+    out = split_reference(q, k, v, causal=False, splits=p["kv_splits"],
+                          block_q=p["block_q"], block_kv=p["block_kv"])
+    torch.testing.assert_close(out, ref.flash_reference(q, k, v,
+                                                        causal=False),
+                               **SPLIT_TOL)
+
+
+@pytest.mark.parametrize("shape,dp,warpgroups,grid_dkdv,grid_dq", [
+    # vision's cross layers: 64 q heads x 26 key tiles (the last holds one
+    # key), 32 query tiles
+    ((2, 32, 8, 2048, 1601, 128), 128, 2, (64, 26), (64, 32)),
+    # musicgen's MHA: each kv head's one query head writes the partials
+    # the reduce pass sums alone
+    ((2, 32, 32, 2048, 2048, 64), 64, 1, (64, 32), (64, 32)),
+])
+def test_flash_backward_plan_at_the_new_models(shape, dp, warpgroups,
+                                               grid_dkdv, grid_dq):
+    """bf16 trains both new models on the tensor-core backward: the cross
+    call's Sq > Skv and musicgen's G 1 change no tile; the partials hold
+    ``B * Hq * Skv * dp`` floats and the reduce grid is built on Skv."""
+    b, hq, hkv, sq, skv, d = shape
+    p = fa.plan_backward(*shape, BF16)
+    assert (p["variant"], p["dp"], p["warpgroups"]) == ("wgmma", dp,
+                                                        warpgroups)
+    assert (p["grid_dkdv"], p["grid_dq"]) == (grid_dkdv, grid_dq)
+    assert p["scratch_floats"] == 2 * b * hq * 2048 + 2 * b * hq * skv * dp
+    assert p["grid_reduce"] == -(-b * hkv * skv * dp // (4 * 128))
 
 
 @pytest.mark.parametrize("shape,dtype,variant,grid_dkdv,grid_dq,scratch", [

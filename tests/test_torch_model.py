@@ -235,16 +235,19 @@ def test_prepare_params_casts_once(cfg, params):
 
 
 def test_unsupported_configs_raise():
-    """What stays unported: codebook embeddings, cross attention and
-    attention-logit soft-capping (mixed patterns and a tail stack are
-    ported: ``test_mixed_pattern_and_tail_stack``)."""
+    """What stays unported: attention-logit soft-capping.  Codebook
+    embeddings and cross blocks are ported (tests/test_torch_musicgen.py,
+    tests/test_torch_vision.py), as are mixed patterns and a tail stack
+    (``test_mixed_pattern_and_tail_stack``)."""
     base = configs.get_smoke(ARCH)
-    for change, match in [
-            (dict(n_codebooks=4), "n_codebooks"),
-            (dict(cross_attn_tokens=16, cross_attn_dim=32), "cross_attn"),
-            (dict(logit_softcap=50.0), "logit_softcap")]:
-        with pytest.raises(NotImplementedError, match=match):
-            M.param_defs(base.replace(**change))
+    with pytest.raises(NotImplementedError, match="logit_softcap"):
+        M.param_defs(base.replace(logit_softcap=50.0))
+    codebooks = M.param_defs(base.replace(n_codebooks=4))["embed"]
+    assert codebooks["tokens"].shape == (4, base.vocab, base.d_model)
+    cross = base.replace(pattern=("attn", "cross"), n_layers=4,
+                         cross_attn_tokens=16, cross_attn_dim=32)
+    wk = M.param_defs(cross)["groups"]["slot1"]["cross"]["wk"]
+    assert wk.shape == (cross.n_groups, 32, base.n_kv_heads, base.head_dim)
 
 
 @pytest.mark.parametrize("change,stacks", [

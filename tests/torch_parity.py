@@ -1,12 +1,15 @@
 """Shared checks of a port model against the JAX package's, for the
 per-model test files (``test_torch_gemma3.py``,
-``test_torch_recurrentgemma.py``): parameter and cache definitions, forward
+``test_torch_recurrentgemma.py``, ``test_torch_vision.py``,
+``test_torch_musicgen.py``): parameter and cache definitions, forward
 logits, the loss and every gradient, decode steps on both position clocks,
 and both serve launchers on the same numpy-drawn weights.
 
 Each check takes the smoke configs of both packages; parameters come from
 ``repro.models.init_params``, carried across by ``params_from_jax``, and
-tokens from a numpy seed.
+tokens from a numpy seed: ``[B,S]``, or ``[B,S,K]`` for a codebook model.
+A model with ``cross`` blocks also gets ``img_embed`` (N(0, 1) x 0.1, as
+``tests/test_archs.py`` draws it).
 """
 import contextlib
 import io
@@ -36,8 +39,32 @@ def as_np(x):
 
 
 def tokens(cfg, b, s, seed=1):
-    return np.random.default_rng(seed).integers(0, cfg.vocab, (b, s)).astype(
+    shape = (b, s, cfg.n_codebooks) if cfg.n_codebooks else (b, s)
+    return np.random.default_rng(seed).integers(0, cfg.vocab, shape).astype(
         np.int32)
+
+
+def img_embed(cfg, b, seed=2):
+    """``[B, cross_attn_tokens, cross_attn_dim]`` image embeddings for a
+    model with ``cross`` blocks, else None."""
+    if not cfg.cross_attn_dim:
+        return None
+    return (np.random.default_rng(seed).standard_normal(
+        (b, cfg.cross_attn_tokens, cfg.cross_attn_dim)) * 0.1).astype(
+        np.float32)
+
+
+def _torch(x):
+    return None if x is None else torch.from_numpy(x)
+
+
+def _jnp(x):
+    return None if x is None else jnp.asarray(x)
+
+
+def logits_shape(cfg, toks):
+    return (*toks.shape[:2], *((cfg.n_codebooks,) if cfg.n_codebooks
+                               else ()), cfg.vocab)
 
 
 def both_params(cfg, jcfg):
@@ -70,24 +97,34 @@ def check_defs(cfg, jcfg, batch=4, max_len=64):
 
 
 def check_forward(cfg, jcfg, params, jparams, b, s, tol):
-    toks = tokens(cfg, b, s)
-    out = M.forward(cfg, params, torch.from_numpy(toks))
-    want = jax.jit(lambda p, t: JM.forward(jcfg, p, t))(jparams,
-                                                        jnp.asarray(toks))
-    assert out.shape == (*toks.shape, cfg.vocab)
-    np.testing.assert_allclose(as_np(out), np.asarray(want), **tol)
+    """Logits against the jitted JAX forward: within ``tol`` (an
+    ``assert_allclose`` dict) or, for a float ``tol``, within ``tol`` of
+    max|logits|."""
+    toks, img = tokens(cfg, b, s), img_embed(cfg, b)
+    out = M.forward(cfg, params, torch.from_numpy(toks), _torch(img))
+    want = jax.jit(lambda p, t, i: JM.forward(jcfg, p, t, i))(
+        jparams, jnp.asarray(toks), _jnp(img))
+    assert out.shape == logits_shape(cfg, toks)
+    want = np.asarray(want)
+    if isinstance(tol, float):
+        err = np.abs(as_np(out) - want).max()
+        assert err <= tol * np.abs(want).max(), err
+    else:
+        np.testing.assert_allclose(as_np(out), want, **tol)
 
 
 def check_loss_and_grads(cfg, jcfg, params, jparams, grad_rel, b=2, s=16):
     """``loss_and_grads`` against ``jax.value_and_grad``: the loss within
     1e-5 relative and every leaf within ``grad_rel`` as ||d|| / ||g||.
     Returns the port's gradient paths."""
-    toks = tokens(cfg, b, s)
-    batch = {"tokens": jnp.asarray(toks)}
+    toks, img = tokens(cfg, b, s), img_embed(cfg, b)
+    batch = {"tokens": toks} if img is None else {"tokens": toks,
+                                                  "img_embed": img}
     jloss, jgrads = jax.jit(jax.value_and_grad(
-        lambda p: JM.loss_fn(jcfg, p, batch)))(jparams)
-    loss, grads = loss_and_grads(cfg, params,
-                                 {"tokens": torch.from_numpy(toks)})
+        lambda p: JM.loss_fn(jcfg, p, {k: jnp.asarray(x)
+                                       for k, x in batch.items()})))(jparams)
+    loss, grads = loss_and_grads(cfg, params, {
+        k: torch.from_numpy(x) for k, x in batch.items()})
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
     jflat = dict(tree_items(jax.tree.map(np.asarray, jgrads)))
     flat = dict(tree_items(grads))
@@ -102,31 +139,40 @@ def check_loss_and_grads(cfg, jcfg, params, jparams, grad_rel, b=2, s=16):
 
 
 def check_decode(cfg, jcfg, params, jparams, clock, start, steps, max_len,
-                 rel):
+                 rel, cache_rel=None):
     """``steps`` decode steps from ``start`` (per-slot positions, or the
     scalar clock at 0) against the jitted JAX step: logits within ``rel``
-    of max|logits| every step, and every cache leaf at the end."""
+    of max|logits| every step, and every cache leaf at the end (within
+    1e-5 elementwise, or with ``cache_rel`` within that share of the
+    leaf's max|.|).  A model with ``cross`` blocks decodes against one
+    ``img_embed`` a slot."""
     b = len(start)
-    toks = tokens(cfg, b, steps, seed=4)
+    toks, img = tokens(cfg, b, steps, seed=4), img_embed(cfg, b)
     cache = M.init_cache(cfg, b, max_len, "cpu")
     jcache = JM.init_cache(jcfg, b, max_len)
     pos = np.array(start, np.int32) if clock == "per_slot" else np.int32(0)
-    jstep = jax.jit(lambda p, t, c, q: JM.decode_step(jcfg, p, t, c, q))
+    jstep = jax.jit(lambda p, t, c, q, i: JM.decode_step(jcfg, p, t, c, q,
+                                                         img_embed=i))
     for t in range(steps):
         tok = toks[:, t:t + 1]
         logits, cache = M.decode_step(cfg, params, torch.from_numpy(tok),
                                       cache, torch.from_numpy(
-                                          np.asarray(pos)))
+                                          np.asarray(pos)), _torch(img))
         jlogits, jcache = jstep(jparams, jnp.asarray(tok), jcache,
-                                jnp.asarray(pos))
+                                jnp.asarray(pos), _jnp(img))
         want = np.asarray(jlogits)
+        assert logits.shape == logits_shape(cfg, tok)
         err = np.abs(as_np(logits) - want).max()
         assert err <= rel * np.abs(want).max(), (t, err)
         pos = pos + 1
     jflat = dict(tree_items(jax.tree.map(np.asarray, jcache)))
     for path, leaf in tree_items(cache):
-        np.testing.assert_allclose(as_np(leaf), jflat[path], rtol=1e-5,
-                                   atol=1e-5, err_msg=path)
+        if cache_rel is None:
+            np.testing.assert_allclose(as_np(leaf), jflat[path], rtol=1e-5,
+                                       atol=1e-5, err_msg=path)
+        else:
+            err = np.abs(as_np(leaf) - jflat[path]).max()
+            assert err <= cache_rel * np.abs(jflat[path]).max(), (path, err)
     return cache
 
 
