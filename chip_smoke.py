@@ -238,6 +238,31 @@ Phases; any failure exits non-zero before the last line is printed:
     ``wgmma``), ms a step, one step's wall and busy.  The launchers refuse
     vision (no ``img_embed``) and musicgen's serve launcher (a ``[slots,
     1]`` token buffer), as the reference's fail there.
+14. Attention-logit soft-capping (``logit_softcap``, each scaled logit s
+    becomes c tanh(s / c) inside both flash kernels): in phase 2 every
+    flash variant with a cap of ``SOFTCAP_CHECK`` (which bends the N(0, 1)
+    logits of its inputs) against its plain version at the same
+    tolerances (forward ``simt`` f32 and forced bf16, ``wgmma`` at D 64,
+    128 and 256 with one and two consumer warpgroups, split-kv decode;
+    backward ``simt``, ``mma``, ``wgmma`` and the two-warpgroup kernels),
+    and the capped rows' times (``SOFTCAP_TIMED``: qwen2's and gemma3's
+    train shapes and qwen2's decode shape) beside the same call uncapped,
+    the plain version and ``flex_attention`` with a capping
+    ``score_mod``, compiled.  Then gemma3-1b at full width with
+    ``logit_softcap`` ``SOFTCAP`` (Gemma 2's): phase 12's (b) parity at
+    its cut (bf16 by the bf16 rule), the train launcher's loop for 3
+    steps and 8 requests served over 4 slots, every bf16 launch on
+    ``wgmma`` (``simt`` 0), wall beside device busy.
+15. The train launcher on the card with ``--mesh host --fsdp
+    --seq-shard``: the same losses as without the flags (qwen2-0.5b
+    smoke, 3 steps); ``--mesh production`` fails with the reference's
+    assertion.
+16. The dry run (``repro_torch.launch.dryrun``) of qwen2-0.5b
+    ``decode_32k`` on both meshes, llama3.2-1b ``train_4k`` and
+    mixtral-8x7b ``train_4k`` on the single-pod mesh, each on a fake
+    256- or 512-rank process group in a subprocess of its own, the three
+    in parallel beside phases 7-10, read after phase 10: each must print
+    "all cells OK".
 
 Phase 4 also holds layer 0 alone in bf16 (attention output, MLP or MoE
 output), kernel against plain on the same inputs, to the kernels' own
@@ -257,6 +282,7 @@ last line.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import gc
 import json
@@ -522,6 +548,27 @@ SMOKE_DECODE_STEPS = 12
 IMG_SCALE = 0.1
 # The forward's row log-sum-exp, f32 on both sides.
 LSE_TOL = 1e-4
+# Phase 14: the logit soft cap.  The models' cap is Gemma 2's
+# ``attn_logit_softcapping``; phase 2's bends the N(0, 1) logits of its
+# inputs (the models' cap leaves them nearly straight).
+SOFTCAP = 50.0
+SOFTCAP_CHECK = 2.0
+SOFTCAP_CASES = {  # name -> (b, hq, hkv, sq, skv, d, causal, window)
+    "D 64": (2, 14, 2, 512, 512, 64, True, 0),
+    "D 128": (2, 32, 8, 512, 512, 128, True, 0),
+    "D 256": (2, 4, 1, 512, 512, 256, True, 0),
+    "D 256 window": (2, 4, 1, 512, 512, 256, True, 128),
+    "D 128 cross": (2, 32, 8, 256, 200, 128, False, 0)}
+# Phase 14's timed capped rows: gemma3-1b's global train shape, whose
+# launches phase 14b counts, and its global decode shape (14c's serve
+# loop).
+SOFTCAP_TIMED = {"gemma3-1b global": FLASH_D256["gemma3-1b global"]}
+SOFTCAP_DECODE = "gemma3-1b global decode"
+# Phase 16: dry-run cells, each in a subprocess of its own.
+DRYRUN_CELLS = (("qwen2-0.5b", "decode_32k", "both"),
+                ("llama3.2-1b", "train_4k", "single"),
+                ("mixtral-8x7b", "train_4k", "single"))
+DRYRUN_TIMEOUT = 900
 # qwen2-0.5b training (phases 5, 6): full width, batch 4 x 2048.
 QWEN_BATCH, QWEN_SEQ = 4, 2048
 QWEN_PARITY_LAYERS = 2
@@ -831,7 +878,7 @@ def flash_bwd_bound_ms(case, itemsize):
 
 
 def flash_bwd_checks(torch, gen, cases=FLASH_BWD_CASES,
-                     train_shapes=None, fresh=()) -> dict:
+                     train_shapes=None, fresh=(), softcap=0.0) -> dict:
     """Phase 2 for the flash backward: the train forward's output and LSE
     against ``flash_reference_lse`` and a second call's bits, the backward
     kernels against ``flash_backward_reference`` on the same output and
@@ -840,12 +887,15 @@ def flash_bwd_checks(torch, gen, cases=FLASH_BWD_CASES,
     train shape's (``train_shapes``, by name; phase 5's by default) max
     abs errors, forward and backward, on the planned variants.  Cases
     named in ``fresh`` (by ``str(case)``) draw from their own
-    generators."""
+    generators.  ``softcap`` > 0: the kernels and plain versions with
+    the logit soft cap."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     if train_shapes is None:
         train_shapes = FLASH_TRAIN_SHAPES
-    print("phase 2: flash_attention_bwd against flash_backward_reference")
+    print("phase 2: flash_attention_bwd against flash_backward_reference"
+          + (f", soft cap {softcap}" if softcap else ""))
+    cap = {"softcap": softcap} if softcap else {}
     train_err = {}
     arch_of = {case: arch for arch, case in train_shapes.items()}
     for dtype_name, dtype in (("float32", torch.float32),
@@ -859,23 +909,23 @@ def flash_bwd_checks(torch, gen, cases=FLASH_BWD_CASES,
             do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
             before = read_variants()["flash_attention"]
             out, lse = fa._forward(q, k, v, causal, window, None,
-                                   save_lse=True)
+                                   save_lse=True, **cap)
             fwd_variant = ran_variant({
                 v_: n - before[v_] for v_, n in
                 read_variants()["flash_attention"].items()})
             out2, lse2 = fa._forward(q, k, v, causal, window, None,
-                                     save_lse=True)
+                                     save_lse=True, **cap)
             fwd_same = bool(torch.equal(out, out2) and torch.equal(lse, lse2))
             del out2, lse2
             want_out, want_lse = ref.flash_reference_lse(
-                q, k, v, causal=causal, window=window)
+                q, k, v, causal=causal, window=window, **cap)
             lse_err = (lse - want_lse).abs().max().item()
             out_err = (out.float() - want_out.float()).abs().max().item()
             out_ok = math.isfinite(out_err) and torch.allclose(
                 out.float(), want_out.float(), rtol=TOL[dtype_name],
                 atol=TOL[dtype_name])
             expect = ref.flash_backward_reference(
-                q, k, v, out, lse, do, causal=causal, window=window)
+                q, k, v, out, lse, do, causal=causal, window=window, **cap)
             planned = fa.plan_backward(b, hq, hkv, sq, skv, d,
                                        dtype)["variant"]
             forced = ("mma",) if dtype == torch.bfloat16 and d == 64 else ()
@@ -883,9 +933,11 @@ def flash_bwd_checks(torch, gen, cases=FLASH_BWD_CASES,
                 before = read_variants()["flash_attention_bwd"]
                 with backward_on(variant):
                     grads = fa.flash_attention_bwd(
-                        q, k, v, out, lse, do, causal=causal, window=window)
+                        q, k, v, out, lse, do, causal=causal, window=window,
+                        **cap)
                     again = fa.flash_attention_bwd(
-                        q, k, v, out, lse, do, causal=causal, window=window)
+                        q, k, v, out, lse, do, causal=causal, window=window,
+                        **cap)
                 torch.cuda.synchronize()
                 ran = ran_variant({
                     v_: n - before[v_] for v_, n in
@@ -1747,12 +1799,13 @@ def d256_kernel_checks(torch, gen) -> dict:
     return {**errs, **decode_kernel_checks(torch, gen, D256_DECODE)}
 
 
-def decode_kernel_checks(torch, gen, shapes) -> dict:
+def decode_kernel_checks(torch, gen, shapes, softcap=0.0) -> dict:
     """Phase 2 for the flash forward at the decode shapes ``shapes`` (by
     name; a shape without ``causal`` is causal, one with ``kv_len`` None
     sees every key): against ``flash_reference`` and a second call's bits,
     f32 on ``simt`` and bf16 on ``wgmma``.  Each shape draws from a
-    generator of its own.  Returns the bf16 max abs errors by name."""
+    generator of its own.  Returns the bf16 max abs errors by name.
+    ``softcap`` > 0: with the logit soft cap."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     errs = {}
@@ -1761,7 +1814,8 @@ def decode_kernel_checks(torch, gen, shapes) -> dict:
         for what, shape in shapes.items():
             q, k, v, kv_len = inputs(torch, shape, dtype,
                                      own_gen(torch, what, gen, (what,)))
-            kw = dict(causal=shape.get("causal", True), kv_len=kv_len)
+            kw = dict(causal=shape.get("causal", True), kv_len=kv_len,
+                      **({"softcap": softcap} if softcap else {}))
             want = "wgmma" if dtype == torch.bfloat16 else "simt"
             require(fa.plan(*(shape[n] for n in ("b", "hq", "hkv", "sq",
                                                   "skv", "d")),
@@ -3644,8 +3698,8 @@ def flash_by_mask():
     tally = collections.Counter()
     forward, backward = fa._forward, fa._Flash.backward
 
-    def counted_forward(q, k, v, causal, window, kv_len, save_lse):
-        out = forward(q, k, v, causal, window, kv_len, save_lse)
+    def counted_forward(q, k, v, causal, window, kv_len, save_lse, **kw):
+        out = forward(q, k, v, causal, window, kv_len, save_lse, **kw)
         tally["fwd", "self" if causal else "cross"] += 1
         return out
 
@@ -3812,20 +3866,24 @@ def flash_call_checks(torch, cfg, params, batch, what) -> dict:
     for dtype in ("float32", "bfloat16"):
         rows = []
 
-        def probe(q, k, v, *, causal=True, window=0, kv_len=None):
+        def probe(q, k, v, *, causal=True, window=0, kv_len=None,
+                  softcap=0.0):
             before = read_variants()
             out, lse = fa._forward(q, k, v, causal, window, kv_len,
-                                   save_lse=True)
+                                   save_lse=True, softcap=softcap)
             want, want_lse = ref.flash_reference_lse(
-                q, k, v, causal=causal, window=window, kv_len=kv_len)
+                q, k, v, causal=causal, window=window, kv_len=kv_len,
+                softcap=softcap)
             exact, exact_lse = ref.flash_reference_lse(
                 q.double(), k.double(), v.double(), causal=causal,
-                window=window, kv_len=kv_len)
+                window=window, kv_len=kv_len, softcap=softcap)
             do = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
             grads = fa.flash_attention_bwd(q, k, v, out, lse, do,
-                                           causal=causal, window=window)
+                                           causal=causal, window=window,
+                                           softcap=softcap)
             expect = ref.flash_backward_reference(
-                q, k, v, out, lse, do, causal=causal, window=window)
+                q, k, v, out, lse, do, causal=causal, window=window,
+                softcap=softcap)
             after = read_variants()
             ran = {name: ran_variant({x: n - before[name][x]
                                       for x, n in after[name].items()})
@@ -3890,7 +3948,8 @@ def flash_call_checks(torch, cfg, params, batch, what) -> dict:
     return worst
 
 
-def parity_phase(torch, arch, phase, layers, shape, gen) -> dict:
+def parity_phase(torch, arch, phase, layers, shape, gen,
+                 change=None) -> dict:
     """Phases 12b and 13a/13b, second part: full width cut to ``layers``
     layers, batch ``shape`` (``(B, S)``), against one image for a model
     with ``cross`` blocks.
@@ -3908,6 +3967,7 @@ def parity_phase(torch, arch, phase, layers, shape, gen) -> dict:
        ``D256_MAX_LEN`` rows (against a [4,1601,7680] image): f32 within
        ``PARITY_F32`` of max|logits| and bf16 by the bf16 rule.
 
+    ``change``: config fields replaced (phase 14's logit soft cap).
     Returns the per-call errors, the f32 gradients' worst leaf and its
     witness, and the decode's max|d|."""
     from repro_torch import configs
@@ -3915,7 +3975,7 @@ def parity_phase(torch, arch, phase, layers, shape, gen) -> dict:
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models import model as M
     from repro_torch.models.params import tree_items
-    cut = configs.get(arch).replace(n_layers=layers)
+    cut = configs.get(arch).replace(n_layers=layers, **(change or {}))
     calls = sum(flash_layers(cut))
     batch = _train_batch(torch, cut, 0, *shape)
     img = image(torch, cut, shape[0], torch.Generator("cuda").manual_seed(7))
@@ -4019,15 +4079,17 @@ def parity_phase(torch, arch, phase, layers, shape, gen) -> dict:
             "f32_decode_max_abs": dec32}
 
 
-def launcher_train_phase(torch, card, arch, phase="12c") -> dict:
+def launcher_train_phase(torch, card, arch, phase="12c",
+                         change=None) -> dict:
     """Phase 12c (and 13b): the train launcher's loop (its defaults: remat
     dtr, AdamW) at batch 2 x 2048, 3 steps, depth ``GEMMA_TRAIN_LAYERS``
     (the whole model where it names none): each
     step's flash launches per variant (forward twice an attention layer,
     backward once, all on ``wgmma``), finite losses, the step's wall (the
     loop's), device busy and idle share (one more step, profiled),
-    tokens/s, ``max_memory_allocated``.  Returns the launches, in all and
-    by attention kind, and the step's numbers."""
+    tokens/s, ``max_memory_allocated``.  ``change``: config fields
+    replaced.  Returns the launches, in all and by attention kind, and the
+    step's numbers."""
     from repro_torch import configs
     from repro_torch.launch import train
     from repro_torch.models import model as M
@@ -4039,7 +4101,8 @@ def launcher_train_phase(torch, card, arch, phase="12c") -> dict:
     require((args.remat, args.optimizer) == ("dtr", "adamw"),
             f"launcher defaults {args}")
     cfg = train.config_from_args(args).replace(
-        n_layers=GEMMA_TRAIN_LAYERS.get(arch, configs.get(arch).n_layers))
+        n_layers=GEMMA_TRAIN_LAYERS.get(arch, configs.get(arch).n_layers),
+        **(change or {}))
     kinds = attention_kinds(cfg)
     n_attn = sum(kinds.values())
     params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
@@ -4095,16 +4158,18 @@ def launcher_train_phase(torch, card, arch, phase="12c") -> dict:
     return row
 
 
-def gemma_serve_phase(torch, card, arch) -> dict:
+def gemma_serve_phase(torch, card, arch, change=None,
+                      phase="12d") -> dict:
     """Phase 12d: the full-depth model serves 8 requests over 4 slots, 16
     tokens each, bf16, at ``--max-len D256_MAX_LEN``: 8/8 served, flash
     launches once an attention layer and step, all on ``wgmma`` (D 256);
-    the loop's ms/step; one decode step's wall and device busy."""
+    the loop's ms/step; one decode step's wall and device busy.
+    ``change``: config fields replaced."""
     from repro_torch import configs
     from repro_torch.launch import serve
     from repro_torch.models import model as M
     from repro_torch.models.params import tree_map
-    cfg = configs.get(arch)
+    cfg = configs.get(arch).replace(**(change or {}))
     kinds = attention_kinds(cfg)
     n_attn = sum(kinds.values())
     args = serve.parse_args(["--arch", arch, "--requests", "8", "--slots",
@@ -4119,10 +4184,10 @@ def gemma_serve_phase(torch, card, arch) -> dict:
     require(len(res.completed) == 8
             and all(len(t) == 16 and all(0 <= x < cfg.vocab for x in t)
                     for t in res.completed.values()),
-            f"12d {arch}: served {sorted(res.completed)}")
+            f"{phase} {arch}: served {sorted(res.completed)}")
     fwd = variants["flash_attention"]
     require(launches["flash_attention"] == fwd["wgmma"]
-            == res.steps * n_attn, f"12d {arch} launches {launches} "
+            == res.steps * n_attn, f"{phase} {arch} launches {launches} "
             f"{variants} for {res.steps} steps x {n_attn}")
     prepared = M.prepare_params(cfg, params)
     base, tok = decode_inputs(torch, cfg, 4, D256_MAX_LEN,
@@ -4138,8 +4203,9 @@ def gemma_serve_phase(torch, card, arch) -> dict:
     busy_ms = device_ms(torch, run, 3)
     row = {"steps": res.steps, "ms_per_step": res.seconds * 1e3 / res.steps,
            "decode_wall_ms": step_ms, "decode_busy_ms": busy_ms,
-           "launches": launches["flash_attention"], "kinds": dict(kinds)}
-    print(f"phase 12d: {arch} ({cfg.n_layers} layers) served "
+           "launches": launches["flash_attention"], "kinds": dict(kinds),
+           "variants": variants["flash_attention"]}
+    print(f"phase {phase}: {arch} ({cfg.n_layers} layers) served "
           f"{len(res.completed)}/8 requests over 4 slots, {res.steps} "
           f"decode steps, {row['ms_per_step']!r} ms/step, flash launches "
           f"{launches['flash_attention']} per variant {fwd}; one decode "
@@ -4365,6 +4431,272 @@ def new_model_phase(torch, card) -> dict:
     return out
 
 
+# -- 14-16: the soft cap, the launcher's mesh flags, the dry run -------------
+
+def softcap_checks(torch, gen) -> dict:
+    """Phase 2 with the soft cap ``SOFTCAP_CHECK``: the backward cases
+    (forward with the LSE and backward, every variant the shape takes,
+    ``mma`` and ``simt`` forced beside the planned one) of
+    ``SOFTCAP_CASES``, f32 and bf16; the decode shapes with mixed
+    ``kv_len`` (split keys on ``wgmma``); one bf16 forward forced onto
+    ``simt``.  Returns the bf16 max abs errors by name."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    errs = flash_bwd_checks(torch, gen, list(SOFTCAP_CASES.values()),
+                            SOFTCAP_CASES,
+                            tuple(str(c) for c in SOFTCAP_CASES.values()),
+                            softcap=SOFTCAP_CHECK)
+    print(f"phase 2: flash_attention decode, soft cap {SOFTCAP_CHECK}")
+    errs.update(decode_kernel_checks(torch, gen, {
+        f"{n} capped": s for n, s in (("qwen2-0.5b decode", DECODE),
+                                      (SOFTCAP_DECODE,
+                                       D256_DECODE[SOFTCAP_DECODE]))},
+        softcap=SOFTCAP_CHECK))
+    shape = dict(b=2, hq=14, hkv=2, sq=100, skv=100, d=64, kv_len=None)
+    q, k, v, _ = inputs(torch, shape, torch.bfloat16, own_gen(
+        torch, "softcap simt", gen, ("softcap simt",)))
+    before = read_variants()["flash_attention"]["simt"]
+    with simt_only():
+        err = compare(torch, fa.flash_attention, ref.flash_reference,
+                      (q, k, v), dict(causal=True, softcap=SOFTCAP_CHECK),
+                      TOL["bfloat16"], f"bfloat16 {shape} soft cap "
+                      f"{SOFTCAP_CHECK}, forced")
+    require(read_variants()["flash_attention"]["simt"] == before + 1,
+            "the forced bf16 forward ran on simt")
+    errs["bf16 simt"] = {"fwd": err}
+    return errs
+
+
+def _flex(torch, q, k, v, causal, window, kv_len):
+    """``flex_attention`` with the soft cap ``SOFTCAP`` as its
+    ``score_mod`` and the flash kernels' mask as its block mask, compiled:
+    the one library call for the capped function (SDPA has no cap).  A
+    callable, or None (printed) where it does not compile."""
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+        sq, skv = q.shape[2], k.shape[2]
+
+        def mask(b, h, qi, kj):
+            length = skv if kv_len is None else kv_len[b]
+            ok = kj < length
+            if causal:
+                qpos = qi + (length - sq)
+                ok = ok & (kj <= qpos)
+                if window:
+                    ok = ok & (qpos - kj < window)
+            return ok
+
+        def cap(score, b, h, qi, kj):
+            return SOFTCAP * torch.tanh(score / SOFTCAP)
+
+        block = create_block_mask(
+            mask, B=None if kv_len is None else q.shape[0], H=None,
+            Q_LEN=sq, KV_LEN=skv, device="cuda")
+        fn = torch.compile(flex_attention)
+
+        def call():
+            return fn(q, k, v, score_mod=cap, block_mask=block,
+                      enable_gqa=True)
+
+        call()
+        torch.cuda.synchronize()
+        return call
+    except Exception as e:            # the yardstick only, never the port
+        print(f"  flex_attention did not compile here: {e!r}"[:400])
+        return None
+
+
+def softcap_times(torch, card, gen) -> dict:
+    """Phase 2's capped rows, timed: at ``SOFTCAP_TIMED``'s train shapes
+    the forward with the LSE and the backward, at ``SOFTCAP_DECODE`` the
+    decode forward, each capped at ``SOFTCAP`` beside the same call
+    uncapped (the rows ``PERF.md`` measured before the cap), the plain
+    version and ``flex_attention`` compiled (forward only: its backward
+    is no one call)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    rows = {}
+    for what, case in SOFTCAP_TIMED.items():
+        b, hq, hkv, sq, skv, d, causal, window = case
+        shape = dict(b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, d=d, kv_len=None)
+        g = own_gen(torch, f"softcap {what}", gen, (f"softcap {what}",))
+        q, k, v, _ = inputs(torch, shape, torch.bfloat16, g)
+        do = torch.randn(q.shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+        flex = _flex(torch, q, k, v, causal, window, None)
+        label = f"soft cap {SOFTCAP}, {what} {list(case)} bf16"
+        fwd = time_row(torch, (
+            ("ms", lambda: fa._forward(q, k, v, causal, window, None, True,
+                                       softcap=SOFTCAP)),
+            ("uncapped_ms", lambda: fa._forward(q, k, v, causal, window,
+                                                None, True)),
+            ("plain_ms", lambda: ref.flash_reference_lse(
+                q, k, v, causal=causal, window=window, softcap=SOFTCAP)),
+            *((("library_ms", flex),) if flex else ())), 10,
+            attention_bound_ms(shape, causal, 2, "bfloat16", window),
+            f"flash_attention forward, {label}", card)
+        out, lse = fa._forward(q, k, v, causal, window, None, True,
+                               softcap=SOFTCAP)
+        out0, lse0 = fa._forward(q, k, v, causal, window, None, True)
+        bwd = time_row(torch, (
+            ("ms", lambda: fa.flash_attention_bwd(
+                q, k, v, out, lse, do, causal=causal, window=window,
+                softcap=SOFTCAP)),
+            ("uncapped_ms", lambda: fa.flash_attention_bwd(
+                q, k, v, out0, lse0, do, causal=causal, window=window)),
+            ("plain_ms", lambda: ref.flash_backward_reference(
+                q, k, v, out, lse, do, causal=causal, window=window,
+                softcap=SOFTCAP))), 10,
+            flash_bwd_bound_ms(case, 2), f"flash_attention_bwd, {label}",
+            card)
+        fwd.setdefault("library_ms", None)
+        bwd["library_ms"] = None
+        rows[what] = {"fwd": fwd, "bwd": bwd}
+        del q, k, v, do, out, lse, out0, lse0, flex
+        gc.collect()
+        torch.cuda.empty_cache()
+    shape = D256_DECODE[SOFTCAP_DECODE]
+    q, k, v, kv_len = inputs(torch, shape, torch.bfloat16, own_gen(
+        torch, f"softcap {SOFTCAP_DECODE}", gen,
+        (f"softcap {SOFTCAP_DECODE}",)))
+    flex = _flex(torch, q, k, v, True, 0, kv_len)
+    kw = dict(causal=True, kv_len=kv_len)
+    fwd = time_row(torch, (
+        ("ms", lambda: fa.flash_attention(q, k, v, softcap=SOFTCAP, **kw)),
+        ("uncapped_ms", lambda: fa.flash_attention(q, k, v, **kw)),
+        ("plain_ms", lambda: ref.flash_reference(q, k, v, softcap=SOFTCAP,
+                                                 **kw)),
+        *((("library_ms", flex),) if flex else ())), 200,
+        attention_bound_ms(shape, True, 2, "bfloat16"),
+        f"flash_attention, soft cap {SOFTCAP}, {SOFTCAP_DECODE} bf16", card)
+    fwd.setdefault("library_ms", None)
+    rows[SOFTCAP_DECODE] = {"fwd": fwd}
+    return rows
+
+
+def softcap_phase(torch, card) -> dict:
+    """Phase 14: gemma3-1b at full width with ``logit_softcap``
+    ``SOFTCAP``: (a) phase 12's parity at its cut, every flash call and
+    the gradients kernel against plain, bf16 by the bf16 rule; (b) the
+    train launcher's loop, 3 steps at batch 2 x 2048; (c) 8 requests
+    served over 4 slots.  Every bf16 launch on ``wgmma``."""
+    change = {"logit_softcap": SOFTCAP}
+    # A generator of its own: the shared one's draws stay those of the
+    # phases after this one.
+    gen = torch.Generator("cuda").manual_seed(zlib.crc32(b"phase 14"))
+    t14 = time.perf_counter()
+    out = {"parity": parity_phase(
+        torch, GEMMA_ARCH, "14a", GEMMA_PARITY_LAYERS[GEMMA_ARCH],
+        (GEMMA_BATCH, GEMMA_SEQ), gen, change),
+        "train": launcher_train_phase(torch, card, GEMMA_ARCH, "14b",
+                                      change),
+        "serve": gemma_serve_phase(torch, card, GEMMA_ARCH, change, "14c")}
+    simt = out["serve"]["variants"]["simt"]
+    require(simt == 0, f"14c bf16 serve launches on simt: {simt}")
+    print(f"phase 14: {GEMMA_ARCH} with logit_softcap {SOFTCAP}: train "
+          f"wall {out['train']['wall_ms']!r} ms beside device busy "
+          f"{out['train']['busy_ms']!r} ms a step, serve decode wall "
+          f"{out['serve']['decode_wall_ms']!r} ms beside busy "
+          f"{out['serve']['decode_busy_ms']!r} ms, simt launches 0 in "
+          f"14b and 14c; {time.perf_counter() - t14:.1f} s of wall time "
+          f"[{card}]")
+    return out
+
+
+def launcher_mesh_phase(torch, card) -> dict:
+    """Phase 15: the train launcher on the card with ``--mesh host --fsdp
+    --seq-shard`` gives the losses it gives without them (qwen2-0.5b
+    smoke, 3 steps, on the one-device mesh); ``--mesh production`` fails
+    with the reference's assertion."""
+    from repro_torch.launch import train
+    base = ["--arch", ARCH, "--smoke", "--steps", "3", "--batch", "2",
+            "--seq", "32", "--remat", "none"]
+    with tempfile.TemporaryDirectory() as tmp:
+        plain = train.main(base + ["--ckpt-dir", f"{tmp}/plain"])
+        meshed = train.main(base + ["--mesh", "host", "--fsdp",
+                                    "--seq-shard", "--ckpt-dir",
+                                    f"{tmp}/mesh"])
+        refused = None
+        try:
+            train.main(base + ["--mesh", "production", "--ckpt-dir",
+                               f"{tmp}/prod"])
+        except AssertionError as e:
+            refused = str(e)
+    print(f"phase 15: train launcher, {ARCH} smoke on the card: losses "
+          f"{plain.losses} without mesh flags, {meshed.losses} with --mesh "
+          f"host --fsdp --seq-shard; --mesh production: {refused!r} "
+          f"[{card}]")
+    require(plain.losses == meshed.losses, "15: the mesh flags change the "
+            "host mesh's losses")
+    require(refused is not None and refused.startswith(
+        "need 256 devices for mesh (16, 16), have 1"),
+        f"15: --mesh production's failure {refused!r}")
+    return {"losses": meshed.losses}
+
+
+def start_dryrun() -> tuple:
+    """Phase 16's cells, each a subprocess (the fake process group is
+    process-wide), output to files in a temporary directory."""
+    import os
+    out = tempfile.mkdtemp(prefix="dryrun_")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        log = open(Path(out) / f"{arch}_{shape}.log", "w")
+        procs.append(((arch, shape, mesh), log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out", out],
+            env=env, stdout=log, stderr=subprocess.STDOUT, text=True)))
+    return out, procs
+
+
+def stop_dryrun(started) -> None:
+    """Kill whatever of phase 16 still runs (after a failed phase too)."""
+    for _, log, proc in started[1]:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def finish_dryrun(started, card) -> dict:
+    """Phase 16: wait for each cell (``DRYRUN_TIMEOUT`` s in all), require
+    "all cells OK", print its OK lines and return each record's memory,
+    FLOPs, collective bytes by kind and roofline terms."""
+    import shutil
+    out, procs = started
+    deadline = time.perf_counter() + DRYRUN_TIMEOUT
+    rows = {}
+    try:
+        for (arch, shape, mesh), log, proc in procs:
+            rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            log.flush()
+            text = (Path(out) / f"{arch}_{shape}.log").read_text()
+            lines = [ln for ln in text.splitlines()
+                     if ln.startswith(("OK", "FAIL", "all cells"))]
+            print(f"phase 16: dry run {arch} {shape} --mesh {mesh}: exit "
+                  f"{rc}\n  " + "\n  ".join(lines))
+            require(rc == 0 and "all cells OK" in text,
+                    f"16: dry run {arch} {shape}: {text[-2000:]}")
+            for m in (("single", "multi") if mesh == "both" else (mesh,)):
+                res = json.loads((Path(out) / f"{arch}_{shape}_{m}.json")
+                                 .read_text())
+                rows[f"{arch} {shape} {m}"] = {
+                    "chips": res["chips"], "trace_s": res["compile_s"],
+                    "memory": res["memory"], "flops": res["cost"]["flops"],
+                    "collectives": res["collectives"]["by_kind"],
+                    "roofline": {k: res["roofline"][k] for k in (
+                        "compute_s", "memory_s", "collective_s",
+                        "dominant")}}
+    finally:
+        stop_dryrun(started)
+        shutil.rmtree(out, ignore_errors=True)
+    print(f"phase 16: {len(rows)} dry-run cells OK on the card's host "
+          f"[{card}]")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4442,6 +4774,8 @@ def main() -> int:
     new_flash_times = {
         **flash_train_times(torch, card, gen, FLASH_NEW, True, simt=True),
         **flash_decode_times(torch, card, gen, NEW_DECODE)}
+    softcap_err = softcap_checks(torch, gen)
+    softcap_times_ = softcap_times(torch, card, gen)
 
     print("phase 2: moe_gemm against moe_gemm_reference")
     gemm_errs = {}
@@ -4566,6 +4900,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 14. the logit soft cap at full width; 15. the launcher's mesh -------
+    softcap = softcap_phase(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launcher_mesh = launcher_mesh_phase(torch, card)
+    # Phase 16's cells trace on the host's other cores beside phases 7-10
+    # (their host clocks vary more than that already; PERF.md §6).
+    dry = start_dryrun()
+    atexit.register(stop_dryrun, dry)
+
     # -- 7. the eager DTR executor, f32 (TF32 off since phase 1) -------------
     eager_chain(torch, card)
     eager_mlp_phases(torch, card)
@@ -4586,6 +4930,9 @@ def main() -> int:
 
     # -- 10. the serve surface ------------------------------------------------
     surface = surface_phase(torch, card, gen)
+
+    # -- 16. the dry run's cells, started after phase 15 ------------------
+    dryrun_rows = finish_dryrun(dry, card)
 
     d = times["decode"]
     tf, tb = flash_train[ARCH]["fwd"], flash_train[ARCH]["bwd"]
@@ -4614,6 +4961,8 @@ def main() -> int:
                       "deepseek": deepseek}, allow_nan=False))
     print(json.dumps({"gemma": gemma}, allow_nan=False))
     print(json.dumps({"vision_musicgen": new_models}, allow_nan=False))
+    print(json.dumps({"softcap": softcap, "launcher_mesh": launcher_mesh,
+                      "dryrun": dryrun_rows}, allow_nan=False))
 
     def flash_row(direction, row, shape, extra, launches, err):
         """One flash row at head dim 128 or 256: shape, launches, error
@@ -4708,6 +5057,36 @@ def main() -> int:
                                   new_flash_err[what][direction])
         return out
 
+    def softcap_rows(direction):
+        """The capped flash rows: gemma3-1b's train shapes with phase
+        14b's launches of their attention kind, its global decode shape
+        with 14c's; the error is phase 2's largest at ``SOFTCAP_CHECK``
+        (bf16, planned variants)."""
+        kind_of = {"gemma3-1b global": "attn", SOFTCAP_DECODE: "attn"}
+        err = max(e[direction] for e in softcap_err.values()
+                  if direction in e)
+        out = {}
+        for what, dirs in softcap_times_.items():
+            if direction not in dirs:
+                continue
+            row = dirs[direction]
+            if what == SOFTCAP_DECODE:
+                run = softcap["serve"]
+                launches = run["steps"] * run["kinds"].get("attn", 0)
+                shape = [D256_DECODE[what][n] for n in ("b", "hq", "hkv",
+                                                        "sq", "skv", "d")]
+            else:
+                run = softcap["train"]
+                launches = ((2 if direction == "fwd" else 1) * GEMMA_STEPS
+                            * run["kinds"].get(kind_of[what], 0))
+                shape = list(SOFTCAP_TIMED[what][:6])
+            out[what] = {"shape": shape, "softcap": SOFTCAP,
+                         "launches": launches, "max_abs_err": err,
+                         **{k: row[k] for k in (
+                             "ms", "uncapped_ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms")}}
+        return out
+
     def gemm_shape_rows(launches_by, bwd):
         """The phase-11 rows of the forward (``bwd`` False) or backward,
         each shape's share of its run's launches."""
@@ -4749,7 +5128,8 @@ def main() -> int:
         "train_library_ms": tf["library_ms"],
         "train_shapes": shapes("flash_attention", "fwd"),
         "d256_shapes": d256_rows("fwd"), "d128_shapes": d128_rows("fwd"),
-        "vision_musicgen_shapes": new_rows("fwd")}, {
+        "vision_musicgen_shapes": new_rows("fwd"),
+        "softcap_shapes": softcap_rows("fwd")}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "variant": ran_variant(qwen_train["variants"]),
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -4768,7 +5148,8 @@ def main() -> int:
         "simt_ms": tb["simt_ms"],
         "train_shapes": shapes("flash_attention_bwd", "bwd"),
         "d256_shapes": d256_rows("bwd"), "d128_shapes": d128_rows("bwd"),
-        "vision_musicgen_shapes": new_rows("bwd")}, {
+        "vision_musicgen_shapes": new_rows("bwd"),
+        "softcap_shapes": softcap_rows("bwd")}, {
         "name": "moe_gemm", "route": "cuda",
         "variant": ran_variant(moe_variants["moe_gemm"]),
         "source": "src/repro_torch/kernels/csrc/moe_gemm.cu",

@@ -1,10 +1,9 @@
-"""Health monitoring for training runs, copied from ``repro.distributed``:
-:mod:`.monitor`'s step-time straggler detection, divergence guard, memory
-telemetry and timer.
-
-The reference's sharding rules and collectives (``sharding.py``,
-``collectives.py``) need a mesh and have no counterpart here yet (ROADMAP
-Queue 1 item 11).
+"""The counterparts of ``repro.distributed``: :mod:`.monitor` (copied:
+step-time straggler detection, divergence guard, memory telemetry,
+timer), :mod:`.sharding` (the logical-axis rules on DTensor) and
+:mod:`.collectives` (the int8 gradient all-reduce); and
+:mod:`.kernel_sharding`, the kernels' ops' DTensor strategies and FLOP
+formulas for the dry run.
 """
 from .monitor import (DivergenceGuard, MemoryMonitor, MemorySample,
                       StepStats, StragglerMonitor, Timer)

@@ -15,6 +15,7 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -26,6 +27,23 @@ LINK_FLAGS = ("-ldl",)
 _INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.M)
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def plain(tensors) -> bool:
+    """Whether a wrapper call takes the kernel's plain version: every
+    tensor a CPU tensor, none a DTensor.  A DTensor (the dry run's sharded
+    state, whose fake shards lie on the mesh's host) goes to the kernel's
+    dispatcher op, as a CUDA tensor does."""
+    return all(t.device.type == "cpu" for t in tensors) and not any(
+        sharded(t) for t in tensors)
+
+
+def sharded(t) -> bool:
+    """Whether ``t`` is a DTensor: its device is the mesh's, and the op's
+    sharding strategy, not the wrapper, places it.  (No DTensor exists
+    before ``torch.distributed.tensor`` is imported.)"""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
 
 
 def nvcc() -> str:

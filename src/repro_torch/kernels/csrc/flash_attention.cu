@@ -68,6 +68,15 @@
 // + 32c of the output row.  All arithmetic is f32 FMAs on the CUDA cores
 // (no TF32, which would change the f32 function); P stays f32.
 //
+// Soft cap (`softcap` c > 0, Gemma 2's attention-logit soft-capping, the
+// JAX model's `logit_softcap`): every scaled logit s becomes c tanh(s / c)
+// before the mask and the softmax, and the saved LSE is that of the capped
+// logits.  The cap is a template flag that the entry point sets when c > 0,
+// so the uncapped kernels are the code they were.  `simt` takes tanhf (its
+// f32 results are held to 2e-5); `wgmma` takes tanh.approx.f32 (2^-11
+// relative), between the scale and the base-2 factor it folds into one
+// multiply without a cap.
+//
 // Not yet: a persistent schedule, warp specialisation with setmaxnreg,
 // overlap of one tile's softmax with the next tile's wgmma (at D 256 the
 // two consumers overlap only as the scheduler interleaves them; no
@@ -124,13 +133,13 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T>
+template <typename T, bool CAP>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ kv_len,
                  T* __restrict__ out, float* __restrict__ lse, int Hq,
                  int Hkv, int Sq, int Skv, int D, int causal, int window,
-                 float scale) {
+                 float scale, float cap) {
   constexpr int VEC = 16 / sizeof(T);
   extern __shared__ float smem[];
   const int kstride = D + 1;            // odd word stride: conflict-free q.k
@@ -214,6 +223,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float* kr = k_s + lane * kstride;
       for (int d = 0; d < D; ++d) dot = fmaf(qw[d], kr[d], dot);
       s = dot;
+      if constexpr (CAP) s = cap * tanhf(s / cap);
     }
     const float m_new = fmaxf(m, warp_max(s));
     if (m_new == -INFINITY) continue;   // nothing visible yet (warp-uniform)
@@ -247,11 +257,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, bool CAP>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* kv_len, void* out, float* lse, int B, int Hq,
                    int Hkv,
-                   int Sq, int Skv, int D, int causal, int window,
+                   int Sq, int Skv, int D, int causal, int window, float cap,
                    cudaStream_t stream) {
   const int rows = (Hq / Hkv) * Sq;
   const dim3 grid((rows + WARPS - 1) / WARPS, B * Hkv);
@@ -260,15 +270,16 @@ cudaError_t launch(const void* q, const void* k, const void* v,
        static_cast<size_t>(WARPS) * D);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<T, CAP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
-  flash_fwd_kernel<T><<<grid, WARPS * 32, smem, stream>>>(
+  flash_fwd_kernel<T, CAP><<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), kv_len, static_cast<T*>(out), lse, Hq, Hkv,
-      Sq, Skv, D, causal, window, scale);
+      Sq, Skv, D, causal, window, scale, cap);
   return cudaGetLastError();
 }
 
@@ -325,9 +336,19 @@ struct FlashArgs {
   int* tickets;
   int Hq, Hkv, Sq, Skv, D, causal, window, splits, row_tiles;
   float scale_log2;           // 1/sqrt(D) * log2(e): softmax in base 2
+  float cap_in;               // soft cap c: 1/sqrt(D) / c
+  float cap_log2;             // c * log2(e)
 };
 
-template <int DP, int NC>
+// A scaled logit in base 2: s / sqrt(D) * log2(e), or with the soft cap
+// c tanh(s / sqrt(D) / c) * log2(e).
+template <bool CAP>
+__device__ __forceinline__ float logit2(float s, const FlashArgs& a) {
+  if constexpr (CAP) return a.cap_log2 * hopper::tanh_approx(s * a.cap_in);
+  return s * a.scale_log2;
+}
+
+template <int DP, int NC, bool CAP>
 __global__ void __launch_bounds__(FlashTile<DP, NC>::THREADS)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
@@ -502,7 +523,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
       hopper::fence_regs(sc);
 
       // Mask (only where some key of the tile is hidden from some row),
-      // scale in f32, online softmax in base 2.
+      // scale (and cap) in f32, online softmax in base 2.
       const int key0 = t * FW_BKV + 2 * quad;
       const int k_hi = t * FW_BKV + FW_BKV - 1;
       const bool whole = k_hi < L &&
@@ -513,7 +534,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
       if (whole) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
-          sc[i] *= a.scale_log2;
+          sc[i] = logit2<CAP>(sc[i], a);
           mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
         }
       } else {
@@ -528,7 +549,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
               vis = vis && key <= qpos[h];
               if (a.window > 0) vis = vis && qpos[h] - key < a.window;
             }
-            sc[4 * j + e] = vis ? sc[4 * j + e] * a.scale_log2 : -INFINITY;
+            sc[4 * j + e] = vis ? logit2<CAP>(sc[4 * j + e], a) : -INFINITY;
             mx[h] = fmaxf(mx[h], sc[4 * j + e]);
           }
         }
@@ -668,7 +689,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
   if (threadIdx.x == 0) *ticket = 0;  // ready for the next launch
 }
 
-template <int DP, int NC>
+template <int DP, int NC, bool CAP>
 cudaError_t launch_wgmma(const FlashArgs& args, const void* k, const void* v,
                          int B, cudaStream_t stream) {
   using Tile = FlashTile<DP, NC>;
@@ -686,11 +707,12 @@ cudaError_t launch_wgmma(const FlashArgs& args, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   static bool smem_set[hopper::MAX_DEVICES] = {};
   err = hopper::allow_smem(
-      reinterpret_cast<const void*>(flash_wgmma_kernel<DP, NC>), Tile::SMEM,
-      smem_set);
+      reinterpret_cast<const void*>(flash_wgmma_kernel<DP, NC, CAP>),
+      Tile::SMEM, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * args.Hkv, args.row_tiles, args.splits);
-  flash_wgmma_kernel<DP, NC><<<grid, Tile::THREADS, Tile::SMEM, stream>>>(
+  flash_wgmma_kernel<DP, NC, CAP><<<grid, Tile::THREADS, Tile::SMEM,
+                                     stream>>>(
       kmap, vmap, args);
   return cudaGetLastError();
 }
@@ -708,6 +730,7 @@ extern "C" {
 // part_o [B*Hkv*row_tiles*splits*block_q*DP] (DP: D rounded up to 64),
 // part_ml [B*Hkv*row_tiles*splits*block_q*2] and zeroed int32 tickets
 // [B*Hkv*row_tiles].  `block_q` is read by the wgmma variant only.
+// softcap > 0 caps every scaled logit s at softcap * tanh(s / softcap).
 // Returns a cudaError_t: 0 on a successful launch (the kernel itself runs
 // async), cudaErrorInvalidValue for a variant the shape does not allow.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
@@ -715,11 +738,11 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                         int Hq, int Hkv,
                         int Sq, int Skv, int D, int dtype, int causal,
                         int window, int variant, int splits,
-                        int block_q, float* part_o, float* part_ml,
-                        int* tickets, void* stream) {
+                        int block_q, float softcap, float* part_o,
+                        float* part_ml, int* tickets, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0 || Hq % Hkv ||
       D <= 0 || D % 8 || D > MAX_D || window < 0 || B * Hkv > 65535 ||
-      (lse && splits != 1))
+      (lse && splits != 1) || !(softcap >= 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == 1) {
@@ -736,28 +759,39 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
     const long long rows = static_cast<long long>(Hq / Hkv) * Sq;
     const long long row_tiles = (rows + block_q - 1) / block_q;
     if (row_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    const double scale = 1.0 / sqrt(static_cast<double>(D));
     FlashArgs args{static_cast<const __nv_bfloat16*>(q), kv_len,
                    static_cast<__nv_bfloat16*>(out), lse, part_o, part_ml,
                    tickets, Hq, Hkv, Sq, Skv, D, causal, window, splits,
                    static_cast<int>(row_tiles),
-                   static_cast<float>(LOG2E / sqrt(static_cast<double>(D)))};
+                   static_cast<float>(LOG2E * scale),
+                   softcap > 0.f ? static_cast<float>(scale / softcap) : 0.f,
+                   static_cast<float>(softcap * LOG2E)};
+    if (softcap > 0.f) {
+      if (D == 256)
+        return static_cast<int>(
+            block_q == FW_BQ ? launch_wgmma<256, 1, true>(args, k, v, B, s)
+                             : launch_wgmma<256, 2, true>(args, k, v, B, s));
+      return static_cast<int>(
+          D == 128 ? launch_wgmma<128, 1, true>(args, k, v, B, s)
+                   : launch_wgmma<64, 1, true>(args, k, v, B, s));
+    }
     if (D == 256)
-      return static_cast<int>(block_q == FW_BQ
-                                  ? launch_wgmma<256, 1>(args, k, v, B, s)
-                                  : launch_wgmma<256, 2>(args, k, v, B, s));
-    return static_cast<int>(D == 128 ? launch_wgmma<128, 1>(args, k, v, B, s)
-                                     : launch_wgmma<64, 1>(args, k, v, B, s));
+      return static_cast<int>(
+          block_q == FW_BQ ? launch_wgmma<256, 1, false>(args, k, v, B, s)
+                           : launch_wgmma<256, 2, false>(args, k, v, B, s));
+    return static_cast<int>(
+        D == 128 ? launch_wgmma<128, 1, false>(args, k, v, B, s)
+                 : launch_wgmma<64, 1, false>(args, k, v, B, s));
   }
-  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return static_cast<int>(launch<float>(q, k, v, kv_len, out, lse, B, Hq,
-                                          Hkv, Sq, Skv, D, causal, window,
-                                          s));
-  if (dtype == 1)
-    return static_cast<int>(launch<__nv_bfloat16>(
-        q, k, v, kv_len, out, lse, B, Hq, Hkv, Sq, Skv, D, causal, window,
-        s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (variant != 0 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto simt = dtype == 0
+      ? (softcap > 0.f ? launch<float, true> : launch<float, false>)
+      : (softcap > 0.f ? launch<__nv_bfloat16, true>
+                       : launch<__nv_bfloat16, false>);
+  return static_cast<int>(simt(q, k, v, kv_len, out, lse, B, Hq, Hkv, Sq,
+                               Skv, D, causal, window, softcap, s));
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -16,6 +16,13 @@
 //   dS  = P * (dO V^T - D)
 //   dQ  = dS K / sqrt(D),  dK = sum over the G heads of dS^T Q / sqrt(D)
 //
+// Soft cap (`softcap` c > 0, the forward's): S' = c tanh(S / c) takes the
+// place of S in P = exp(S' - lse), and dS = P * (dP - D) * (1 - (S'/c)^2),
+// the cap's derivative, before the dQ and dK products; nothing more is
+// saved.  As in the forward the cap is a template flag set when c > 0 (the
+// uncapped kernels are the code they were); `simt` takes tanhf, the bf16
+// variants tanh.approx.f32.
+//
 // P is recomputed from the forward's own lse (the wgmma forward rounds P to
 // bf16 only as the operand of P.V).  Every pass is deterministic: no
 // atomics, and every output element is summed in a fixed order, so a repeat
@@ -177,12 +184,12 @@ __device__ void stage(const T* __restrict__ src, int n, int D, float* dst,
 // position i + offs), keys j0 + c (c < n_keys).  q_s, do_s: [BT][DP];
 // k_s, v_s: [BT][DP + 4].  Thread t owns rows t/16 + 8b and keys
 // t%16 + 16a.
-template <int DP>
+template <int DP, bool CAP>
 __device__ void scores(const float* q_s, const float* do_s, const float* k_s,
                        const float* v_s, const float* lse_s,
                        const float* delta_s, int i0, int n_rows, int j0,
                        int n_keys, int offs, int causal, int window,
-                       float scale, float* p_s, float* ds_s) {
+                       float scale, float cap, float* p_s, float* ds_s) {
   constexpr int KS = DP + 4;
   const int jl = threadIdx.x % 16;
   const int il = threadIdx.x / 16;
@@ -225,9 +232,16 @@ __device__ void scores(const float* q_s, const float* do_s, const float* k_s,
         vis = vis && j <= i + offs;
         if (window > 0) vis = vis && i + offs - j < window;
       }
-      const float p = vis ? expf(s[b][a] * scale - lse_s[r]) : 0.f;
+      float x = s[b][a] * scale;
+      float dcap = 1.f;                   // d(capped logit) / d(logit)
+      if constexpr (CAP) {
+        const float t = tanhf(x / cap);
+        x = cap * t;
+        dcap = 1.f - t * t;
+      }
+      const float p = vis ? expf(x - lse_s[r]) : 0.f;
       p_s[r * BT + c] = p;
-      ds_s[r * BT + c] = vis ? p * (dp[b][a] - delta_s[r]) : 0.f;
+      ds_s[r * BT + c] = vis ? p * (dp[b][a] - delta_s[r]) * dcap : 0.f;
     }
   }
 }
@@ -253,6 +267,7 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 struct BwdArgs {
   int Hq, Hkv, Sq, Skv, D, causal, window;
   float scale;
+  float cap;                  // the soft cap, 0 for none
 };
 
 // Shared memory of both tile kernels, in floats.
@@ -261,7 +276,7 @@ constexpr int smem_floats() {
   return 2 * BT * DP + 2 * BT * (DP + 4) + 2 * BT * BT + 2 * BT;
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool CAP>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
@@ -326,8 +341,9 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         delta_s[r] = r < n_rows ? delta[row0 + i0 + r] : 0.f;
       }
       __syncthreads();
-      scores<DP>(q_s, do_s, k_s, v_s, lse_s, delta_s, i0, n_rows, j0, n_keys,
-                 offs, a.causal, a.window, a.scale, p_s, ds_s);
+      scores<DP, CAP>(q_s, do_s, k_s, v_s, lse_s, delta_s, i0, n_rows, j0,
+                      n_keys, offs, a.causal, a.window, a.scale, a.cap, p_s,
+                      ds_s);
       __syncthreads();
       for (int r = 0; r < n_rows; ++r) {
         float pv[4], dsv[4];
@@ -377,7 +393,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool CAP>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -437,8 +453,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     stage<T, DP>(k + (kv_base + j0) * a.D, n_keys, a.D, k_s, KS);
     stage<T, DP>(v + (kv_base + j0) * a.D, n_keys, a.D, v_s, KS);
     __syncthreads();
-    scores<DP>(q_s, do_s, k_s, v_s, lse_s, delta_s, i0, n_rows, j0, n_keys,
-               offs, a.causal, a.window, a.scale, p_s, ds_s);
+    scores<DP, CAP>(q_s, do_s, k_s, v_s, lse_s, delta_s, i0, n_rows, j0,
+                    n_keys, offs, a.causal, a.window, a.scale, a.cap, p_s,
+                    ds_s);
     __syncthreads();
     for (int c = 0; c < n_keys; ++c) {
       float dsv[4];
@@ -558,11 +575,12 @@ __device__ void stage_bf16(const __nv_bfloat16* __restrict__ src, int n,
 // P and dS (in place of S and dP) of a warp's 16 x 32 tile: rows
 // r0 + g (+ 8) of the tile, columns c0 + 8 nt + 2 t (+ 1).  `key_rows`:
 // rows are keys (dK/dV) or queries (dQ); lse/delta index the queries.
+template <bool CAP>
 __device__ __forceinline__ void mma_softmax_grad(
     float (&s)[4][4], float (&dp)[4][4], bool key_rows, int r0, int n_r,
     int c0, int n_c, int row_pos0, int col_pos0, int offs, int causal,
-    int window, float scale, const float* lse_s, const float* delta_s,
-    int g, int t) {
+    int window, float scale, float cap, const float* lse_s,
+    const float* delta_s, int g, int t) {
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
@@ -577,13 +595,21 @@ __device__ __forceinline__ void mma_softmax_grad(
         vis = vis && j <= i + offs;
         if (window > 0) vis = vis && i + offs - j < window;
       }
-      const float p = vis ? expf(s[nt][e] * scale - lse_s[qi]) : 0.f;
-      dp[nt][e] = vis ? p * (dp[nt][e] - delta_s[qi]) : 0.f;
+      float x = s[nt][e] * scale;
+      float dcap = 1.f;
+      if constexpr (CAP) {
+        const float th = hopper::tanh_approx(x / cap);
+        x = cap * th;
+        dcap = 1.f - th * th;
+      }
+      const float p = vis ? expf(x - lse_s[qi]) : 0.f;
+      dp[nt][e] = vis ? p * (dp[nt][e] - delta_s[qi]) * dcap : 0.f;
       s[nt][e] = p;
     }
   }
 }
 
+template <bool CAP>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
@@ -663,9 +689,9 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
         mma_row<4>(s, kf[kk], q_s, RS, kk, g, t);
         mma_row<4>(dp, vf[kk], do_s, RS, kk, g, t);
       }
-      mma_softmax_grad(s, dp, true, warp * 16, n_keys, 0, n_rows, j0, i0,
-                       offs, a.causal, a.window, a.scale, lse_s, delta_s, g,
-                       t);
+      mma_softmax_grad<CAP>(s, dp, true, warp * 16, n_keys, 0, n_rows, j0,
+                            i0, offs, a.causal, a.window, a.scale, a.cap,
+                            lse_s, delta_s, g, t);
       // dV += P^T dO, dK += dS^T Q over the 32 queries.
 #pragma unroll
       for (int kk = 0; kk < MT / 16; ++kk) {
@@ -695,6 +721,7 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+template <bool CAP>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
@@ -770,8 +797,9 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
       mma_row<4>(s, qf[kk], k_s, RS, kk, g, t);
       mma_row<4>(dp, of[kk], v_s, RS, kk, g, t);
     }
-    mma_softmax_grad(s, dp, false, warp * 16, n_rows, 0, n_keys, i0, j0,
-                     offs, a.causal, a.window, a.scale, lse_s, delta_s, g, t);
+    mma_softmax_grad<CAP>(s, dp, false, warp * 16, n_rows, 0, n_keys, i0,
+                          j0, offs, a.causal, a.window, a.scale, a.cap,
+                          lse_s, delta_s, g, t);
     // dQ += dS K over the 32 keys.
 #pragma unroll
     for (int kk = 0; kk < MT / 16; ++kk) {
@@ -794,6 +822,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+template <bool CAP>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const void* o, const float* lse, const void* dout,
                        void* dq, void* dk, void* dv, float* delta, int B,
@@ -810,31 +839,31 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_kv((a.Skv + MB - 1) / MB, B * a.Hkv);
-  flash_bwd_dkdv_mma_kernel<<<grid_kv, THREADS, 0, stream>>>(
+  flash_bwd_dkdv_mma_kernel<CAP><<<grid_kv, THREADS, 0, stream>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k),
       static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, delta,
       static_cast<bf*>(dk), static_cast<bf*>(dv), a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_q((a.Sq + MB - 1) / MB, B * a.Hq);
-  flash_bwd_dq_mma_kernel<<<grid_q, THREADS, 0, stream>>>(
+  flash_bwd_dq_mma_kernel<CAP><<<grid_q, THREADS, 0, stream>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k),
       static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, delta,
       static_cast<bf*>(dq), a);
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool CAP>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const float* lse, const void* dout,
                    void* dq, void* dk, void* dv, float* delta, int B,
                    const BwdArgs& a, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<DP>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<T, DP>,
+      flash_bwd_dkdv_kernel<T, DP, CAP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, DP>,
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, DP, CAP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -849,33 +878,33 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_kv((a.Skv + BT - 1) / BT, B * a.Hkv);
-  flash_bwd_dkdv_kernel<T, DP><<<grid_kv, THREADS, smem, stream>>>(
+  flash_bwd_dkdv_kernel<T, DP, CAP><<<grid_kv, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dk), static_cast<T*>(dv), a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_q((a.Sq + BT - 1) / BT, B * a.Hq);
-  flash_bwd_dq_kernel<T, DP><<<grid_q, THREADS, smem, stream>>>(
+  flash_bwd_dq_kernel<T, DP, CAP><<<grid_q, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), a);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool CAP>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* o, const float* lse, const void* dout,
                      void* dq, void* dk, void* dv, float* delta, int B,
                      const BwdArgs& a, cudaStream_t stream) {
   if (a.D <= 64)
-    return launch<T, 64>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, a,
-                         stream);
+    return launch<T, 64, CAP>(q, k, v, o, lse, dout, dq, dk, dv, delta, B,
+                              a, stream);
   if (a.D <= 128)
-    return launch<T, 128>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, a,
-                          stream);
-  return launch<T, 256>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, a,
-                        stream);
+    return launch<T, 128, CAP>(q, k, v, o, lse, dout, dq, dk, dv, delta, B,
+                               a, stream);
+  return launch<T, 256, CAP>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, a,
+                             stream);
 }
 
 
@@ -904,7 +933,23 @@ struct WgArgs {
   int Hq, Hkv, Sq, Skv, sq_pad, causal, window, q_tiles;
   float scale;                // 1/sqrt(D)
   float scale_log2;           // 1/sqrt(D) * log2(e)
+  float cap_in;               // soft cap c: 1/sqrt(D) / c
+  float cap_log2;             // c * log2(e)
 };
+
+// The base-2 logit of a product s, s / sqrt(D) * log2(e), less the row's
+// lse2; with the soft cap c, c tanh(s / sqrt(D) / c) * log2(e) - lse2, and
+// `dcap` gets the cap's derivative 1 - tanh^2.
+template <bool CAP>
+__device__ __forceinline__ float logit2(float s, float lse2,
+                                        const WgArgs& a, float& dcap) {
+  if constexpr (CAP) {
+    const float th = hopper::tanh_approx(s * a.cap_in);
+    dcap = 1.f - th * th;
+    return th * a.cap_log2 - lse2;
+  }
+  return s * a.scale_log2 - lse2;
+}
 
 // The scratch (floats) the wgmma variant needs: the padded lse and D rows,
 // then the partial dK and dV of every query head, DP columns a row.
@@ -1007,6 +1052,7 @@ __device__ __forceinline__ void wg_acc(float (&d)[32],
         hopper::smem_desc(b + kt * 16 * hopper::ROW_BYTES, W_TILE, 1024), 1);
 }
 
+template <bool CAP>
 __global__ void __launch_bounds__(W_THREADS)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap domap,
@@ -1106,14 +1152,15 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     hopper::fence_regs(st);
     const bool whole = whole_tile(i0, j0, a.Sq, a.Skv, offs, a.causal,
                                   a.window);
+    float dcap[CAP ? 32 : 1];
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
       const int c = 8 * jj + 2 * quad;
       const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float x =
-            st[4 * jj + e] * a.scale_log2 - ((e & 1) ? l2.y : l2.x);
+        const float x = logit2<CAP>(st[4 * jj + e], (e & 1) ? l2.y : l2.x,
+                                    a, dcap[CAP ? 4 * jj + e : 0]);
         const bool vis = whole || visible(i0 + c + (e & 1),
                                           j0 + r_own + 8 * (e >> 1), a.Sq,
                                           a.Skv, offs, a.causal, a.window);
@@ -1127,9 +1174,11 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       const float2 dl =
           *reinterpret_cast<const float2*>(delta_s + 8 * jj + 2 * quad);
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
+      for (int e = 0; e < 4; ++e) {
         dpt[4 * jj + e] =
             st[4 * jj + e] * (dpt[4 * jj + e] - ((e & 1) ? dl.y : dl.x));
+        if constexpr (CAP) dpt[4 * jj + e] *= dcap[4 * jj + e];
+      }
     }
 
     // dV += P^T dO and dK += dS^T Q over the tile's 64 queries; both A
@@ -1198,6 +1247,7 @@ flash_bwd_reduce_kernel(const float* __restrict__ part_k,
   v2[1] = __floats2bfloat162_rn(sv.z, sv.w);
 }
 
+template <bool CAP>
 __global__ void __launch_bounds__(W_THREADS)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap domap,
@@ -1298,12 +1348,14 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     hopper::fence_regs(sc);
     const bool whole = whole_tile(i0, t0, a.Sq, a.Skv, offs, a.causal,
                                   a.window);
+    float dcap[CAP ? 32 : 1];
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int h = e >> 1;
-        const float x = sc[4 * jj + e] * a.scale_log2 - l2[h];
+        const float x = logit2<CAP>(sc[4 * jj + e], l2[h], a,
+                                    dcap[CAP ? 4 * jj + e : 0]);
         const bool vis = whole || visible(i0 + r_own + 8 * h,
                                           t0 + 8 * jj + 2 * quad + (e & 1),
                                           a.Sq, a.Skv, offs, a.causal,
@@ -1314,8 +1366,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     hopper::wgmma_wait<0>();
     hopper::fence_regs(dp);
 #pragma unroll
-    for (int i = 0; i < 32; ++i)
+    for (int i = 0; i < 32; ++i) {
       dp[i] = sc[i] * (dp[i] - dl[(i >> 1) & 1]);
+      if constexpr (CAP) dp[i] *= dcap[i];
+    }
 
     // dQ += dS K over the tile's 64 keys.
     uint32_t da[4][4];
@@ -1418,7 +1472,7 @@ __device__ __forceinline__ void put_bf16x2(uint8_t* tile, int row, int col,
                                (col % 8) * 2) = hopper::pack_bf16(lo, hi);
 }
 
-template <int DP>
+template <int DP, bool CAP>
 __global__ void __launch_bounds__(W2_THREADS, 1)
 flash_bwd_dkdv_wg2_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap domap,
@@ -1529,14 +1583,15 @@ flash_bwd_dkdv_wg2_kernel(const __grid_constant__ CUtensorMap qmap,
     hopper::fence_regs(st);
     const bool whole = whole_tile(i0, j0, a.Sq, a.Skv, offs, a.causal,
                                   a.window);
+    float dcap[CAP ? 16 : 1];
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int c = 32 * wg + 8 * jj + 2 * quad;
       const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float x =
-            st[4 * jj + e] * a.scale_log2 - ((e & 1) ? l2.y : l2.x);
+        const float x = logit2<CAP>(st[4 * jj + e], (e & 1) ? l2.y : l2.x,
+                                    a, dcap[CAP ? 4 * jj + e : 0]);
         const bool vis = whole || visible(i0 + c + (e & 1),
                                           j0 + r_own + 8 * (e >> 1), a.Sq,
                                           a.Skv, offs, a.causal, a.window);
@@ -1552,8 +1607,12 @@ flash_bwd_dkdv_wg2_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int e = 2 * h;
-        const float d0 = st[4 * jj + e] * (dpt[4 * jj + e] - dl.x);
-        const float d1 = st[4 * jj + e + 1] * (dpt[4 * jj + e + 1] - dl.y);
+        float d0 = st[4 * jj + e] * (dpt[4 * jj + e] - dl.x);
+        float d1 = st[4 * jj + e + 1] * (dpt[4 * jj + e + 1] - dl.y);
+        if constexpr (CAP) {
+          d0 *= dcap[4 * jj + e];
+          d1 *= dcap[4 * jj + e + 1];
+        }
         put_bf16x2(pt_s, r_own + 8 * h, c, st[4 * jj + e],
                    st[4 * jj + e + 1]);
         put_bf16x2(dst_s, r_own + 8 * h, c, d0, d1);
@@ -1595,7 +1654,7 @@ flash_bwd_dkdv_wg2_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-template <int DP>
+template <int DP, bool CAP>
 __global__ void __launch_bounds__(W2_THREADS, 1)
 flash_bwd_dq_wg2_kernel(const __grid_constant__ CUtensorMap qmap,
                         const __grid_constant__ CUtensorMap domap,
@@ -1708,12 +1767,14 @@ flash_bwd_dq_wg2_kernel(const __grid_constant__ CUtensorMap qmap,
     hopper::fence_regs(sc);
     const bool whole = whole_tile(i0, t0, a.Sq, a.Skv, offs, a.causal,
                                   a.window);
+    float dcap[CAP ? 16 : 1];
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int h = e >> 1;
-        const float x = sc[4 * jj + e] * a.scale_log2 - l2[h];
+        const float x = logit2<CAP>(sc[4 * jj + e], l2[h], a,
+                                    dcap[CAP ? 4 * jj + e : 0]);
         const bool vis = whole || visible(
             i0 + r_own + 8 * h, t0 + 32 * wg + 8 * jj + 2 * quad + (e & 1),
             a.Sq, a.Skv, offs, a.causal, a.window);
@@ -1727,9 +1788,13 @@ flash_bwd_dq_wg2_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int e = 2 * h;
-        put_bf16x2(ds_s, r_own + 8 * h, 32 * wg + 8 * jj + 2 * quad,
-                   sc[4 * jj + e] * (dp[4 * jj + e] - dl[h]),
-                   sc[4 * jj + e + 1] * (dp[4 * jj + e + 1] - dl[h]));
+        float d0 = sc[4 * jj + e] * (dp[4 * jj + e] - dl[h]);
+        float d1 = sc[4 * jj + e + 1] * (dp[4 * jj + e + 1] - dl[h]);
+        if constexpr (CAP) {
+          d0 *= dcap[4 * jj + e];
+          d1 *= dcap[4 * jj + e + 1];
+        }
+        put_bf16x2(ds_s, r_own + 8 * h, 32 * wg + 8 * jj + 2 * quad, d0, d1);
       }
     hopper::fence_proxy_async();
     hopper::bar_sync(W2_BAR, W2_THREADS);
@@ -1760,7 +1825,7 @@ flash_bwd_dq_wg2_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-template <int DP>
+template <int DP, bool CAP>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          const void* o, const float* lse, const void* dout,
                          void* dq, void* dk, void* dv, float* scratch, int B,
@@ -1774,11 +1839,13 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const void* dkdv_fn;
   const void* dq_fn;
   if constexpr (ONE) {
-    dkdv_fn = reinterpret_cast<const void*>(flash_bwd_dkdv_wgmma_kernel);
-    dq_fn = reinterpret_cast<const void*>(flash_bwd_dq_wgmma_kernel);
+    dkdv_fn =
+        reinterpret_cast<const void*>(flash_bwd_dkdv_wgmma_kernel<CAP>);
+    dq_fn = reinterpret_cast<const void*>(flash_bwd_dq_wgmma_kernel<CAP>);
   } else {
-    dkdv_fn = reinterpret_cast<const void*>(flash_bwd_dkdv_wg2_kernel<DP>);
-    dq_fn = reinterpret_cast<const void*>(flash_bwd_dq_wg2_kernel<DP>);
+    dkdv_fn =
+        reinterpret_cast<const void*>(flash_bwd_dkdv_wg2_kernel<DP, CAP>);
+    dq_fn = reinterpret_cast<const void*>(flash_bwd_dq_wg2_kernel<DP, CAP>);
   }
   const int sq_pad = (a.Sq + WT - 1) / WT * WT;
   const long long rows_pad = static_cast<long long>(B) * a.Hq * sq_pad;
@@ -1820,14 +1887,17 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const WgArgs w{lse2, delta, part_k, part_v, static_cast<bf*>(dq),
                  a.Hq, a.Hkv, a.Sq, a.Skv, sq_pad, a.causal, a.window,
                  sq_pad / WB, a.scale,
-                 static_cast<float>(LOG2E * static_cast<double>(a.scale))};
+                 static_cast<float>(LOG2E * static_cast<double>(a.scale)),
+                 a.cap > 0.f ? a.scale / a.cap : 0.f,
+                 static_cast<float>(a.cap * LOG2E)};
   const dim3 grid_kv(static_cast<unsigned>(bhq), (a.Skv + WB - 1) / WB);
   if constexpr (ONE)
-    flash_bwd_dkdv_wgmma_kernel<<<grid_kv, BLOCK_THREADS, SMEM_DKDV,
-                                  stream>>>(qmap, domap, kmap, vmap, w);
+    flash_bwd_dkdv_wgmma_kernel<CAP><<<grid_kv, BLOCK_THREADS, SMEM_DKDV,
+                                       stream>>>(qmap, domap, kmap, vmap, w);
   else
-    flash_bwd_dkdv_wg2_kernel<DP><<<grid_kv, BLOCK_THREADS, SMEM_DKDV,
-                                    stream>>>(qmap, domap, kmap, vmap, w);
+    flash_bwd_dkdv_wg2_kernel<DP, CAP><<<grid_kv, BLOCK_THREADS, SMEM_DKDV,
+                                         stream>>>(qmap, domap, kmap, vmap,
+                                                   w);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long n4 = static_cast<long long>(bhkv) * a.Skv * (DP / 4);
@@ -1840,11 +1910,11 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   const dim3 grid_q(static_cast<unsigned>(bhq), sq_pad / WB);
   if constexpr (ONE)
-    flash_bwd_dq_wgmma_kernel<<<grid_q, BLOCK_THREADS, SMEM_DQ, stream>>>(
-        qmap, domap, kmap, vmap, w);
+    flash_bwd_dq_wgmma_kernel<CAP><<<grid_q, BLOCK_THREADS, SMEM_DQ,
+                                     stream>>>(qmap, domap, kmap, vmap, w);
   else
-    flash_bwd_dq_wg2_kernel<DP><<<grid_q, BLOCK_THREADS, SMEM_DQ, stream>>>(
-        qmap, domap, kmap, vmap, w);
+    flash_bwd_dq_wg2_kernel<DP, CAP><<<grid_q, BLOCK_THREADS, SMEM_DQ,
+                                       stream>>>(qmap, domap, kmap, vmap, w);
   return cudaGetLastError();
 }
 
@@ -1863,6 +1933,8 @@ extern "C" {
 // head dim), which must be the variant's own: simt BT, BT and 64, 128 or
 // 256, mma MB, MT and 64, wgmma WB, WT and D.  Three kernels on `stream`
 // (wgmma: four).
+// softcap > 0: the forward capped its logits at softcap * tanh(s /
+// softcap).
 // Returns a cudaError_t: 0 on a successful launch, cudaErrorInvalidValue
 // for a shape, variant, schedule, scratch or alignment the kernels do not
 // take.
@@ -1872,13 +1944,15 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                         long long scratch_floats, int B, int Hq, int Hkv,
                         int Sq, int Skv, int D, int dtype, int causal,
                         int window, int variant, int block, int step, int dp,
-                        void* stream) {
+                        float softcap, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0 || Hq % Hkv ||
       D <= 0 || D % 8 || D > MAX_D || window < 0 || B * Hq > 65535 ||
-      (causal && Sq > Skv) || !lse || !scratch)
+      (causal && Sq > Skv) || !lse || !scratch || !(softcap >= 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   const BwdArgs a{Hq, Hkv, Sq, Skv, D, causal, window,
-                  static_cast<float>(1.0 / sqrt(static_cast<double>(D)))};
+                  static_cast<float>(1.0 / sqrt(static_cast<double>(D))),
+                  softcap};
+  const bool cap = softcap > 0.f;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uintptr_t any = reinterpret_cast<uintptr_t>(q) |
       reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
@@ -1898,8 +1972,12 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
     cudaError_t (*launch)(const void*, const void*, const void*, const void*,
                           const float*, const void*, void*, void*, void*,
                           float*, int, const BwdArgs&, cudaStream_t) =
-        D == 64 ? launch_wgmma<64>
-                : D == 128 ? launch_wgmma<128> : launch_wgmma<256>;
+        cap ? (D == 64 ? launch_wgmma<64, true>
+                       : D == 128 ? launch_wgmma<128, true>
+                                  : launch_wgmma<256, true>)
+            : (D == 64 ? launch_wgmma<64, false>
+                       : D == 128 ? launch_wgmma<128, false>
+                                  : launch_wgmma<256, false>);
     return static_cast<int>(launch(q, k, v, o, lse, dout, dq, dk, dv,
                                    scratch, B, a, s));
   }
@@ -1908,19 +1986,20 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   if (variant == 1) {
     if (dtype != 1 || D != MD || block != MB || step != MT || dp != MD)
       return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(launch_mma(q, k, v, o, lse, dout, dq, dk, dv,
-                                       scratch, B, a, s));
+    return static_cast<int>((cap ? launch_mma<true> : launch_mma<false>)(
+        q, k, v, o, lse, dout, dq, dk, dv, scratch, B, a, s));
   }
   if (variant != 0 || block != BT || step != BT ||
       dp != (D <= 64 ? 64 : D <= 128 ? 128 : 256))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return static_cast<int>(launch_d<float>(q, k, v, o, lse, dout, dq, dk,
-                                            dv, scratch, B, a, s));
-  if (dtype == 1)
-    return static_cast<int>(launch_d<__nv_bfloat16>(
-        q, k, v, o, lse, dout, dq, dk, dv, scratch, B, a, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0 && dtype != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto simt = dtype == 0
+      ? (cap ? launch_d<float, true> : launch_d<float, false>)
+      : (cap ? launch_d<__nv_bfloat16, true>
+             : launch_d<__nv_bfloat16, false>);
+  return static_cast<int>(simt(q, k, v, o, lse, dout, dq, dk, dv, scratch,
+                               B, a, s));
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -3,7 +3,9 @@
 The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
 ``repro.kernels.flash_attention.flash_attention``: online-softmax attention
 with GQA, bottom-right causal masking and an optional sliding window, plus a
-per-row ``kv_len`` for per-slot decode.  A tensor on the CPU goes to the
+per-row ``kv_len`` for per-slot decode, and an optional attention-logit
+soft cap (``softcap`` c > 0: each scaled logit s becomes c tanh(s / c)
+before the mask and the softmax, the JAX model's ``logit_softcap``).  A tensor on the CPU goes to the
 plain version (``ref.flash_reference``, blocked over queries from
 ``ref.BLOCKED_ATTN_THRESHOLD`` rows on as the JAX model's attention is,
 differentiated by autograd); a CUDA tensor launches the kernel variant that
@@ -15,6 +17,9 @@ and saves q, k, v, the output and the LSE; its backward launches
 has no backward kernel, it differentiates its attention through XLA), whose
 variant and tiles :func:`plan_backward` chooses.  ``.launches`` counts each
 wrapper's kernel launches, ``.variant_launches`` those of each variant.
+Each launch is a dispatcher op (``repro_torch::flash_fwd``, ``::flash_bwd``)
+with a fake implementation, so that fake tensors and DTensors (the dry
+run, ``launch/dryrun.py``) reach the entry points the card runs.
 """
 from __future__ import annotations
 
@@ -44,15 +49,16 @@ BWD_WGMMA_HEAD_DIMS = (64, 128, 256)
 # a dQ block; queries of a dK/dV step and keys of a dQ step.
 BWD_TILES = {"simt": (32, 32), "mma": (64, 32), "wgmma": (64, 64)}
 # q, k, v, kv_len, out, lse; B, Hq, Hkv, Sq, Skv, D, dtype, causal, window,
-# variant, splits, block_q; part_o, part_ml, tickets, stream
+# variant, splits, block_q; softcap; part_o, part_ml, tickets, stream
 _SIGNATURES = {"flash_attention_fwd": (
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 4,
-    ctypes.c_int)}
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_float]
+    + [ctypes.c_void_p] * 4, ctypes.c_int)}
 # q, k, v, o, lse, dout, dq, dk, dv, scratch; scratch_floats; B, Hq, Hkv,
-# Sq, Skv, D, dtype, causal, window, variant, block, step, dp; stream
+# Sq, Skv, D, dtype, causal, window, variant, block, step, dp; softcap;
+# stream
 _BWD_SIGNATURES = {"flash_attention_bwd": (
     [ctypes.c_void_p] * 10 + [ctypes.c_longlong] + [ctypes.c_int] * 13
-    + [ctypes.c_void_p], ctypes.c_int)}
+    + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int)}
 # Per (device, stream): int32 tickets of the split-kv combine, zero between
 # launches (the combining block resets its own).  Launches on one stream run
 # in order, so they never share a ticket while both are in flight.
@@ -199,7 +205,7 @@ def _tickets(device, stream, n):
     return t
 
 
-def _check(q, k, v, kv_len, causal, window):
+def _check(q, k, v, kv_len, causal, window, softcap=0.0):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"want q [B,Hq,Sq,D] and k/v [B,Hkv,Skv,D], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -219,6 +225,8 @@ def _check(q, k, v, kv_len, causal, window):
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    if not softcap >= 0.0:
+        raise ValueError(f"softcap must be >= 0, got {softcap}")
     if causal and kv_len is None and sq > skv:
         raise ValueError(f"causal attention with Sq={sq} > Skv={skv} leaves "
                          f"rows with no visible key")
@@ -230,38 +238,57 @@ def _check(q, k, v, kv_len, causal, window):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    kv_len: Optional[torch.Tensor] = None,
+                    softcap: float = 0.0) -> torch.Tensor:
     """q: [B, Hq, Sq, D]; k/v: [B, Hkv, Skv, D] -> [B, Hq, Sq, D].
 
     Differentiable in q, k and v (not with ``kv_len``, which only decode
-    passes)."""
-    _check(q, k, v, kv_len, causal, window)
+    passes).  ``softcap`` > 0 caps each scaled logit s at
+    ``softcap * tanh(s / softcap)``."""
+    softcap = float(softcap)
+    _check(q, k, v, kv_len, causal, window, softcap)
     grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
     if grad and kv_len is not None:
         raise ValueError("flash_attention: no backward with kv_len (decode "
                          "only); call it under torch.no_grad()")
     tensors = (q, k, v) if kv_len is None else (q, k, v, kv_len)
-    if all(t.device.type == "cpu" for t in tensors):
+    if _build.plain(tensors):
+        cap = {"softcap": softcap} if softcap else {}
         if kv_len is None and q.shape[2] >= BLOCKED_ATTN_THRESHOLD:
             return flash_reference_blocked(q, k, v, causal=causal,
-                                           window=window)
+                                           window=window, **cap)
         return flash_reference(q, k, v, causal=causal, window=window,
-                               kv_len=kv_len)
+                               kv_len=kv_len, **cap)
     if grad:
-        return _Flash.apply(q, k, v, causal, window)
-    return _forward(q, k, v, causal, window, kv_len, save_lse=False)[0]
+        return _Flash.apply(q, k, v, causal, window, softcap)
+    return _forward(q, k, v, causal, window, kv_len, save_lse=False,
+                    softcap=softcap)[0]
 
 
-def _forward(q, k, v, causal, window, kv_len, save_lse):
+def _forward(q, k, v, causal, window, kv_len, save_lse, softcap=0.0):
     """Launch the forward kernel; returns ``(out, lse)`` (lse None unless
     ``save_lse``)."""
     tensors = (q, k, v) if kv_len is None else (q, k, v, kv_len)
-    if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
+    if not _build.sharded(q) and (any(t.device != q.device for t in tensors)
+                                  or q.device.type != "cuda"):
         raise ValueError(f"q/k/v/kv_len must all lie on one CUDA device, got "
                          f"{[str(t.device) for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the kernel takes contiguous q/k/v/kv_len")
+    out, lse = torch.ops.repro_torch.flash_fwd(q, k, v, kv_len, causal,
+                                               window, softcap, save_lse)
+    return out, (lse if save_lse else None)
+
+
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=())
+def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                kv_len: Optional[torch.Tensor], causal: bool, window: int,
+                softcap: float, save_lse: bool
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward launch, as a dispatcher op so that fake tensors (the
+    dry run's) and DTensors reach it: ``(out, lse)``, lse empty unless
+    ``save_lse``."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     out = torch.empty_like(q)
@@ -289,20 +316,28 @@ def _forward(q, k, v, causal, window, kv_len, save_lse):
             None if lse is None else lse.data_ptr(),
             b, hq, hkv, sq, skv, d, _DTYPES[q.dtype], int(causal),
             int(window), VARIANTS[p["variant"]], p["kv_splits"],
-            p["block_q"], *scratch, stream)
+            p["block_q"], softcap, *scratch, stream)
     _build.check(lib, err, f"flash_attention launch ({p['variant']})")
     flash_attention.launches += 1
     flash_attention.variant_launches[p["variant"]] += 1
-    return out, lse
+    return out, lse if save_lse else out.new_empty(0, dtype=torch.float32)
+
+
+@_launch_fwd.register_fake
+def _(q, k, v, kv_len, causal, window, softcap, save_lse):
+    return (torch.empty_like(q), q.new_empty(
+        q.shape[:3] if save_lse else (0,), dtype=torch.float32))
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
-                        window: int = 0):
+                        window: int = 0, softcap: float = 0.0):
     """The backward kernels: the forward's inputs, its output ``o`` and row
-    log-sum-exp ``lse`` (f32 [B,Hq,Sq]) and the output gradient ``do`` ->
-    ``(dq, dk, dv)`` in the inputs' dtype.  CPU tensors go to the plain
-    version (``ref.flash_backward_reference``)."""
-    _check(q, k, v, None, causal, window)
+    log-sum-exp ``lse`` (f32 [B,Hq,Sq], of the capped logits where
+    ``softcap`` > 0) and the output gradient ``do`` -> ``(dq, dk, dv)`` in
+    the inputs' dtype.  CPU tensors go to the plain version
+    (``ref.flash_backward_reference``)."""
+    softcap = float(softcap)
+    _check(q, k, v, None, causal, window, softcap)
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
@@ -314,13 +349,30 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         raise ValueError(f"want lse f32 {(b, hq, sq)}, got {lse.dtype} "
                          f"{tuple(lse.shape)}")
     tensors = (q, k, v, o, lse, do)
-    if all(t.device.type == "cpu" for t in tensors):
+    if _build.plain(tensors):
         return flash_backward_reference(q, k, v, o, lse, do, causal=causal,
-                                        window=window)
-    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+                                        window=window, softcap=softcap)
+    if not _build.sharded(q) and (q.device.type != "cuda" or any(
+            t.device != q.device for t in tensors)):
         raise ValueError(f"flash_attention_bwd: all tensors must lie on one "
                          f"CUDA device, got "
                          f"{[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("flash_attention_bwd: the kernels take contiguous "
+                         "tensors")
+    return torch.ops.repro_torch.flash_bwd(q, k, v, o, lse, do, causal,
+                                           window, softcap)
+
+
+@torch.library.custom_op("repro_torch::flash_bwd", mutates_args=())
+def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                causal: bool, window: int, softcap: float
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward launches, as a dispatcher op (see ``_launch_fwd``)."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    tensors = (q, k, v, o, lse, do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     ptrs = tensors + (dq, dk, dv)
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ptrs):
@@ -337,11 +389,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
             hkv, sq, skv, d,
             _DTYPES[q.dtype], int(causal), int(window),
             BWD_VARIANTS[p["variant"]], p["block"], p["step"], p["dp"],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            softcap, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, f"flash_attention_bwd launch ({p['variant']})")
     flash_attention_bwd.launches += 1
     flash_attention_bwd.variant_launches[p["variant"]] += 1
     return dq, dk, dv
+
+
+@_launch_bwd.register_fake
+def _(q, k, v, o, lse, do, causal, window, softcap):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 class _Flash(torch.autograd.Function):
@@ -349,10 +406,11 @@ class _Flash(torch.autograd.Function):
     backward kernels."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        out, lse = _forward(q, k, v, causal, window, None, save_lse=True)
+    def forward(ctx, q, k, v, causal, window, softcap=0.0):
+        out, lse = _forward(q, k, v, causal, window, None, save_lse=True,
+                            softcap=softcap)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.softcap = causal, window, softcap
         return out
 
     @staticmethod
@@ -360,8 +418,9 @@ class _Flash(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
                                          causal=ctx.causal,
-                                         window=ctx.window)
-        return dq, dk, dv, None, None
+                                         window=ctx.window,
+                                         softcap=ctx.softcap)
+        return dq, dk, dv, None, None, None
 
 
 flash_attention.launches = 0

@@ -16,7 +16,9 @@ where they lie, each in its own layout (``csrc/moe_gemm.cu``'s ``DX`` and
 ``DW``); on ``simt`` (f32) the forward kernel runs on transposed
 contiguous copies of w and x.  ``moe_gemm.launches`` and
 ``moe_gemm_bwd.launches`` count the forward's and the backward's kernel
-launches, ``.variant_launches`` those of each variant.
+launches, ``.variant_launches`` those of each variant.  The launches are
+dispatcher ops (``repro_torch::moe_gemm_fwd``, ``::moe_gemm_bwd``) with
+fake implementations, which the dry run traces.
 """
 from __future__ import annotations
 
@@ -90,8 +92,10 @@ def _check(x, w):
 def _on_card(*ts) -> bool:
     """True for CUDA tensors on one device, False for CPU tensors; raises
     for anything else."""
-    if all(t.device.type == "cpu" for t in ts):
+    if _build.plain(ts):
         return False
+    if _build.sharded(ts[0]):
+        return True
     if any(t.device != ts[0].device for t in ts) or \
             ts[0].device.type != "cuda":
         raise ValueError(f"the operands must lie on one CUDA device, got "
@@ -124,7 +128,7 @@ class _MoeGemm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        return _launch(x, w, moe_gemm)
+        return torch.ops.repro_torch.moe_gemm_fwd(x, w)
 
     @staticmethod
     def backward(ctx, dy):
@@ -139,7 +143,19 @@ def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return moe_gemm_reference(x, w)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _MoeGemm.apply(x, w)
+    return torch.ops.repro_torch.moe_gemm_fwd(x, w)
+
+
+@torch.library.custom_op("repro_torch::moe_gemm_fwd", mutates_args=())
+def _launch_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The forward launch, as a dispatcher op so that fake tensors (the
+    dry run's) and DTensors reach it."""
     return _launch(x, w, moe_gemm)
+
+
+@_launch_fwd.register_fake
+def _(x, w):
+    return x.new_empty((*x.shape[:2], w.shape[2]))
 
 
 def moe_gemm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
@@ -157,7 +173,18 @@ def moe_gemm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
         return moe_gemm_bwd_reference(x, w, dy, need)
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("the kernel takes contiguous x and w")
-    dy = dy.contiguous()
+    dx, dw = torch.ops.repro_torch.moe_gemm_bwd(x, w, dy.contiguous(),
+                                                bool(need[0]), bool(need[1]))
+    return dx if need[0] else None, dw if need[1] else None
+
+
+@torch.library.custom_op("repro_torch::moe_gemm_bwd", mutates_args=())
+def _launch_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                need_dx: bool, need_dw: bool
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward launches, as a dispatcher op (see ``_launch_fwd``); a
+    gradient not needed comes back empty."""
+    need = (need_dx, need_dw)
     e, c, d = x.shape
     f = w.shape[2]
     p = plan_backward(e, c, d, f, x.dtype, aligned=all(
@@ -167,7 +194,7 @@ def moe_gemm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
             if need[0] else None
         dw = _launch(x.transpose(1, 2).contiguous(), dy, moe_gemm_bwd) \
             if need[1] else None
-        return dx, dw
+        return _or_empty(dx, x), _or_empty(dw, w)
     # Fresh allocations: 16-byte aligned.
     dx = torch.empty_like(x) if need[0] else None
     dw = torch.empty_like(w) if need[1] else None
@@ -182,7 +209,17 @@ def moe_gemm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     _build.check(lib, err, "moe_gemm backward launch (wgmma)")
     moe_gemm_bwd.launches += sum(need)
     moe_gemm_bwd.variant_launches["wgmma"] += sum(need)
-    return dx, dw
+    return _or_empty(dx, x), _or_empty(dw, w)
+
+
+def _or_empty(g, like):
+    return like.new_empty(0) if g is None else g
+
+
+@_launch_bwd.register_fake
+def _(x, w, dy, need_dx, need_dw):
+    return (torch.empty_like(x) if need_dx else x.new_empty(0),
+            torch.empty_like(w) if need_dw else w.new_empty(0))
 
 
 def moe_gemm_bwd_reference(x, w, dy, need=(True, True)):

@@ -11,34 +11,45 @@ from typing import Optional
 
 import torch
 
+from ..distributed.sharding import is_dtensor, local_by_axes
 from .flash_attention import flash_attention
 from .moe_gemm import moe_gemm
 from .rwkv6_chunk import rwkv6_chunk
 
 
 def attention(q_bshd, k_bskd, v_bskd, *, window: int = 0,
-              kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+              kv_len: Optional[torch.Tensor] = None,
+              softcap: float = 0.0) -> torch.Tensor:
     """Causal attention in the model layout [B,S,H,D]; returns [B,S,H,D].
 
     ``window`` > 0: sliding window of that many keys.  ``kv_len`` (int32
     [B]): row ``b`` sees only its first ``kv_len[b]`` keys (per-slot decode
-    against a shared-length cache).
+    against a shared-length cache).  ``softcap`` > 0: each scaled logit s
+    becomes ``softcap * tanh(s / softcap)``.
     """
     q = q_bshd.transpose(1, 2).contiguous()
     k = k_bskd.transpose(1, 2).contiguous()
     v = v_bskd.transpose(1, 2).contiguous()
     return flash_attention(q, k, v, causal=True, window=window,
-                           kv_len=kv_len).transpose(1, 2)
+                           kv_len=kv_len, **_cap(softcap)).transpose(1, 2)
 
 
-def cross_attention(q_bshd, k_bskd, v_bskd) -> torch.Tensor:
+def cross_attention(q_bshd, k_bskd, v_bskd, *,
+                    softcap: float = 0.0) -> torch.Tensor:
     """Attention with no mask in the model layout: q [B,Sq,H,D] against
     k/v [B,Skv,KV,D] of another stream (Skv need not equal Sq); returns
-    [B,Sq,H,D]."""
+    [B,Sq,H,D].  ``softcap`` as in :func:`attention`."""
     q = q_bshd.transpose(1, 2).contiguous()
     k = k_bskd.transpose(1, 2).contiguous()
     v = v_bskd.transpose(1, 2).contiguous()
-    return flash_attention(q, k, v, causal=False).transpose(1, 2)
+    return flash_attention(q, k, v, causal=False,
+                           **_cap(softcap)).transpose(1, 2)
+
+
+def _cap(softcap: float) -> dict:
+    """The soft cap as a keyword, only where there is one: an uncapped
+    call is the call it was before the cap existed."""
+    return {"softcap": softcap} if softcap else {}
 
 
 def expert_ffn(buf_becd, w_edf) -> torch.Tensor:
@@ -50,9 +61,18 @@ def expert_ffn(buf_becd, w_edf) -> torch.Tensor:
     so rows never mix.
     """
     b, e, c, d = buf_becd.shape
-    x = buf_becd.transpose(0, 1).reshape(e, b * c, d).contiguous()
+    x = dense(buf_becd.transpose(0, 1)).reshape(e, b * c, d)
     y = moe_gemm(x, w_edf)
     return y.reshape(e, b, c, -1).transpose(0, 1)
+
+
+def dense(x: torch.Tensor) -> torch.Tensor:
+    """``x`` laid out densely, so that a reshape is a view: ``contiguous``
+    (a copy where ``x`` is transposed), or for a DTensor a copy of its
+    local shard, whose strides its global ``contiguous`` does not see."""
+    if is_dtensor(x):
+        return x.clone(memory_format=torch.contiguous_format)
+    return x.contiguous()
 
 
 def rwkv_mix(r_bshd, k_bshd, v_bshd, wlog_bshd, u_hd) -> torch.Tensor:
@@ -64,6 +84,11 @@ def rwkv_mix(r_bshd, k_bshd, v_bshd, wlog_bshd, u_hd) -> torch.Tensor:
     over the batch.
     """
     b, s, h, d = r_bshd.shape
+    if is_dtensor(r_bshd):     # under a mesh: each device its rows and heads
+        head = ("batch", None, "heads", None)
+        return local_by_axes(rwkv_mix, (r_bshd, k_bshd, v_bshd, wlog_bshd,
+                                        u_hd), [head] * 4 + [("heads", None)],
+                             [(head, r_bshd.shape)])
 
     def to_bh(x):
         return x.transpose(1, 2).reshape(b * h, s, d).contiguous()

@@ -20,14 +20,18 @@ def _acc(x):
     return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
-def _flash_logits(q, k, causal, window, kv_len):
+def _flash_logits(q, k, causal, window, kv_len, softcap=0.0):
     """Scaled logits [B,Hkv,G,Sq,Skv] (f32, or f64 for f64 inputs) with
-    hidden pairs at -1e30."""
+    hidden pairs at -1e30; ``softcap`` > 0 caps each scaled logit s at
+    ``softcap * tanh(s / softcap)`` before the mask, as the reference's
+    ``_sdpa`` does."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     qg = q.reshape(b, hkv, hq // hkv, sq, d)
     logits = torch.einsum("bkgqd,bksd->bkgqs", qg.to(_acc(q)),
                           k.to(_acc(q))) / math.sqrt(d)
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
     length = (torch.full((b,), skv, device=q.device) if kv_len is None
               else kv_len.to(q.device).clamp(0, skv))[:, None, None]
     qpos = torch.arange(sq, device=q.device)[None, :, None] + (length - sq)
@@ -41,22 +45,24 @@ def _flash_logits(q, k, causal, window, kv_len):
 
 
 def flash_reference(q, k, v, *, causal: bool = True, window: int = 0,
-                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    kv_len: Optional[torch.Tensor] = None,
+                    softcap: float = 0.0) -> torch.Tensor:
     """q: [B,Hq,Sq,D]; k/v: [B,Hkv,Skv,D] — naive softmax attention.
 
     ``kv_len`` (int [B], optional): row ``b`` attends over its first
     ``kv_len[b]`` keys with causal offset ``kv_len[b] - Sq``, as if k and v
-    were cut to that length.
+    were cut to that length.  ``softcap``: see ``_flash_logits``.
     """
     b, hq, sq, d = q.shape
-    probs = torch.softmax(_flash_logits(q, k, causal, window, kv_len), -1)
+    probs = torch.softmax(_flash_logits(q, k, causal, window, kv_len,
+                                        softcap), -1)
     out = torch.einsum("bkgqs,bksd->bkgqd", probs, v.to(probs.dtype))
     return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
 def flash_reference_blocked(q, k, v, *, causal: bool = True,
-                            window: int = 0,
-                            q_block: int = Q_BLOCK) -> torch.Tensor:
+                            window: int = 0, q_block: int = Q_BLOCK,
+                            softcap: float = 0.0) -> torch.Tensor:
     """``flash_reference`` over blocks of ``q_block`` query rows, each under
     a non-reentrant ``torch.utils.checkpoint``, so the ``[Sq,Skv]`` logits
     never exist at once and the backward recomputes each block from q, k and
@@ -64,7 +70,8 @@ def flash_reference_blocked(q, k, v, *, causal: bool = True,
     ``jax.checkpoint``).  A causal block sees only the keys up to its last
     row's position, so k and v are cut there."""
     sq, skv = q.shape[2], k.shape[2]
-    block = partial(flash_reference, causal=causal, window=window)
+    block = partial(flash_reference, causal=causal, window=window,
+                    softcap=softcap)
     outs = []
     for i0 in range(0, sq, q_block):
         i1 = min(sq, i0 + q_block)
@@ -75,12 +82,13 @@ def flash_reference_blocked(q, k, v, *, causal: bool = True,
 
 
 def flash_reference_lse(q, k, v, *, causal: bool = True, window: int = 0,
-                        kv_len: Optional[torch.Tensor] = None):
+                        kv_len: Optional[torch.Tensor] = None,
+                        softcap: float = 0.0):
     """``flash_reference``'s output and the f32 log-sum-exp of each row's
-    scaled logits, ``[B,Hq,Sq]`` (what the forward kernel saves for its
-    backward)."""
+    scaled (and capped) logits, ``[B,Hq,Sq]`` (what the forward kernel
+    saves for its backward)."""
     b, hq, sq, d = q.shape
-    logits = _flash_logits(q, k, causal, window, kv_len)
+    logits = _flash_logits(q, k, causal, window, kv_len, softcap)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bksd->bkgqd", probs, v.to(probs.dtype))
     lse = torch.logsumexp(logits, dim=-1)
@@ -88,7 +96,7 @@ def flash_reference_lse(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def flash_backward_reference(q, k, v, o, lse, do, *, causal: bool = True,
-                             window: int = 0):
+                             window: int = 0, softcap: float = 0.0):
     """Gradients of ``flash_reference`` against ``do`` from the forward's
     output ``o`` and row log-sum-exp ``lse`` (f32 ``[B,Hq,Sq]``), step by
     step as the backward kernel computes them, in f32:
@@ -99,6 +107,9 @@ def flash_backward_reference(q, k, v, o, lse, do, *, causal: bool = True,
       dS = P * (dO V^T - D)
       dQ = dS K / sqrt(d)
       dK = sum_g dS^T Q / sqrt(d)
+
+    With ``softcap`` c > 0, S is the capped S' = c tanh(S / c) in P, and
+    dS is multiplied by the cap's derivative 1 - (S' / c)^2.
 
     Returns ``(dq, dk, dv)`` in the inputs' dtypes.
     """
@@ -112,11 +123,13 @@ def flash_backward_reference(q, k, v, o, lse, do, *, causal: bool = True,
 
     qg, og, dog = grouped(q), grouped(o), grouped(do)
     delta = (dog * og).sum(-1, keepdim=True)            # [B,Hkv,G,Sq,1]
-    s = _flash_logits(q, k, causal, window, None)
+    s = _flash_logits(q, k, causal, window, None, softcap)
     p = torch.exp(s - lse.reshape(b, hkv, g, sq, 1))     # hidden: exp(-1e30)
     dv = torch.einsum("bkgqs,bkgqd->bksd", p, dog)
     dp = torch.einsum("bkgqd,bksd->bkgqs", dog, v.float())
     ds = p * (dp - delta)
+    if softcap > 0:   # hidden pairs (-1e30) clamp to -c: their dS is 0
+        ds = ds * (1 - torch.square(s.clamp(min=-softcap) / softcap))
     dq = torch.einsum("bkgqs,bksd->bkgqd", ds, k.float()) * scale
     dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qg) * scale
     return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),

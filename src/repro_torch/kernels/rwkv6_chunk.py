@@ -22,7 +22,9 @@ from dtype, shape and alignment alone:
 (``ref.rwkv6_reference``, differentiated by autograd), on CUDA tensors a
 ``torch.autograd.Function`` whose forward launches ``rwkv6_fwd`` and whose
 backward launches ``rwkv6_bwd``.  Each wrapper counts its launches in
-``.launches`` and per variant in ``.variant_launches``.
+``.launches`` and per variant in ``.variant_launches``.  The launches are
+dispatcher ops (``repro_torch::rwkv6_fwd``, ``::rwkv6_bwd``) with fake
+implementations, which the dry run traces.
 """
 from __future__ import annotations
 
@@ -103,7 +105,8 @@ def _on_card(tensors, what: str):
     """Raise unless every tensor is a contiguous tensor on one CUDA device
     and the head dim is one the kernels take."""
     dev = tensors[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+    if not _build.sharded(tensors[0]) and (
+            dev.type != "cuda" or any(t.device != dev for t in tensors)):
         raise ValueError(f"{what}: all tensors must lie on one CUDA device, "
                          f"got {[str(t.device) for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
@@ -129,9 +132,17 @@ def rwkv6_fwd(r, k, v, w_log, u) -> torch.Tensor:
     and u [BH,D] f32 -> out [BH,S,D] f32.  CPU tensors go to the plain
     version."""
     _check(r, k, v, w_log, u)
-    if all(t.device.type == "cpu" for t in (r, k, v, w_log, u)):
+    if _build.plain((r, k, v, w_log, u)):
         return rwkv6_reference(r, k, v, w_log, u)
     _on_card((r, k, v, w_log, u), "rwkv6_fwd")
+    return torch.ops.repro_torch.rwkv6_fwd(r, k, v, w_log, u)
+
+
+@torch.library.custom_op("repro_torch::rwkv6_fwd", mutates_args=())
+def _launch_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                w_log: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The forward launch, as a dispatcher op so that fake tensors (the
+    dry run's) and DTensors reach it."""
     bh, s, d = r.shape
     out = torch.empty((bh, s, d), dtype=torch.float32, device=r.device)
     p = _plan_for((r, k, v, w_log, u, out))
@@ -156,6 +167,11 @@ def rwkv6_fwd(r, k, v, w_log, u) -> torch.Tensor:
     return out
 
 
+@_launch_fwd.register_fake
+def _(r, k, v, w_log, u):
+    return r.new_empty(r.shape, dtype=torch.float32)
+
+
 def rwkv6_bwd(r, k, v, w_log, u, g):
     """The backward kernel: the forward's inputs and the output gradient
     ``g`` (f32 [BH,S,D]) -> ``(gr, gk, gv, gw_log, gu)``, gr/gk/gv in r's
@@ -166,9 +182,19 @@ def rwkv6_bwd(r, k, v, w_log, u, g):
         raise ValueError(f"want g f32 {tuple(r.shape)}, got {g.dtype} "
                          f"{tuple(g.shape)}")
     tensors = (r, k, v, w_log, u, g)
-    if all(t.device.type == "cpu" for t in tensors):
+    if _build.plain(tensors):
         return rwkv6_backward_reference(r, k, v, w_log, u, g)
     _on_card(tensors, "rwkv6_bwd")
+    return torch.ops.repro_torch.rwkv6_bwd(r, k, v, w_log, u, g)
+
+
+@torch.library.custom_op("repro_torch::rwkv6_bwd", mutates_args=())
+def _launch_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                w_log: torch.Tensor, u: torch.Tensor, g: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor, torch.Tensor]:
+    """The backward launch, as a dispatcher op (see ``_launch_fwd``)."""
+    tensors = (r, k, v, w_log, u, g)
     bh, s, d = r.shape
     gr, gk, gv = (torch.empty_like(r) for _ in range(3))
     gw = torch.empty_like(w_log)
@@ -199,6 +225,12 @@ def rwkv6_bwd(r, k, v, w_log, u, g):
     return gr, gk, gv, gw, gu
 
 
+@_launch_bwd.register_fake
+def _(r, k, v, w_log, u, g):
+    return (torch.empty_like(r), torch.empty_like(k), torch.empty_like(v),
+            torch.empty_like(w_log), torch.empty_like(u))
+
+
 rwkv6_fwd.launches = 0
 rwkv6_bwd.launches = 0
 rwkv6_fwd.variant_launches = dict.fromkeys(VARIANTS, 0)
@@ -222,7 +254,7 @@ def rwkv6_chunk(r, k, v, w_log, u) -> torch.Tensor:
     """r, k, v, w_log: [BH, S, D]; u: [BH, D].  Returns [BH, S, D] (f32),
     differentiable in every input."""
     _check(r, k, v, w_log, u)
-    if all(t.device.type == "cpu" for t in (r, k, v, w_log, u)):
+    if _build.plain((r, k, v, w_log, u)):
         return rwkv6_reference(r, k, v, w_log, u)
     _on_card((r, k, v, w_log, u), "rwkv6_chunk")
     return _WKV6.apply(r, k, v, w_log, u)

@@ -10,8 +10,9 @@ launches per layer; rwkv6's decode is the one-token recurrence in plain
 PyTorch and launches no kernel.  The rest is plain PyTorch.
 
 The counterpart of ``repro.launch.serve`` with its flags and defaults
-(``--arch llama3.2-1b``), on one card: ``--mesh`` takes ``host`` only
-(ROADMAP Queue 1 item 11).
+(``--arch llama3.2-1b``): ``--mesh host`` is the (1, 1) mesh of the one
+card; ``production`` and ``multipod`` need a world of 256 and 512 ranks
+and fail, as the reference's do, on one (``launch/mesh.py``).
 
   python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --requests 8 --slots 4 --gen 16
@@ -58,8 +59,6 @@ from ..models.params import tree_items
 from ..trace.capture import WorkloadTrace, step_model_from_config
 from .steps import make_serve_step, refuse_like_reference
 
-_NO_MESH = ("the port runs on one card: --mesh other than host comes with "
-            "the distributed slice (ROADMAP Queue 1 item 11)")
 
 
 @dataclass
@@ -81,7 +80,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="reduced config (CPU-sized)")
     ap.add_argument("--mesh", default="host",
                     choices=["host", "production", "multipod"],
-                    help="device mesh; host only on one card")
+                    help="device mesh; production and multipod need 256 "
+                         "and 512 ranks")
     ap.add_argument("--slots", type=int, default=4,
                     help="decode batch width (continuous batching slots)")
     ap.add_argument("--requests", type=int, default=12,
@@ -136,8 +136,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.offload_sweep and not args.capture:
         ap.error("--offload-sweep needs --capture (it replays the "
                  "captured trace)")
-    if args.mesh != "host":
-        raise NotImplementedError(_NO_MESH)
     return args
 
 
@@ -418,8 +416,10 @@ def main(argv=None):
            else configs.get(args.arch))
     # serve_loop refuses too, but only after the weights are drawn.
     refuse_like_reference(cfg, "serve launcher")
-    params = M.init_params(cfg, torch.Generator(device).manual_seed(0))
-    res = serve_loop(cfg, params, args)
+    from .mesh import launch_mesh
+    with launch_mesh(args.mesh, device.type):
+        params = M.init_params(cfg, torch.Generator(device).manual_seed(0))
+        res = serve_loop(cfg, params, args)
     report(args, res, device)
     return res
 

@@ -1,10 +1,12 @@
 """Step builders: the train step (value-and-grad, clip, optimizer) and the
-serve step (greedy decode).
+serve step (greedy decode), and the placements of the whole train state.
 
-The counterpart of ``repro.launch.steps``'s ``make_train_step`` and
-``make_serve_step``; the sharding helpers have no counterpart on one card.
-:func:`refuse_like_reference` keeps the launchers and captures to what the
-reference's can run.
+The counterpart of ``repro.launch.steps``: ``make_train_step``,
+``make_serve_step`` and the sharding helpers ``state_shardings``,
+``opt_state_structs``, ``batch_shardings`` and ``cache_shardings``, which
+give DTensor placements (one tuple a leaf) where the reference gives
+``NamedSharding``s.  :func:`refuse_like_reference` keeps the launchers and
+captures to what the reference's can run.
 """
 from __future__ import annotations
 
@@ -12,11 +14,13 @@ from functools import partial
 
 import torch
 
+from ..distributed.sharding import (is_dtensor, param_pspec, placements,
+                                    pspec, shape_structs, shard)
 from ..models import model as M
 from ..models.config import ModelConfig
-from ..models.params import tree_items, tree_map
+from ..models.params import ParamInfo, tree_items, tree_map
 from ..optim import apply_updates, clip_by_global_norm
-from ..optim.optimizers import Optimizer
+from ..optim.optimizers import OptState, Optimizer
 
 
 def loss_and_grads(cfg: ModelConfig, params, batch):
@@ -101,8 +105,8 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, grad_accum: int = 1,
 
     def train_step(params, opt_state, batch):
         if grad_accum > 1:
-            micro = {k: x.reshape(grad_accum, x.shape[0] // grad_accum,
-                                  *x.shape[1:]) for k, x in batch.items()}
+            micro = {k: _microbatches(x, grad_accum)
+                     for k, x in batch.items()}
             loss_sum = grads = None
             for i in range(grad_accum):
                 l, g = loss_and_grads(cfg, params,
@@ -129,6 +133,17 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, grad_accum: int = 1,
     return train_step
 
 
+def _microbatches(x, n: int):
+    """``x`` [B, ...] as ``[n, B / n, ...]``: microbatch i is rows
+    ``i * B/n ...`` (the reference's split).  A DTensor batch (the dry
+    run's, sharded over its rows) takes rows ``i::n`` instead, which keeps
+    every microbatch's rows on the devices that hold them; the same rows in
+    all, in another grouping."""
+    if is_dtensor(x):
+        return x.reshape(x.shape[0] // n, n, *x.shape[1:]).transpose(0, 1)
+    return x.reshape(n, x.shape[0] // n, *x.shape[1:])
+
+
 def make_serve_step(cfg: ModelConfig):
     """One-token decode step with greedy argmax over the vocabulary at the
     last position: ``[B,1]`` next tokens, ``[B,1,K]`` for a codebook model.
@@ -140,7 +155,9 @@ def make_serve_step(cfg: ModelConfig):
         pos = torch.as_tensor(pos, dtype=torch.int32, device=token.device)
         logits, cache = M.decode_step(cfg, params, token, cache, pos,
                                       img_embed=img_embed)
-        next_tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        # Under a mesh the argmax reads whole rows: the vocab gathered.
+        last = shard(logits[:, -1:], "batch", None, None)
+        next_tok = torch.argmax(last, dim=-1).to(torch.int32)
         return next_tok, cache
 
     return serve_step
@@ -175,3 +192,88 @@ def refuse_like_reference(cfg: ModelConfig, surface: str) -> None:
             f"embedding of it is rank 2, which its sharding constraint "
             f"refuses (only valid for values of rank at least 3); call "
             f"make_serve_step with [slots, 1, K] tokens instead")
+
+
+# ---------------------------------------------------------------------------
+# Placements of the full train state
+# ---------------------------------------------------------------------------
+
+def _opt_state_infos(opt_name: str, defs, zero1: bool = True):
+    """ParamInfo tree of the optimizer's inner state, in the layout of
+    ``optim.optimizers``: AdamW ``{"m", "v"}``, SGDM one tree, Adafactor
+    ``{"vr", "vc"}`` for a matrix and ``{"v"}`` otherwise.  Every leaf is
+    f32 and keeps its parameter's ``fsdp_dim``, which ZeRO-1 shards even
+    without FSDP (Adafactor's factored rows and columns have none)."""
+    def promote(info: ParamInfo) -> ParamInfo:
+        return ParamInfo(info.shape, "float32", info.axes,
+                         fsdp_dim=info.fsdp_dim, init_scale=0.0)
+
+    if opt_name == "adamw":
+        return {"m": tree_map(promote, defs), "v": tree_map(promote, defs)}
+    if opt_name == "sgdm":
+        return tree_map(promote, defs)
+    if opt_name == "adafactor":
+        def one(info: ParamInfo):
+            if len(info.shape) >= 2:
+                axes = info.axes or (None,) * len(info.shape)
+                return {"vr": ParamInfo(info.shape[:-1], "float32",
+                                        axes[:-1], init_scale=0.0),
+                        "vc": ParamInfo(info.shape[:-2] + info.shape[-1:],
+                                        "float32", axes[:-2] + axes[-1:],
+                                        init_scale=0.0)}
+            return {"v": ParamInfo(info.shape, "float32", info.axes,
+                                   init_scale=0.0)}
+        return tree_map(one, defs)
+    raise ValueError(opt_name)
+
+
+def state_shardings(cfg: ModelConfig, mesh, opt_name: str,
+                    fsdp: bool = False, zero1: bool = True):
+    """``(param placements, OptState(step, inner placements))``: each
+    parameter's spec (``param_pspec``), and the optimizer state's with
+    ``fsdp_dim`` sharded whenever ``zero1`` (ZeRO-1), on ``mesh``."""
+    defs = M.param_defs(cfg)
+
+    def of(info: ParamInfo, force_fsdp: bool):
+        return placements(param_pspec(info, mesh=mesh,
+                                      fsdp=fsdp or force_fsdp), mesh)
+
+    p_sh = tree_map(lambda i: of(i, False), defs)
+    o_sh = tree_map(lambda i: of(i, zero1),
+                    _opt_state_infos(opt_name, defs, zero1))
+    return p_sh, OptState(step=placements((), mesh), inner=o_sh)
+
+
+def opt_state_structs(cfg: ModelConfig, opt_name: str, device="meta"):
+    """The optimizer state as empty tensors on ``device`` (the dry run's
+    stand-ins): the step count and the inner tree."""
+    infos = _opt_state_infos(opt_name, M.param_defs(cfg), zero1=True)
+    return OptState(step=torch.zeros((), dtype=torch.int32, device=device),
+                    inner=shape_structs(infos, device))
+
+
+def batch_spec(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
+    """``{name: (shape, dtype)}`` of a train or prefill batch: the
+    reference's ``make_batch_specs``."""
+    tok = ((batch, seq_len, cfg.n_codebooks) if cfg.n_codebooks
+           else (batch, seq_len))
+    specs = {"tokens": (tok, torch.int32)}
+    if cfg.cross_attn_dim:
+        specs["img_embed"] = ((batch, cfg.cross_attn_tokens,
+                               cfg.cross_attn_dim), torch.bfloat16)
+    return specs
+
+
+def batch_shardings(cfg: ModelConfig, mesh, specs: dict) -> dict:
+    """Each batch leaf's placements: its first dim over ``batch``."""
+    return {k: placements(pspec("batch", *[None] * (len(shape) - 1),
+                                mesh=mesh), mesh)
+            for k, (shape, _) in specs.items()}
+
+
+def cache_shardings(cfg: ModelConfig, mesh, batch: int, max_len: int):
+    """The KV (MLA latent, recurrent) cache's placements, by its
+    ``cache_defs`` axes (no FSDP)."""
+    return tree_map(lambda i: placements(
+        param_pspec(i, mesh=mesh, fsdp=False), mesh),
+        M.cache_defs(cfg, batch, max_len))

@@ -4,9 +4,11 @@ straggler and memory monitors.
 
 The counterpart of ``repro.launch.train`` with its defaults (llama3.2-1b,
 ``--remat dtr``, checkpoints every 50 steps under
-``/tmp/repro_train_ckpt``), without its mesh and sharding: ``--mesh``
-takes ``host`` only, and ``--fsdp`` and ``--seq-shard`` raise (ROADMAP
-Queue 1 item 11).  Pick an arch, a batch and sequence length, gradient
+``/tmp/repro_train_ckpt``) and its mesh flags (``launch/mesh.py``):
+``--mesh host`` is the (1, 1) mesh of the one card, where ``--fsdp`` and
+``--seq-shard`` resolve to dims of size 1 and change nothing;
+``--mesh production`` and ``multipod`` need a world of 256 and 512 ranks
+and fail, as the reference's do, on one.  Pick an arch, a batch and sequence length, gradient
 accumulation, a remat policy (every one the reference takes: ``none``,
 ``full``, ``dots``, ``dtr``, ``names:a,b``) and an optimizer, and train from
 a random init drawn from ``--seed``, or from the latest checkpoint in
@@ -47,13 +49,9 @@ from ..models import model as M
 from ..models.config import ModelConfig
 from ..models.params import tree_items, tree_map
 from ..optim import adafactor, adamw, cosine_schedule
+from .mesh import launch_mesh
 from .serve import resolve_device
 from .steps import make_train_step, refuse_like_reference
-
-_NO_MESH = ("the port runs on one card: --mesh other than host, --fsdp and "
-            "--seq-shard come with the distributed slice (ROADMAP Queue 1 "
-            "item 11)")
-
 
 @dataclass
 class TrainResult:
@@ -88,7 +86,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="reduced config (CPU-sized)")
     ap.add_argument("--mesh", default="host",
                     choices=["host", "production", "multipod"],
-                    help="device mesh; host only on one card")
+                    help="device mesh; production and multipod need 256 "
+                         "and 512 ranks")
     ap.add_argument("--steps", type=int, default=100, help="train steps")
     ap.add_argument("--batch", type=int, default=8, help="sequences a step")
     ap.add_argument("--seq", type=int, default=128, help="sequence length")
@@ -97,9 +96,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--remat", default="dtr",
                     help="none | full | dots | dtr | names:a,b")
     ap.add_argument("--fsdp", action="store_true",
-                    help="shard parameters (not on one card)")
+                    help="shard parameters over the data dims")
     ap.add_argument("--seq-shard", action="store_true",
-                    help="Megatron-style sequence sharding (not on one card)")
+                    help="Megatron-style sequence sharding (seq->model)")
     ap.add_argument("--optimizer", default="adamw",
                     choices=["adamw", "adafactor"], help="optimizer")
     ap.add_argument("--lr", type=float, default=3e-4, help="peak rate")
@@ -113,10 +112,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "when asked for)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the parameters and the data stream")
-    args = ap.parse_args(argv)
-    if args.mesh != "host" or args.fsdp or args.seq_shard:
-        raise NotImplementedError(_NO_MESH)
-    return args
+    return ap.parse_args(argv)
 
 
 def config_from_args(args) -> ModelConfig:
@@ -284,15 +280,18 @@ def main(argv=None, *, on_step=None,
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = config_from_args(args)
-    gen = torch.Generator(device).manual_seed(args.seed)
-    params = M.init_params(cfg, gen)
-    n = sum(int(np.prod(t.shape)) for _, t in tree_items(params))
-    print(f"arch={cfg.name} params={n/1e6:.1f}M device={device} "
-          f"mesh={args.mesh} remat={cfg.remat} ga={args.grad_accum}")
-    ckpt = CheckpointManager(args.ckpt_dir, every_steps=args.ckpt_every,
-                             keep=2)
-    res = train_loop(cfg, params, args, ckpt=ckpt, on_step=on_step,
-                     result=result)
+    with launch_mesh(args.mesh, device.type, fsdp=args.fsdp,
+                     seq_shard=args.seq_shard):
+        gen = torch.Generator(device).manual_seed(args.seed)
+        params = M.init_params(cfg, gen)
+        n = sum(int(np.prod(t.shape)) for _, t in tree_items(params))
+        print(f"arch={cfg.name} params={n/1e6:.1f}M device={device} "
+              f"mesh={args.mesh} remat={cfg.remat} fsdp={args.fsdp} "
+              f"ga={args.grad_accum}")
+        ckpt = CheckpointManager(args.ckpt_dir,
+                                 every_steps=args.ckpt_every, keep=2)
+        res = train_loop(cfg, params, args, ckpt=ckpt, on_step=on_step,
+                         result=result)
     print("done")
     return res
 

@@ -11,8 +11,11 @@ ring-buffer cache of the window's length.  It goes through
 version for CPU tensors.  Cross attention (llama-3.2-vision's ``cross``
 blocks) projects K/V from another stream (``kv_x``, the image embeddings)
 and attends to all of it, with no RoPE, mask or cache, through
-``kernels.ops.cross_attention``.  Embeddings are tied (the token table
-unembeds) or untied (an ``unembed`` leaf).
+``kernels.ops.cross_attention``.  ``cfg.logit_softcap`` > 0 caps every
+scaled logit, self, cross and decode, inside the kernels.  Embeddings are
+tied (the token table unembeds) or untied (an ``unembed`` leaf).  The
+``shard`` calls are the reference's sharding constraints: no-ops on the
+card's plain tensors, redistributions of the dry run's DTensors.
 """
 from __future__ import annotations
 
@@ -22,7 +25,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import is_dtensor, local_by_axes, pspec, shard
 from ..kernels import ops
+from ..kernels.ref import BLOCKED_ATTN_THRESHOLD
 from .config import ModelConfig
 from .params import TORCH_DTYPES, ParamInfo
 
@@ -98,21 +103,72 @@ def attention_defs(cfg: ModelConfig, cross: bool = False) -> dict:
     return defs
 
 
-def _proj(x, w):
-    """einsum("bsd,d...->bs...", x, w) as one matrix product."""
+def _flat_proj(x, w):
     return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+
+
+def _proj(x, w, heads: str):
+    """einsum("bsd,dhk->bshk", x, w) as one matrix product.
+
+    Under a mesh (DTensors) the flat product must not be split inside a
+    head, which a DTensor cannot unflatten: where the ``heads`` axis
+    shards whole heads, the product is laid out so; where it cannot (8 kv
+    heads on a 16-way dim), each device multiplies its rows by the whole
+    weight (``local_map``, the weight gathered)."""
+    if not is_dtensor(x):
+        return _flat_proj(x, w)
+    spec = pspec("batch", None, heads, None, shape=(*x.shape[:2],
+                                                    *w.shape[1:]))
+    if spec[2]:
+        y = shard(x @ w.reshape(w.shape[0], -1), "batch", None, heads)
+        return y.unflatten(-1, w.shape[1:])
+    return local_by_axes(
+        _flat_proj, (x, w), [("batch", None, None), (None,) * 3],
+        [(("batch", None, None, None), (*x.shape[:2], *w.shape[1:]))])
+
+
+def _head_sum(o, w):
+    """einsum("bshk,hkd->bsd", o, w) as one matrix product."""
+    return o.flatten(2) @ w.flatten(0, 1)
+
+
+def _out_proj(out, wo):
+    """The output projection over the heads.  Under a mesh whose model dim
+    cannot take whole heads (14 on 16) each device multiplies its rows by
+    the whole weight (``local_map``), as ``_proj`` does: DTensor would
+    split the flat rows over the model dim and its backward then fails
+    on fake tensors."""
+    if not is_dtensor(out) or pspec("heads", shape=wo.shape[:1])[0]:
+        return _head_sum(out, wo)
+    return local_by_axes(
+        _head_sum, (out, wo), [("batch", None, None, None), (None,) * 3],
+        [(("batch", None, None), (*out.shape[:2], wo.shape[-1]))])
 
 
 def _qkv(cfg: ModelConfig, p, x, kv_x):
     dt = adtype(cfg)
-    q = _proj(x, p["wq"].to(dt))
-    k = _proj(kv_x, p["wk"].to(dt))
-    v = _proj(kv_x, p["wv"].to(dt))
+    q = _proj(x, p["wq"].to(dt), "heads")
+    k = _proj(kv_x, p["wk"].to(dt), "kv_heads")
+    v = _proj(kv_x, p["wv"].to(dt), "kv_heads")
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
     return q, k, v
+
+
+def write_rows(cache, at, new, keep=None):
+    """``cache`` [B,L,...] with row ``at[b]`` of slot b set to ``new[b]``
+    (where ``keep[b]``), as a select over the rows: a new tensor.  The
+    decode step writes its cache in place by index on the card; a DTensor
+    cache (the dry run's, its rows perhaps sharded) takes this form, which
+    every placement supports."""
+    hit = (torch.arange(cache.shape[1], device=at.device)[None, :]
+           == at.reshape(-1, 1))
+    if keep is not None:
+        hit = hit & keep.reshape(-1, 1)
+    hit = hit.reshape(*hit.shape, *[1] * (cache.dim() - 2))
+    return torch.where(hit, new[:, None].to(cache.dtype), cache)
 
 
 def attention_apply(cfg: ModelConfig, p, x, *, positions, window: int = 0,
@@ -140,12 +196,16 @@ def attention_apply(cfg: ModelConfig, p, x, *, positions, window: int = 0,
     if not cross:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    q = shard(q, "batch", None, "heads", None)
+    k = shard(k, "batch", None, "kv_heads", None)
+    v = shard(v, "batch", None, "kv_heads", None)
 
     new_cache = None
+    cap = cfg.logit_softcap
     if cross:
-        out = ops.cross_attention(q, k, v)
+        out = ops.cross_attention(q, k, v, softcap=cap)
     elif cache is None:
-        out = ops.attention(q, k, v, window=window)
+        out = ops.attention(q, k, v, window=window, softcap=cap)
     else:
         pos = cache["pos"]
         if pos.dim() > 1 or s != 1:
@@ -155,7 +215,15 @@ def attention_apply(cfg: ModelConfig, p, x, *, positions, window: int = 0,
         length = k_all.shape[1]
         rows = torch.arange(b, device=pos.device)
         slot_pos = pos.expand(b) if pos.dim() == 0 else pos
-        if window > 0:
+        if is_dtensor(k_all):
+            if window > 0:
+                at, keep = torch.remainder(slot_pos, length), None
+            else:
+                at = slot_pos.clamp(max=length - 1)
+                keep = None if pos.dim() == 0 else slot_pos < length
+            k_all = write_rows(k_all, at, k[:, 0], keep)
+            v_all = write_rows(v_all, at, v[:, 0], keep)
+        elif window > 0:
             if length > window:
                 raise ValueError(f"a windowed cache is a ring of at most "
                                  f"window={window} rows, got {length}")
@@ -184,13 +252,14 @@ def attention_apply(cfg: ModelConfig, p, x, *, positions, window: int = 0,
         # window).  Softmax does not depend on the order of the keys, so
         # the ring needs no window inside the kernel.
         kv_len = (slot_pos + 1).clamp(max=length).to(torch.int32)
-        out = ops.attention(q, k_all, v_all, kv_len=kv_len)
+        out = ops.attention(q, k_all, v_all, kv_len=kv_len, softcap=cap)
         new_cache = {"k": k_all, "v": v_all, "pos": pos + 1}
 
-    dt = adtype(cfg)
-    wo = p["wo"].to(dt)
-    y = out.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
-    return y, new_cache
+    y = _out_proj(out, p["wo"].to(adtype(cfg)))
+    # The reference's blocked path (from BLOCKED_ATTN_THRESHOLD rows) keeps
+    # its output's sequence on the "seq" rule.
+    blocked = cache is None and not cross and s >= BLOCKED_ATTN_THRESHOLD
+    return shard(y, "batch", "seq" if blocked else None, "embed"), new_cache
 
 
 def attn_cache_defs(cfg: ModelConfig, batch: int, max_len: int,
@@ -232,7 +301,8 @@ def mlp_apply(cfg: ModelConfig, p, x):
     act = F.silu if cfg.mlp_act == "silu" else gelu
     h = x @ p["wi"].to(dt)
     g = x @ p["wg"].to(dt)
-    return (act(g) * h) @ p["wo"].to(dt)
+    h = shard(act(g) * h, "batch", None, "mlp")
+    return shard(h @ p["wo"].to(dt), "batch", None, "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -277,7 +347,7 @@ def embed_apply(cfg: ModelConfig, p, tokens):
         x = F.embedding(tokens.long(), p["tokens"].to(dt))
     if cfg.name.startswith(("gemma", "recurrentgemma")):
         x = x * float(torch.tensor(np.sqrt(cfg.d_model), dtype=dt))
-    return x
+    return shard(x, "batch", "seq", "embed")
 
 
 def unembed_apply(cfg: ModelConfig, p, x):
@@ -287,8 +357,13 @@ def unembed_apply(cfg: ModelConfig, p, x):
     if cfg.n_codebooks > 0:
         w = p["unembed"].to(dt)                        # [K, d, V]
         k, d, v = w.shape
-        return (x @ w.permute(1, 0, 2).reshape(d, k * v)).unflatten(
-            -1, (k, v))
-    if cfg.tie_embeddings:
-        return x @ p["tokens"].to(dt).T
-    return x @ p["unembed"].to(dt)
+        if is_dtensor(w):    # K products: a sharded vocab cannot fold
+            logits = torch.stack([x @ w[i] for i in range(k)], dim=-2)
+        else:
+            logits = (x @ w.permute(1, 0, 2).reshape(d, k * v)).unflatten(
+                -1, (k, v))
+    elif cfg.tie_embeddings:
+        logits = x @ p["tokens"].to(dt).T
+    else:
+        logits = x @ p["unembed"].to(dt)
+    return shard(logits, "batch", None, "vocab")

@@ -16,11 +16,15 @@ over blocks of 512 query rows on the concatenated 192-wide q/k
 checkpoint so the backward recomputes it.  The flash kernel takes one head
 dim for q, k and v (and its backward at most 128), so it cannot run this
 attention: MLA layers launch no flash kernel (ROADMAP Queue 2 item 3).
-The scale is ``1/sqrt(qk_nope_dim + qk_rope_dim)``.
+The scale is ``1/sqrt(qk_nope_dim + qk_rope_dim)``.  ``logit_softcap`` caps
+the logits of the blocked path alone, where the reference's
+``_sdpa_blocked`` caps them; its dense and decode paths do not (ROADMAP
+Queue 3).
 """
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Optional
 
 import torch
@@ -28,7 +32,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ref import BLOCKED_ATTN_THRESHOLD, Q_BLOCK
 from .config import ModelConfig
-from .layers import adtype, rope
+from ..distributed.sharding import is_dtensor, local_by_axes, shard
+from .layers import adtype, rope, write_rows
 from .params import ParamInfo
 
 
@@ -73,32 +78,57 @@ def _rms(x, scale, eps):
 
 
 def _softmax_rows(logits, mask, dt):
-    """f32 softmax over the last axis with hidden entries at -1e30, the
-    probabilities in the activation dtype."""
-    return torch.softmax(torch.where(mask, logits, -1e30), dim=-1).to(dt)
+    """Softmax over the last axis in the logits' dtype with hidden entries
+    at -1e30 (-3e4 in bf16), the probabilities in the activation dtype."""
+    hidden = -3e4 if logits.dtype == torch.bfloat16 else -1e30
+    return torch.softmax(torch.where(mask, logits, hidden), dim=-1).to(dt)
 
 
-def _blocked_block(q, k, v, q0: int, scale: float):
+def _blocked_block(q, k, v, q0: int, scale: float, softcap: float = 0.0,
+                   acc: torch.dtype = torch.float32):
     """One block of query rows ``q0 ...`` against keys ``0 .. q0 + rows``
-    (causal): q [B,Sb,H,Dqk], k [B,Sk,H,Dqk], v [B,Sk,H,Dv]."""
-    logits = torch.einsum("bqhd,bshd->bhqs", q, k).float() * scale
+    (causal): q [B,Sb,H,Dqk], k [B,Sk,H,Dqk], v [B,Sk,H,Dv].  Logits in
+    ``acc``, capped at ``softcap * tanh(s / softcap)`` where ``softcap`` >
+    0, as the reference's ``_sdpa_blocked`` body does."""
+    logits = torch.einsum("bqhd,bshd->bhqs", q, k).to(acc) * scale
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
     qpos = q0 + torch.arange(q.shape[1], device=q.device)
     kpos = torch.arange(k.shape[1], device=q.device)
     probs = _softmax_rows(logits, kpos[None, :] <= qpos[:, None], q.dtype)
     return torch.einsum("bhqs,bshv->bqhv", probs, v)
 
 
-def _attend_blocked(q, k, v, scale: float, q_block: int = Q_BLOCK):
+def _attend_blocked(q, k, v, scale: float, q_block: int = Q_BLOCK, *,
+                    softcap: float = 0.0, acc: torch.dtype = torch.float32):
     """Causal attention over blocks of ``q_block`` query rows, each block
     under a non-reentrant checkpoint (the reference's ``_sdpa_blocked``
     with its inner ``jax.checkpoint``): the ``[Sq,Skv]`` logits never exist
     at once, and the backward recomputes each block."""
+    # The reference pins q, k and v's layouts across its scan (and each
+    # block's output) so that no block re-shards them.
+    q = shard(q, "batch", None, "heads", None)
+    k = shard(k, "batch", None, "kv_heads", None)
+    v = shard(v, "batch", None, "kv_heads", None)
     outs = []
     for q0 in range(0, q.shape[1], q_block):
         q1 = min(q.shape[1], q0 + q_block)
-        outs.append(checkpoint(_blocked_block, q[:, q0:q1], k[:, :q1],
-                               v[:, :q1], q0, scale, use_reentrant=False))
+        outs.append(shard(checkpoint(
+            _blocked_block, q[:, q0:q1], k[:, :q1], v[:, :q1], q0, scale,
+            softcap, acc, use_reentrant=False), "batch", None, "heads", None))
     return torch.cat(outs, dim=1)
+
+
+def _attend_dense(q_nope, k_nope, q_rope, k_rope, v, *, scale: float, dt):
+    """Causal attention below the blocked threshold: the latent and RoPE
+    logits summed, an f32 softmax, probabilities in ``dt``."""
+    s = q_nope.shape[1]
+    logits = (torch.einsum("bqhn,bshn->bhqs", q_nope, k_nope)
+              + torch.einsum("bqhr,bsr->bhqs", q_rope, k_rope))
+    pos_q = torch.arange(s, device=q_nope.device)
+    probs = _softmax_rows(logits.float() * scale,
+                          pos_q[None, :] <= pos_q[:, None], dt)
+    return torch.einsum("bhqs,bshv->bqhv", probs, v)
 
 
 def _einsum_w(spec: str, x, w, dt):
@@ -128,6 +158,7 @@ def mla_apply(cfg: ModelConfig, p, x, *, positions,
     q = _einsum_w("bsq,qhk->bshk", cq, p["wq_b"], dt)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
+    q_nope = shard(q_nope, "batch", None, "heads", None)
 
     # --- KV latent ---
     kv_a = _einsum_w("bsd,dk->bsk", x, p["wkv_a"], dt)
@@ -137,20 +168,31 @@ def mla_apply(cfg: ModelConfig, p, x, *, positions,
 
     new_cache = None
     if cache is None:
-        k_nope = _einsum_w("bsk,khn->bshn", ckv, p["wk_b"], dt)
-        v = _einsum_w("bsk,khv->bshv", ckv, p["wv_b"], dt)
+        k_nope = shard(_einsum_w("bsk,khn->bshn", ckv, p["wk_b"], dt),
+                       "batch", None, "heads", None)
+        v = shard(_einsum_w("bsk,khv->bshv", ckv, p["wv_b"], dt),
+                  "batch", None, "heads", None)
         if s >= BLOCKED_ATTN_THRESHOLD:
             q_full = torch.cat([q_nope, q_rope], dim=-1)
             k_full = torch.cat([k_nope, k_rope_new[:, :, None, :].expand(
                 *k_nope.shape[:3], k_rope_new.shape[-1])], dim=-1)
-            out = _attend_blocked(q_full, k_full, v, scale)
+            # The reference caps MLA's logits on this path only (its dense
+            # and decode paths do not): so does the port.
+            acc = torch.float32 if cfg.softmax_f32 else torch.bfloat16
+            attend = partial(_attend_blocked, scale=scale,
+                             softcap=cfg.logit_softcap, acc=acc)
+            args = (q_full, k_full, v)
         else:
-            logits = (torch.einsum("bqhn,bshn->bhqs", q_nope, k_nope)
-                      + torch.einsum("bqhr,bsr->bhqs", q_rope, k_rope_new))
-            pos_q = torch.arange(s, device=x.device)
-            probs = _softmax_rows(logits.float() * scale,
-                                  pos_q[None, :] <= pos_q[:, None], dt)
-            out = torch.einsum("bhqs,bshv->bqhv", probs, v)
+            attend = partial(_attend_dense, scale=scale, dt=dt)
+            args = (q_nope, k_nope, q_rope, k_rope_new, v)
+        if is_dtensor(q_nope):   # under a mesh: each device its rows, heads
+            head = ("batch", None, "heads", None)
+            axes = [head if a.dim() == 4 else ("batch", None, None)
+                    for a in args]
+            out = local_by_axes(attend, args, axes,
+                                [(head, (*q_nope.shape[:3], v.shape[-1]))])
+        else:
+            out = attend(*args)
     else:
         pos = cache["pos"]
         if pos.dim() > 1 or s != 1:
@@ -158,7 +200,14 @@ def mla_apply(cfg: ModelConfig, p, x, *, positions,
                              "or [B] position clock")
         ckv_all, kr_all = cache["ckv"], cache["krope"]
         length = ckv_all.shape[1]
-        if pos.dim() == 0:
+        if is_dtensor(ckv_all):
+            at = pos.clamp(max=length - 1)
+            keep = None if pos.dim() == 0 else pos < length
+            ckv_all = write_rows(ckv_all, at.expand(b), ckv[:, 0], keep)
+            kr_all = write_rows(kr_all, at.expand(b), k_rope_new[:, 0], keep)
+            visible = (torch.arange(length, device=x.device)[None, :]
+                       <= pos.reshape(-1, 1))
+        elif pos.dim() == 0:
             at = pos.clamp(max=length - 1)
             ckv_all[:, at] = ckv[:, 0]
             kr_all[:, at] = k_rope_new[:, 0]
@@ -184,4 +233,4 @@ def mla_apply(cfg: ModelConfig, p, x, *, positions,
         out = _einsum_w("bqhk,khv->bqhv", o_lat, p["wv_b"], dt)
 
     y = _einsum_w("bqhv,hvd->bqd", out, p["wo"], dt)
-    return y, new_cache
+    return shard(y, "batch", None, "embed"), new_cache

@@ -15,7 +15,7 @@ and deepseek's shared ones), with GQA attention or deepseek's latent
 attention (``models.mla``).  Embeddings are tied or untied; gemma models
 scale theirs by sqrt(d_model); a codebook model (musicgen) embeds
 ``[B,S,K]`` tokens as the sum of K tables and unembeds through K heads to
-``[B,S,K,vocab]`` logits.  Not yet: logit soft-capping.
+``[B,S,K,vocab]`` logits; ``logit_softcap`` caps the attention logits.
 Parameters keep the JAX tree's layout and key paths (``embed.tokens``,
 ``groups.slot0.attn.wq``, ...): each leaf of a stack is stacked
 ``[layers, ...]``, and the JAX package's ``lax.scan`` over a stack becomes
@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import remat as R
+from ..distributed.sharding import is_dtensor, shard, vocab_parallel_nll
 from . import layers as L
 from . import mla as MLA
 from . import moe as MOE
@@ -66,15 +67,16 @@ _KINDS = ("attn", "attn_local", "cross", "rglru", "rwkv")
 def _check_supported(cfg: ModelConfig) -> None:
     unsupported = {
         "pattern": any(k not in _KINDS for k in cfg.pattern + cfg.tail),
-        "logit_softcap": cfg.logit_softcap,
         "mlp_act": cfg.mlp_act not in ("silu", "gelu"),
     }
     bad = sorted(k for k, v in unsupported.items() if v)
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(bad)} not ported yet (the port runs "
-            f"groups and a tail of {', '.join(_KINDS)} blocks, GQA or MLA, "
-            f"with SwiGLU, GeGLU or MoE FFNs after optional dense layers)")
+            f"{cfg.name}: {', '.join(bad)} not supported (the model, as "
+            f"the reference's, runs groups and a tail of "
+            f"{', '.join(_KINDS)} blocks, GQA or MLA with an optional logit "
+            f"soft cap, with SwiGLU, GeGLU or MoE FFNs after optional dense "
+            f"layers)")
 
 
 def _block_defs(cfg: ModelConfig, kind: str, moe_layer: bool) -> dict:
@@ -191,6 +193,13 @@ def remat_policy(cfg: ModelConfig):
 # Block application
 # ---------------------------------------------------------------------------
 
+def _norm(cfg: ModelConfig, p, x):
+    """RMS norm, its output gathered over the sequence where a mesh shards
+    the residual stream's ("seq" -> "model", sequence parallelism): the
+    matrix products after it take whole rows (no-op without a mesh)."""
+    return shard(L.rmsnorm_apply(cfg, p, x), "batch", None, "embed")
+
+
 def block_apply(cfg: ModelConfig, kind: str, p, x, *, positions,
                 moe_layer: bool, cache=None, img_kv=None):
     """Pre-norm residual block; returns (x, new_cache).  The attention
@@ -200,26 +209,28 @@ def block_apply(cfg: ModelConfig, kind: str, p, x, *, positions,
     ``cross_out``."""
     if kind == "rglru":
         rec_cache = None if cache is None else cache.get("rec")
-        h = L.rmsnorm_apply(cfg, p["norm1"], x)
+        h = _norm(cfg, p["norm1"], x)
         r, c2 = RG.rglru_apply(cfg, p["rec"], h, cache=rec_cache)
         x = x + R.tag(r, "rec_out")
-        h2 = L.rmsnorm_apply(cfg, p["norm2"], x)
+        h2 = _norm(cfg, p["norm2"], x)
         x = x + R.tag(L.mlp_apply(cfg, p["ffn"], h2), "ffn_out")
-        return x, (None if c2 is None else {"rec": c2})
+        return shard(x, "batch", "seq", "embed"), (None if c2 is None
+                                                     else {"rec": c2})
     if kind == "rwkv":
         mix_cache = None if cache is None else cache.get("mix")
-        h = L.rmsnorm_apply(cfg, p["norm1"], x)
+        h = _norm(cfg, p["norm1"], x)
         if mix_cache is None:
             x = x + R.tag(RW.rwkv_time_mix(cfg, p["mix"], h), "attn_out")
-            h2 = L.rmsnorm_apply(cfg, p["norm2"], x)
-            return x + R.tag(RW.rwkv_channel_mix(cfg, p["mix"], h2),
-                             "ffn_out"), None
+            h2 = _norm(cfg, p["norm2"], x)
+            x = x + R.tag(RW.rwkv_channel_mix(cfg, p["mix"], h2), "ffn_out")
+            return shard(x, "batch", "seq", "embed"), None
         t, c2 = RW.rwkv_time_mix(cfg, p["mix"], h, cache=mix_cache)
         x = x + R.tag(t, "attn_out")
-        h2 = L.rmsnorm_apply(cfg, p["norm2"], x)
+        h2 = _norm(cfg, p["norm2"], x)
         f, c3 = RW.rwkv_channel_mix(cfg, p["mix"], h2, cache=mix_cache)
-        return x + R.tag(f, "ffn_out"), {"mix": {**c2, **c3}}
-    h = L.rmsnorm_apply(cfg, p["norm1"], x)
+        return (shard(x + R.tag(f, "ffn_out"), "batch", "seq", "embed"),
+                {"mix": {**c2, **c3}})
+    h = _norm(cfg, p["norm1"], x)
     window = cfg.window if kind == "attn_local" else 0
     attn_cache = None if cache is None else cache.get("attn")
     if cfg.mla:
@@ -230,14 +241,15 @@ def block_apply(cfg: ModelConfig, kind: str, p, x, *, positions,
                                   window=window, cache=attn_cache)
     x = x + R.tag(a, "attn_out")
     if kind == "cross":
-        hc = L.rmsnorm_apply(cfg, p["norm_c"], x)
+        hc = _norm(cfg, p["norm_c"], x)
         ca, _ = L.attention_apply(cfg, p["cross"], hc, positions=positions,
                                   kv_x=img_kv)
         x = x + R.tag(ca, "cross_out")
-    h2 = L.rmsnorm_apply(cfg, p["norm2"], x)
+    h2 = _norm(cfg, p["norm2"], x)
     ffn = MOE.moe_apply if moe_layer else L.mlp_apply
     x = x + R.tag(ffn(cfg, p["ffn"], h2), "ffn_out")
-    return x, (None if c2 is None else {"attn": c2})
+    return shard(x, "batch", "seq", "embed"), (None if c2 is None
+                                                 else {"attn": c2})
 
 
 def _stacks(cfg: ModelConfig):
@@ -308,7 +320,7 @@ def forward(cfg: ModelConfig, params, tokens, img_embed=None):
             # the backward runs the layer's forward again.
             x = body(x) if policy is None \
                 else R.checkpointed(body, policy)(x)
-    x = L.rmsnorm_apply(cfg, params["final_norm"], x)
+    x = _norm(cfg, params["final_norm"], x)
     return L.unembed_apply(cfg, params["embed"], x)
 
 
@@ -319,6 +331,8 @@ def loss_fn(cfg: ModelConfig, params, batch):
     tokens = batch["tokens"]
     logits = forward(cfg, params, tokens, batch.get("img_embed")).float()
     inp, tgt = logits[:, :-1], tokens[:, 1:].long()
+    if is_dtensor(inp):   # under a mesh: the logits stay vocab-sharded
+        return vocab_parallel_nll(inp, tgt)
     logp = F.log_softmax(inp, dim=-1)
     nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
     return torch.mean(nll)
@@ -399,5 +413,5 @@ def decode_step(cfg: ModelConfig, params, token, cache, pos,
                     # A recurrent state is returned anew: write it back.
                     for k, t in blk.get(state, {}).items():
                         t.copy_(new[state][k])
-    x = L.rmsnorm_apply(cfg, params["final_norm"], x)
+    x = _norm(cfg, params["final_norm"], x)
     return L.unembed_apply(cfg, params["embed"], x), cache

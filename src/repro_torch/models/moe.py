@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import shard
 from ..kernels import ops
 from .config import ModelConfig
 from .layers import adtype, mlp_apply, mlp_defs
@@ -92,33 +93,37 @@ def moe_apply(cfg: ModelConfig, p, x):
     # assignment with ``.at[slot].set``, and a dropped one lands, as a zero
     # row, on its expert's last slot C-1, where the CPU keeps the last of
     # duplicate writes: the token kept at rank C-1 of an overflowing expert
-    # is overwritten with zeros.  torch's index_put_ gives duplicates no
+    # is overwritten with zeros.  torch's scatter gives duplicates no
     # order, so kept rows go to their (unique) slots and dropped ones to a
     # spare row E*C, and then slot C-1 of every expert that overflowed is
     # zeroed, as the reference does.  No boolean indexing: on the card that
-    # would wait for the device.
+    # would wait for the device.  Each row scatters within itself (no
+    # global row index), so a batch-sharded layout runs as it is.
     gathered = torch.gather(x, 1, src_tok[..., None].expand(-1, -1, d))
     gathered = gathered * keep[..., None].to(dt)
-    rows = torch.arange(b, device=x.device)[:, None]
     spare = e * cap
-    buf = torch.zeros(b, spare + 1, d, dtype=dt, device=x.device)
-    buf[rows, torch.where(keep, slot, spare)] = gathered
-    overflow = torch.zeros(b, spare + 1, dtype=torch.bool, device=x.device)
-    overflow[rows, torch.where(keep, spare, slot)] = True
+    buf = x.new_zeros((b, spare + 1, d), dtype=dt).scatter_(
+        1, torch.where(keep, slot, spare)[..., None].expand(-1, -1, d),
+        gathered)
+    overflow = keep.new_zeros((b, spare + 1)).scatter_(
+        1, torch.where(keep, spare, slot), True)
     buf = buf[:, :spare].masked_fill(overflow[:, :spare, None], 0)
-    buf = buf.reshape(b, e, cap, d)
+    buf = shard(buf.reshape(b, e, cap, d), "batch", "expert", None, None)
 
     # Expert FFN: three grouped GEMMs, SwiGLU in between.
     h = ops.expert_ffn(buf, p["wi"].to(dt))
     g = ops.expert_ffn(buf, p["wg"].to(dt))
-    y = ops.expert_ffn(F.silu(g) * h, p["wo"].to(dt)).reshape(b, spare, d)
+    y = shard(ops.expert_ffn(F.silu(g) * h, p["wo"].to(dt)), "batch",
+              "expert", None, None)
+    y = ops.dense(y).reshape(b, spare, d)
 
     # Scatter back with the combine weights, in the activation dtype.
     w_sorted = torch.gather(w_flat, 1, order)
     contrib = torch.gather(y, 1, slot[..., None].expand(-1, -1, d))
     contrib = contrib * (w_sorted * keep)[..., None].to(dt)
-    out = torch.zeros(b, s, d, dtype=dt, device=x.device)
-    out = out.scatter_add_(1, src_tok[..., None].expand(-1, -1, d), contrib)
+    out = x.new_zeros((b, s, d), dtype=dt)
+    out = out.scatter_add(1, src_tok[..., None].expand(-1, -1, d), contrib)
+    out = shard(out, "batch", None, "embed")
     if cfg.n_shared_experts > 0:
         out = out + mlp_apply(cfg, p["shared"], x)
     return out

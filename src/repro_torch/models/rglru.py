@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import shard
 from .config import ModelConfig
 from .layers import adtype, gelu
 from .params import ParamInfo
@@ -98,7 +99,7 @@ def rglru_apply(cfg: ModelConfig, p, x, *, cache: Optional[dict] = None):
     """x: [B,S,d] (train) or [B,1,d] (decode with cache) -> (y, new_cache);
     new_cache is None without a cache."""
     dt = adtype(cfg)
-    u1 = x @ p["w_in1"].to(dt)
+    u1 = shard(x @ p["w_in1"].to(dt), "batch", None, "lru")
     u2 = x @ p["w_in2"].to(dt)
     if cache is None:
         a, b = _gates(p, _conv_full(p, u1))
@@ -112,4 +113,4 @@ def rglru_apply(cfg: ModelConfig, p, x, *, cache: Optional[dict] = None):
         h = (a[:, 0] * cache["h"].float() + b[:, 0]).to(dt)[:, None, :]
         new_cache = {"h": h[:, 0], "conv": window[:, 1:]}
     y = h * gelu(u2)
-    return y @ p["w_out"].to(dt), new_cache
+    return shard(y @ p["w_out"].to(dt), "batch", None, "embed"), new_cache

@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import is_dtensor, local_by_axes, shard
 from ..kernels import ops
 from .config import ModelConfig
 from .layers import adtype
@@ -118,17 +119,31 @@ def rwkv_time_mix(cfg: ModelConfig, p, x, *, cache: Optional[dict] = None):
         out = ops.rwkv_mix(r, k, v, logw, p["u"])
     else:
         state = cache["state"]                                 # [B,H,D,D]
-        r1, k1, v1 = r[:, 0].float(), k[:, 0].float(), v[:, 0].float()
-        w1 = torch.exp(logw[:, 0])
-        kv = k1[..., :, None] * v1[..., None, :]               # kᵀv
-        bonus = state + p["u"].float()[None, :, :, None] * kv
-        out = torch.einsum("bhd,bhde->bhe", r1, bonus)[:, None]
-        state = state * w1[..., None] + kv
+        args = (r[:, 0], k[:, 0], v[:, 0], logw[:, 0], state, p["u"])
+        if is_dtensor(state):   # under a mesh: each device its rows, heads
+            row = ("batch", "heads", None)
+            out, state = local_by_axes(
+                _decode_step, args, [row] * 4 + [row + (None,),
+                                                 ("heads", None)],
+                [(("batch", None, "heads", None), (b, 1, h, dh)),
+                 (row + (None,), state.shape)])
+        else:
+            out, state = _decode_step(*args)
     y = _head_norm(cfg, p, out).to(dt) * g
-    y = y @ p["wout"].to(dt)
+    y = shard(y @ p["wout"].to(dt), "batch", None, "embed")
     if cache is None:
         return y
     return y, {"state": state, "x_att": x[:, -1]}
+
+
+def _decode_step(r, k, v, logw, state, u):
+    """One token of the recurrence: r, k, v, logw [B,H,D], state [B,H,D,D]
+    f32, u [H,D] -> (out [B,1,H,D], the new state)."""
+    r1, k1, v1 = r.float(), k.float(), v.float()
+    kv = k1[..., :, None] * v1[..., None, :]                   # kᵀv
+    bonus = state + u.float()[None, :, :, None] * kv
+    out = torch.einsum("bhd,bhde->bhe", r1, bonus)[:, None]
+    return out, state * torch.exp(logw)[..., None] + kv
 
 
 def rwkv_channel_mix(cfg: ModelConfig, p, x, *,
@@ -140,6 +155,7 @@ def rwkv_channel_mix(cfg: ModelConfig, p, x, *,
     mu = p["mu_c"].to(dt)
     xk, xr = _mix(x, xs, mu[0]), _mix(x, xs, mu[1])
     r = torch.sigmoid(xr @ p["wr_c"].to(dt))
-    k = torch.square(torch.relu(xk @ p["wk_c"].to(dt)))
-    y = r * (k @ p["wv_c"].to(dt))
+    k = shard(torch.square(torch.relu(xk @ p["wk_c"].to(dt))), "batch", None,
+              "mlp")
+    y = shard(r * (k @ p["wv_c"].to(dt)), "batch", None, "embed")
     return y if cache is None else (y, {"x_ffn": x[:, -1]})

@@ -758,7 +758,7 @@ def test_flash_backward_entry_refuses(cuda, fault):
         ptr["q"], k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         do.data_ptr(), grads[0].data_ptr(), ptr["dk"], grads[2].data_ptr(),
         scratch.data_ptr(), ptr["n"], 1, 14, 2, 100, 100, 64, 1, 1, 0,
-        fa.BWD_VARIANTS["wgmma"], p["block"], p["step"], p["dp"],
+        fa.BWD_VARIANTS["wgmma"], p["block"], p["step"], p["dp"], 0.0,
         torch.cuda.current_stream(cuda).cuda_stream)
     torch.cuda.synchronize()
     assert err != 0
@@ -1040,3 +1040,108 @@ def test_device_memory_reads_the_caching_allocator(cuda):
     assert frag.used >= x.numel() * 4 and frag.capacity > frag.used
     assert 0 < frag.largest_free <= frag.free
     assert 0.0 <= frag.frag_ratio < 1.0
+
+
+# Attention-logit soft-capping: every flash variant with a cap of 2, which
+# bends the N(0, 1) logits of these inputs, against its plain version at
+# the uncapped tolerances (TOL, BWD_REL).
+SOFTCAP = 2.0
+SOFTCAP_FWD = [  # (b, hq, hkv, sq, skv, d, causal, window, variant, kv_len)
+    (2, 4, 2, 100, 100, 64, True, 0, "simt", None),
+    (2, 14, 2, 130, 130, 64, True, 0, "wgmma", None),
+    (2, 8, 2, 130, 130, 128, True, 17, "wgmma", None),
+    (1, 8, 1, 200, 200, 256, True, 0, "wgmma", None),       # two warpgroups
+    (2, 8, 8, 100, 77, 128, False, 0, "wgmma", None),       # cross
+    (4, 14, 2, 1, 200, 64, True, 0, "wgmma", (1, 37, 200, 90)),  # split keys
+    (4, 4, 1, 1, 1024, 256, True, 0, "wgmma", (601, 750, 900, 1000)),
+]
+SOFTCAP_BWD = [  # (b, hq, hkv, sq, skv, d, causal, window, variant)
+    (2, 4, 2, 100, 100, 64, True, 0, "simt"),
+    (2, 4, 2, 130, 130, 64, True, 0, "mma"),
+    (2, 4, 2, 130, 130, 64, True, 0, "wgmma"),
+    (2, 8, 2, 130, 130, 128, True, 0, "wgmma"),
+    (1, 4, 1, 200, 200, 256, True, 64, "wgmma"),
+    (2, 8, 8, 100, 77, 128, False, 0, "wgmma"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window,variant,lens",
+                         SOFTCAP_FWD)
+def test_softcap_forward_matches_plain(cuda, b, hq, hkv, sq, skv, d, causal,
+                                       window, variant, lens, dtype):
+    """The capped forward (with the LSE where no key split) on ``variant``
+    in bf16 (a bf16 ``simt`` case is forced there by an unaligned plan) and
+    on ``simt`` in f32."""
+    q, k, v = _qkv(b, hq, hkv, sq, skv, d, dtype, cuda)
+    kv_len = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                    device=cuda)
+    want = variant if dtype == torch.bfloat16 else "simt"
+    plan = fa.plan
+    if want == "simt":
+        fa.plan = lambda *a, **kw: plan(*a, **dict(kw, aligned=False))
+    try:
+        before = fa.flash_attention.variant_launches[want]
+        out, lse = fa._forward(q, k, v, causal, window, kv_len,
+                               save_lse=lens is None, softcap=SOFTCAP)
+        torch.cuda.synchronize()
+    finally:
+        fa.plan = plan
+    assert fa.flash_attention.variant_launches[want] == before + 1
+    exp, exp_lse = ref.flash_reference_lse(q, k, v, causal=causal,
+                                           window=window, kv_len=kv_len,
+                                           softcap=SOFTCAP)
+    torch.testing.assert_close(out.float(), exp.float(), **TOL[dtype])
+    if lse is not None:
+        torch.testing.assert_close(lse, exp_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window,variant",
+                         SOFTCAP_BWD)
+def test_softcap_backward_matches_plain(cuda, b, hq, hkv, sq, skv, d,
+                                        causal, window, variant, dtype):
+    """The capped backward (dS times 1 - (S'/c)^2) on ``variant`` in bf16
+    and ``simt`` in f32, from the plain forward's output and capped LSE,
+    each gradient within ``BWD_REL`` of its max|.|."""
+    q, k, v = _qkv(b, hq, hkv, sq, skv, d, dtype, cuda)
+    do = torch.randn(q.shape, device=cuda).to(dtype)
+    out, lse = ref.flash_reference_lse(q, k, v, causal=causal, window=window,
+                                       softcap=SOFTCAP)
+    want = variant if dtype == torch.bfloat16 else "simt"
+    schedule = fa.plan_backward
+    fa.plan_backward = lambda *s: fa.backward_schedule(want, *s[:6])
+    try:
+        before = fa.flash_attention_bwd.variant_launches[want]
+        grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                       window=window, softcap=SOFTCAP)
+        torch.cuda.synchronize()
+    finally:
+        fa.plan_backward = schedule
+    assert fa.flash_attention_bwd.variant_launches[want] == before + 1
+    expect = ref.flash_backward_reference(q, k, v, out, lse, do,
+                                          causal=causal, window=window,
+                                          softcap=SOFTCAP)
+    for name, g, e in zip("qkv", grads, expect):
+        assert torch.isfinite(g).all(), name
+        err = (g.float() - e.float()).abs().max().item()
+        assert err <= BWD_REL[dtype] * e.float().abs().max().item(), \
+            (name, err)
+
+
+def test_softcap_model_on_card_matches_cpu(cuda):
+    """gemma3-1b smoke with ``logit_softcap`` 0.5: the card (capped
+    kernels) and the CPU (capped plain versions) give the same logits
+    within 1e-4 and the same loss within 1e-5."""
+    from repro_torch.launch.steps import loss_and_grads
+    cfg = configs.get_smoke("gemma3-1b").replace(logit_softcap=0.5)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 16)).astype(np.int32))
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    want = M.forward(cfg, params, toks)
+    got = M.forward(cfg, on_card, toks.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    loss, _ = loss_and_grads(cfg, params, {"tokens": toks})
+    loss_c, _ = loss_and_grads(cfg, on_card, {"tokens": toks.to(cuda)})
+    torch.testing.assert_close(loss_c.cpu(), loss, rtol=1e-5, atol=1e-5)

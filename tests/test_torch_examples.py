@@ -109,9 +109,23 @@ def test_launcher_help_shows_defaults(monkeypatch, capsys):
 
 @pytest.mark.parametrize("flags", [["--mesh", "production"], ["--fsdp"],
                                    ["--seq-shard"]])
-def test_launcher_refuses_mesh_flags(flags):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train.parse_args(flags)
+def test_launcher_refuses_mesh_flags(flags, tmp_path):
+    """What the reference's launcher refuses, on one process: the
+    production mesh, with its own assertion.  ``--fsdp`` and
+    ``--seq-shard`` run on the host mesh (tests/test_torch_sharding.py
+    holds their losses to the reference's)."""
+    argv = ["--arch", "qwen2-0.5b", "--smoke", "--device", "cpu",
+            "--steps", "1", "--batch", "2", "--seq", "16", "--remat",
+            "none", "--ckpt-dir", str(tmp_path), *flags]
+    assert train.parse_args(argv).mesh == flags[-1] if "--mesh" in flags \
+        else train.parse_args(argv).mesh == "host"
+    if "--mesh" in flags:
+        with pytest.raises(AssertionError,
+                           match=r"need 256 devices for mesh \(16, 16\), "
+                                 r"have 1"):
+            train.main(argv)
+    else:
+        assert len(train.main(argv).losses) == 1
 
 
 def test_device_memory_degrades_on_cpu():

@@ -235,13 +235,20 @@ def test_prepare_params_casts_once(cfg, params):
 
 
 def test_unsupported_configs_raise():
-    """What stays unported: attention-logit soft-capping.  Codebook
-    embeddings and cross blocks are ported (tests/test_torch_musicgen.py,
-    tests/test_torch_vision.py), as are mixed patterns and a tail stack
+    """What the model refuses: a block kind the reference has not.
+    Attention-logit soft-capping is accepted (tests/test_torch_softcap.py
+    holds it to the reference); codebook embeddings and cross blocks are
+    ported (tests/test_torch_musicgen.py, tests/test_torch_vision.py), as
+    are mixed patterns and a tail stack
     (``test_mixed_pattern_and_tail_stack``)."""
     base = configs.get_smoke(ARCH)
-    with pytest.raises(NotImplementedError, match="logit_softcap"):
-        M.param_defs(base.replace(logit_softcap=50.0))
+    with pytest.raises(NotImplementedError, match="pattern"):
+        M.param_defs(base.replace(pattern=("mamba",)))
+    capped = base.replace(logit_softcap=50.0)
+    assert M.param_defs(capped).keys() == M.param_defs(base).keys()
+    params = M.init_params(capped, torch.Generator().manual_seed(0))
+    out = M.forward(capped, params, torch.zeros(1, 4, dtype=torch.int32))
+    assert out.shape == (1, 4, capped.vocab) and torch.isfinite(out).all()
     codebooks = M.param_defs(base.replace(n_codebooks=4))["embed"]
     assert codebooks["tokens"].shape == (4, base.vocab, base.d_model)
     cross = base.replace(pattern=("attn", "cross"), n_layers=4,
