@@ -564,11 +564,32 @@ SOFTCAP_CASES = {  # name -> (b, hq, hkv, sq, skv, d, causal, window)
 # loop).
 SOFTCAP_TIMED = {"gemma3-1b global": FLASH_D256["gemma3-1b global"]}
 SOFTCAP_DECODE = "gemma3-1b global decode"
-# Phase 16: dry-run cells, each in a subprocess of its own.
+# Phase 16: dry-run cells, each in a subprocess of its own, one of each
+# group of cells that once failed on the card's torch or outgrew the
+# reference: rwkv6's and recurrentgemma's pads, the MoE's local shards, the
+# MoE's and vision's memory.
 DRYRUN_CELLS = (("qwen2-0.5b", "decode_32k", "both"),
                 ("llama3.2-1b", "train_4k", "single"),
-                ("mixtral-8x7b", "train_4k", "single"))
+                ("mixtral-8x7b", "train_4k", "single"),
+                ("rwkv6-1.6b", "train_4k", "single"),
+                ("recurrentgemma-2b", "prefill_32k", "single"),
+                ("mixtral-8x7b", "decode_32k", "both"),
+                ("deepseek-v3-671b", "decode_32k", "single"),
+                ("llama-3.2-vision-11b", "train_4k", "single"))
 DRYRUN_TIMEOUT = 900
+# The reference's own dry run of those cells on the single-pod mesh (JAX
+# 0.9.0, XLA's CPU backend, 256 forced host devices: ``python -m
+# repro.launch.dryrun --arch A --shape S --mesh single``): XLA's peak bytes
+# a device (arguments + temp) and loop-weighted FLOPs a device.  The card
+# has no JAX, so they are kept here.  Phase 16 holds each cell's single-pod
+# peak under 80 GiB and within 2x, its FLOPs within 1.5x of these.
+DRYRUN_REFERENCE = {  # (arch, shape): (peak bytes, FLOPs)
+    ("mixtral-8x7b", "train_4k"): (10697766084, 585101129700383.0),
+    ("rwkv6-1.6b", "train_4k"): (10265307044, 47930633438820.0),
+    ("recurrentgemma-2b", "prefill_32k"): (6186151152, 202790093621792.0),
+    ("mixtral-8x7b", "decode_32k"): (2651876076, 381451930226.0),
+    ("deepseek-v3-671b", "decode_32k"): (24419606124, 5699662805738.0),
+    ("llama-3.2-vision-11b", "train_4k"): (14432328268, 421061556782779.0)}
 # qwen2-0.5b training (phases 5, 6): full width, batch 4 x 2048.
 QWEN_BATCH, QWEN_SEQ = 4, 2048
 QWEN_PARITY_LAYERS = 2
@@ -4682,6 +4703,20 @@ def finish_dryrun(started, card) -> dict:
             for m in (("single", "multi") if mesh == "both" else (mesh,)):
                 res = json.loads((Path(out) / f"{arch}_{shape}_{m}.json")
                                  .read_text())
+                ref = DRYRUN_REFERENCE.get((arch, shape))
+                if ref is not None and m == "single":
+                    peak = res["memory"]["peak_bytes_per_device"]
+                    flops = res["cost"]["flops"]
+                    print(f"  {arch} {shape}: peak {peak / 2**30:.2f} GiB "
+                          f"(reference {ref[0] / 2**30:.2f}), "
+                          f"{flops / 1e12:.1f} TF (reference "
+                          f"{ref[1] / 1e12:.1f})")
+                    require(peak < 80 * 2**30 and peak <= 2 * ref[0],
+                            f"16: {arch} {shape} peak {peak} against the "
+                            f"reference's {ref[0]}")
+                    require(flops <= 1.5 * ref[1], f"16: {arch} {shape} "
+                            f"FLOPs {flops} against the reference's "
+                            f"{ref[1]}")
                 rows[f"{arch} {shape} {m}"] = {
                     "chips": res["chips"], "trace_s": res["compile_s"],
                     "memory": res["memory"], "flops": res["cost"]["flops"],

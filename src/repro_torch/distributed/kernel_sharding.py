@@ -1,22 +1,22 @@
 """DTensor sharding strategies of the kernels' dispatcher ops.
 
 The flash attention, grouped GEMM and WKV6 launches are custom ops
-(``repro_torch::flash_fwd`` and the rest, each with a fake implementation),
-so DTensors reach them: DTensor then needs to know which input placements
-each op takes and what its outputs are.  Each strategy below is one mesh
-dim's choice; DTensor combines them over the mesh's dims and redistributes
-the inputs (an all-gather the collective count sees) when they come in
-otherwise.
+(``repro_torch::flash_fwd`` and the rest, each with a fake implementation).
+DTensors reach the flash ops: DTensor then needs to know which input
+placements each op takes and what its outputs are.  Each strategy below is
+one mesh dim's choice; DTensor combines them over the mesh's dims and
+redistributes the inputs (an all-gather the collective count sees) when
+they come in otherwise.
 
 - flash forward and backward: replicated, or sharded alike over the batch
   (dim 0) or over the heads (dim 1) of q, k, v (and o, lse, dO), which
   keeps each query head with its kv head.  There is no strategy for keys
   split over devices (that needs an LSE-weighted combine, not a sum), so a
   sharded KV sequence is gathered first.
-- grouped GEMM x [E,C,d] @ w [E,d,F]: over experts, capacity or F, or over
-  the contraction d with a ``Partial`` sum; its backward by the same
-  cases.
-- WKV6: over the folded batch-heads dim.
+
+The grouped GEMM and WKV6 take no DTensor: under a mesh the MoE layer and
+the RWKV6 recurrence run on each device's shards (``local_map``), where
+their ops get plain local tensors.
 
 It also gives ``FlopCounterMode``'s registry a formula for each op, which
 it lacks for a custom op: attention 4 D FLOPs a visible (query, key) pair
@@ -37,7 +37,7 @@ def register() -> None:
     if _DONE:
         return
     import torch
-    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import register_sharding
 
     # Importing the kernel modules defines their ops.
@@ -56,44 +56,6 @@ def register() -> None:
     def _(q, k, v, o, lse, do, causal, window, softcap):
         return [([p] * 3, [p] * 6 + [None] * 3)
                 for p in (R, Shard(0), Shard(1))]
-
-    @register_sharding(ops.moe_gemm_fwd.default)
-    def _(x, w):
-        return [([R], [R, R]),
-                ([Shard(0)], [Shard(0), Shard(0)]),
-                ([Shard(1)], [Shard(1), R]),
-                ([Shard(2)], [R, Shard(2)]),
-                ([Partial()], [Shard(2), Shard(1)])]
-
-    @register_sharding(ops.moe_gemm_bwd.default)
-    def _(x, w, dy, need_dx, need_dw):
-        # dx = dy w^T [E,C,d], dw = x^T dy [E,d,F]
-        return [([R, R], [R, R, R, None, None]),
-                ([Shard(0), Shard(0)], [Shard(0)] * 3 + [None, None]),
-                ([Shard(1), Partial()], [Shard(1), R, Shard(1), None, None]),
-                ([Partial(), Shard(2)], [R, Shard(2), Shard(2), None, None]),
-                ([Shard(2), Shard(1)], [Shard(2), Shard(1), R, None, None])]
-
-    @register_sharding(ops.rwkv6_fwd.default)
-    def _(r, k, v, w_log, u):
-        return [([p], [p] * 5) for p in (R, Shard(0))]
-
-    @register_sharding(ops.rwkv6_bwd.default)
-    def _(r, k, v, w_log, u, g):
-        return [([p] * 5, [p] * 6) for p in (R, Shard(0))]
-
-    # The MoE dispatch (models/moe.py) works row by row: every op of it
-    # takes a batch-sharded layout as it is.
-    aten = torch.ops.aten
-
-    @register_sharding(aten.searchsorted.Tensor)
-    def _(sorted_seq, values, *, out_int32=False, right=False, side=None,
-          sorter=None):
-        return [([p], [p, p]) for p in (R, Shard(0))]
-
-    @register_sharding(aten.scatter_add.default)
-    def _(x, dim, index, src):
-        return [([p], [p, None, p, p]) for p in (R, Shard(0))]
 
     from torch.utils.flop_counter import register_flop_formula
 

@@ -140,13 +140,19 @@ def pspec(*axes: Optional[str], mesh=None,
         r = _resolve(ax, dims)
         if shape is not None:
             r = _fit(r, shape[i] if i < len(shape) else None, dims)
-        flat = r if isinstance(r, tuple) else (r,) if r else ()
+        flat = entry_dims(r)
         if any(f in used for f in flat):
             r = None
         else:
             used.update(flat)
         resolved.append(r)
     return tuple(resolved)
+
+
+def entry_dims(entry: Entry) -> tuple:
+    """The mesh dims a spec entry names, major first (``()`` for
+    ``None``)."""
+    return entry if isinstance(entry, tuple) else (entry,) if entry else ()
 
 
 def placements(spec: Spec, mesh) -> tuple:
@@ -157,8 +163,7 @@ def placements(spec: Spec, mesh) -> tuple:
     names = list(mesh_dims(mesh))
     out = [Replicate() for _ in names]
     for i, entry in enumerate(spec):
-        for a in (entry if isinstance(entry, tuple) else (entry,)
-                  if entry else ()):
+        for a in entry_dims(entry):
             out[names.index(a)] = Shard(i)
     return tuple(out)
 
@@ -169,8 +174,7 @@ def local_shape(shape: tuple, spec: Spec, mesh) -> tuple:
     dims = mesh_dims(mesh)
     out = list(shape)
     for i, entry in enumerate(spec):
-        for a in (entry if isinstance(entry, tuple) else (entry,)
-                  if entry else ()):
+        for a in entry_dims(entry):
             out[i] //= dims[a]
     return tuple(out)
 
@@ -198,27 +202,45 @@ def shard(x, *axes: Optional[str]):
     return x.redistribute(mesh, want)
 
 
-def local_by_axes(fn, args, in_axes, out_axes):
+def local_by_axes(fn, args, in_axes, out_axes, partial: tuple = ()):
     """``fn`` on each device's shards (``local_map``), its DTensor
     arguments first laid out by their logical axes ``in_axes`` (one tuple
     an argument) and its outputs taken as laid out by ``out_axes`` (one
-    ``(axes, shape)`` an output).  For computations that act on each
-    (batch row, head) alone, such as attention's and the recurrences'
-    einsums over both: DTensor would fold the two sharded dims into one
-    and cannot, and its shape propagation fails on fake tensors."""
+    ``(axes, shape)`` an output), and as partial sums over the mesh dims
+    named in ``partial``.  For computations that act on each (batch row,
+    head) alone, such as attention's and the recurrences' einsums over
+    both: DTensor would fold the two sharded dims into one and cannot, and
+    its shape propagation fails on fake tensors.
+
+    Gradients: an argument replicated over a mesh dim on which the outputs
+    are sharded or partial gets a partial gradient there (each device's
+    share of the sum over its rows, heads or slices), reduced where
+    DTensor next needs it; over a mesh dim on which the outputs are
+    replicated too, every device computed the same, and so the gradient is
+    replicated."""
+    from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
     mesh = args[0].device_mesh
+    names = list(mesh_dims(mesh))
 
     def layout(axes, shape):
         return list(placements(pspec(*axes, mesh=mesh, shape=tuple(shape)),
                                mesh))
 
     outs = [layout(a, s) for a, s in out_axes]
+    for out in outs:
+        for m in partial:
+            if m in names:
+                out[names.index(m)] = Partial()
+    ins = [layout(a, x.shape) for a, x in zip(in_axes, args)]
+    split = [any(not out[m].is_replicate() for out in outs)
+             for m in range(len(names))]
+    grads = tuple([Partial() if split[m] and p.is_replicate() else p
+                   for m, p in enumerate(pl)] for pl in ins)
     return local_map(fn, out_placements=tuple(outs) if len(outs) > 1
-                     else outs[0],
-                     in_placements=tuple(layout(a, x.shape) for a, x in
-                                         zip(in_axes, args)),
-                     device_mesh=mesh, redistribute_inputs=True)(*args)
+                     else outs[0], in_placements=tuple(ins),
+                     in_grad_placements=grads, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
 
 
 def vocab_parallel_nll(logits, targets):

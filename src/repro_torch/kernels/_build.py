@@ -31,19 +31,28 @@ _LOADED: dict[str, ctypes.CDLL] = {}
 
 def plain(tensors) -> bool:
     """Whether a wrapper call takes the kernel's plain version: every
-    tensor a CPU tensor, none a DTensor.  A DTensor (the dry run's sharded
-    state, whose fake shards lie on the mesh's host) goes to the kernel's
-    dispatcher op, as a CUDA tensor does."""
+    tensor a CPU tensor, none a shard of the mesh (:func:`sharded`).  A
+    DTensor (the dry run's sharded state, whose fake shards lie on the
+    mesh's host) goes to the kernel's dispatcher op, as a CUDA tensor
+    does."""
     return all(t.device.type == "cpu" for t in tensors) and not any(
         sharded(t) for t in tensors)
 
 
 def sharded(t) -> bool:
-    """Whether ``t`` is a DTensor: its device is the mesh's, and the op's
-    sharding strategy, not the wrapper, places it.  (No DTensor exists
-    before ``torch.distributed.tensor`` is imported.)"""
+    """Whether ``t`` is a shard of the mesh: a DTensor, whose device is the
+    mesh's and whose op's sharding strategy, not the wrapper, places it,
+    or a fake tensor whose ``FakeTensorMode`` carries ``mesh_shards =
+    True``: a fake local shard of a mesh traced on its host, which goes to
+    the kernels' dispatcher ops, whose fake implementations give the
+    results' shapes, as the card's shards would go to the kernels.  Any
+    other fake CPU tensor (a ``make_fx`` capture's) takes the plain
+    version.  (No DTensor exists before ``torch.distributed.tensor`` is
+    imported.)"""
     mod = sys.modules.get("torch.distributed.tensor")
-    return mod is not None and isinstance(t, mod.DTensor)
+    if mod is not None and isinstance(t, mod.DTensor):
+        return True
+    return getattr(getattr(t, "fake_mode", None), "mesh_shards", False)
 
 
 def nvcc() -> str:

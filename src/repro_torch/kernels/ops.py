@@ -61,18 +61,9 @@ def expert_ffn(buf_becd, w_edf) -> torch.Tensor:
     so rows never mix.
     """
     b, e, c, d = buf_becd.shape
-    x = dense(buf_becd.transpose(0, 1)).reshape(e, b * c, d)
+    x = buf_becd.transpose(0, 1).contiguous().reshape(e, b * c, d)
     y = moe_gemm(x, w_edf)
     return y.reshape(e, b, c, -1).transpose(0, 1)
-
-
-def dense(x: torch.Tensor) -> torch.Tensor:
-    """``x`` laid out densely, so that a reshape is a view: ``contiguous``
-    (a copy where ``x`` is transposed), or for a DTensor a copy of its
-    local shard, whose strides its global ``contiguous`` does not see."""
-    if is_dtensor(x):
-        return x.clone(memory_format=torch.contiguous_format)
-    return x.contiguous()
 
 
 def rwkv_mix(r_bshd, k_bshd, v_bshd, wlog_bshd, u_hd) -> torch.Tensor:

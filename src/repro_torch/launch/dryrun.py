@@ -9,13 +9,16 @@ cell for a TPU pod under 512 forced host devices.  Here each cell:
      16), ``("pod", "data", "model")``), as rank 0, and destroys it after;
   2. under ``FakeTensorMode`` (nothing allocates), makes the parameters,
      the optimizer state, the batch or the KV caches DTensors with the
-     port's placements (``launch/steps.py``), local shards on ``cuda``;
+     port's placements (``launch/steps.py``), their local shards fake
+     tensors of the mesh's host;
   3. runs the port's own step on them: the train step with gradient
      accumulation, a prefill (``forward`` to the last row's logits) or a
      decode step.  The kernels' dispatcher ops (``repro_torch::flash_fwd``
-     and the rest) take fake tensors and DTensors
-     (``distributed/kernel_sharding.py``), so the step traces the same
-     entry points the card runs, never their plain versions;
+     and the rest) take DTensors (``distributed/kernel_sharding.py``) and
+     the fake local shards that ``local_map`` hands the model's per-device
+     code (their fake mode is marked ``mesh_shards``, which
+     ``kernels._build.sharded`` reads), so the step traces the same entry
+     points the card runs, never their plain versions;
   4. records, as JSON with the reference's keys: memory (the arguments'
      bytes a device, exact from the local shard shapes, and the peak a
      device from ``MemTracker``), cost (``FlopCounterMode``'s FLOPs and the
@@ -29,7 +32,11 @@ A cell "fits" under 80 GiB a device.  Usage:
 
   python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape decode_32k \\
       --mesh both --device cpu
+  python -m repro_torch.launch.dryrun --arch mixtral-8x7b --mesh both
   python -m repro_torch.launch.dryrun --all --mesh both
+
+``--arch`` without ``--shape`` runs every shape of that arch; the whole
+sweep runs fastest as one such process an arch, side by side.
 """
 from __future__ import annotations
 
@@ -82,7 +89,7 @@ _CANONICAL = [
 CELLS = [(a, s) for a in _CANONICAL for s in SHAPES]
 
 DEVICE_BYTES = 80 * 2**30        # an H100's memory: a cell "fits" below it
-FAKE_DEVICE = "cuda"             # the local shards are the card's
+PEAK_TENSORS = 8                 # the storages listed at each cell's peak
 
 
 def rule_overrides(shape: str) -> dict:
@@ -124,7 +131,10 @@ class _Counts(torch.utils._python_dispatch.TorchDispatchMode):
     ``MemTracker`` counts them as the device's (24 GiB of them against
     0.46 GiB of shards in qwen2-0.5b's decode cell).  Live
     storages are tracked as ``MemTracker`` tracks them, by a weak
-    reference to each storage, from the step's arguments on."""
+    reference to each storage, from the step's arguments on, and the
+    ``PEAK_TENSORS`` largest of them live at the peak are kept, each with
+    the op that made it and its local shape.  It also notes the largest
+    plain tensor that met a DTensor op."""
     KINDS = {"all_gather_into_tensor": "all-gather",
              "all_gather_into_tensor_coalesced": "all-gather",
              "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
@@ -141,24 +151,54 @@ class _Counts(torch.utils._python_dispatch.TorchDispatchMode):
         self.coll = {}
         self.live = {}
         self.now = self.peak = 0
+        self.made, self.peak_tensors = {}, []
+        self._rising = False
+        self.implicit = (0, None, None)
 
-    def hold(self, t) -> None:
+    def hold(self, t, op: str = "argument") -> None:
         """Count ``t``'s storage live until it is freed."""
         st = t.untyped_storage()
         key = st._cdata
         if key in self.live:
             return
         self.live[key] = n = st.nbytes()
+        self.made[key] = (op, tuple(t.shape), str(t.dtype)[6:])
         self.now += n
-        self.peak = max(self.peak, self.now)
+        if self.now > self.peak:
+            self.peak, self._rising = self.now, True
         weakref.finalize(st, self._free, key)
 
     def _free(self, key) -> None:
+        if self._rising:
+            # The live set only grew since the last new peak: it is the
+            # peak's.
+            self.peak_tensors = self.largest()
+        self._rising = False
         self.now -= self.live.pop(key)
+        self.made.pop(key, None)
+
+    def _implicit(self, func, args) -> None:
+        """Note the largest plain tensor that meets a DTensor op (which
+        ``implicit_replication`` takes as replicated: whatever is made
+        from it is made whole on every device)."""
+        from torch.distributed.tensor import DTensor
+        for t in torch.utils._pytree.tree_leaves(args):
+            if isinstance(t, torch.Tensor) and not isinstance(t, DTensor):
+                n = t.numel() * t.element_size()
+                if n > self.implicit[0]:
+                    self.implicit = (n, func._opname, tuple(t.shape))
+
+    def largest(self) -> list:
+        """The largest live storages: (bytes, op, shape, dtype)."""
+        import heapq
+        return [(n, *self.made[k]) for k, n in heapq.nlargest(
+            PEAK_TENSORS, self.live.items(), key=lambda kv: kv[1])]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
         if any(issubclass(t, DTensor) for t in types):
+            if not _PROPAGATING:
+                self._implicit(func, (args, kwargs))
             return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
@@ -167,7 +207,7 @@ class _Counts(torch.utils._python_dispatch.TorchDispatchMode):
         results = [t for t in torch.utils._pytree.tree_leaves(out)
                    if isinstance(t, torch.Tensor)]
         for t in results:
-            self.hold(t)
+            self.hold(t, func._opname)
         if func.namespace == "_c10d_functional":
             kind = self.KINDS.get(func._opname)
             if kind is not None:
@@ -261,8 +301,9 @@ def build_cell(arch: str, shape: str, mesh, overrides=None, remat="full",
         ga = grad_accum or GRAD_ACCUM.get(arch, 1)
 
     counts = _Counts()
-    with mesh_context(mesh, overrides=rules, fsdp=fsdp), FakeTensorMode(
-            allow_non_fake_inputs=True):
+    fake = FakeTensorMode(allow_non_fake_inputs=True)
+    fake.mesh_shards = True           # its tensors are shards of the mesh
+    with mesh_context(mesh, overrides=rules, fsdp=fsdp), fake:
         defs = M.param_defs(cfg)
         p_pl, o_pl = state_shardings(cfg, mesh, opt_name, fsdp=fsdp)
         params = _dtensors(defs, p_pl, mesh)
@@ -298,7 +339,7 @@ def build_cell(arch: str, shape: str, mesh, overrides=None, remat="full",
             tok = _input(tok_shape, torch.int32, mesh, placements(
                 pspec("batch", mesh=mesh) if b > 1 else (), mesh))
             pos = DTensor.from_local(
-                torch.zeros((), dtype=torch.int32, device=FAKE_DEVICE),
+                torch.zeros((), dtype=torch.int32, device=mesh.device_type),
                 mesh, [Replicate()] * mesh.ndim, run_check=False)
             img = None
             if cfg.cross_attn_dim:
@@ -324,6 +365,8 @@ def build_cell(arch: str, shape: str, mesh, overrides=None, remat="full",
             run()
         trace_s = time.time() - t0
         peak_bytes = counts.peak
+        if counts._rising:
+            counts.peak_tensors = counts.largest()
 
     cost = {"flops": float(counts.flops),
             "bytes accessed": float(counts.bytes_accessed),
@@ -347,6 +390,11 @@ def build_cell(arch: str, shape: str, mesh, overrides=None, remat="full",
                         "by_kind": {k: float(v)
                                     for k, v in sorted(counts.coll.items())}},
         "roofline": rt.as_dict(),
+        "implicit_replication": dict(zip(("max_bytes", "op", "shape"),
+                                         counts.implicit)),
+        "peak_tensors": [
+            {"bytes": n, "op": op, "local_shape": list(shp), "dtype": dt}
+            for n, op, shp, dt in counts.peak_tensors],
     }
 
 
@@ -358,7 +406,7 @@ def _input(shape, dtype, mesh, pl):
         if p.is_shard():
             local[p.dim] //= mesh.size(m)
     return DTensor.from_local(
-        torch.zeros(local, dtype=dtype, device=FAKE_DEVICE), mesh, pl,
+        torch.zeros(local, dtype=dtype, device=mesh.device_type), mesh, pl,
         run_check=False, shape=torch.Size(shape),
         stride=torch.empty(shape, device="meta").stride())
 
@@ -371,8 +419,9 @@ def _batch(cfg, spec, mesh) -> dict:
 
 def run_cell(arch, shape, multi, **kw) -> dict:
     """``build_cell`` on the production mesh inside its own fake world.
-    The mesh lies on the host (DTensor's shape propagation runs there);
-    the local shards are fake tensors of the card (``FAKE_DEVICE``)."""
+    The mesh lies on the host (DTensor's shape propagation runs there),
+    and so do its fake local shards (``DTensor.from_local`` moves a shard
+    to its mesh's device)."""
     with fake_world(512 if multi else 256):
         mesh = make_production_mesh(multi_pod=multi, device_type="cpu")
         return build_cell(arch, shape, mesh, **kw)
@@ -400,7 +449,8 @@ def main(argv=None):
     os.makedirs(args.out, exist_ok=True)
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]
-    cells = CELLS if args.all else [(args.arch, args.shape)]
+    cells = CELLS if args.all else [
+        (args.arch, s) for s in ([args.shape] if args.shape else SHAPES)]
     overrides = json.loads(args.overrides) if args.overrides else None
 
     failures = []
@@ -426,6 +476,9 @@ def main(argv=None):
                       f"memory={r['memory_s'] * 1e3:.2f}ms "
                       f"collective={r['collective_s'] * 1e3:.2f}ms "
                       f"dom={r['dominant']}", flush=True)
+                for t in res["peak_tensors"]:
+                    print(f"     {t['bytes'] / 2**30:9.3f} GiB {t['op']} "
+                          f"{t['local_shape']} {t['dtype']}")
             except Exception as e:
                 failures.append((tag, repr(e)))
                 print(f"FAIL {tag} ({time.time() - t0:.0f}s): {e!r}",

@@ -42,7 +42,8 @@ def loss_and_grads(cfg: ModelConfig, params, batch):
     def split(t):
         out = tuple(x.requires_grad_() for x in t.detach().unbind(0))
         hooks.extend(x.register_post_accumulate_grad_hook(
-            partial(_into_stack, stacked, out, i)) for i, x in enumerate(out))
+            partial(_into_stack, stacked, out, t, i))
+            for i, x in enumerate(out))
         return out
 
     leaves = {k: tree_map(split if k in M.STACKS else
@@ -72,14 +73,17 @@ def loss_and_grads(cfg: ModelConfig, params, batch):
     return loss.detach(), tree_map(take, leaves)
 
 
-def _into_stack(stacked: dict, layers: tuple, i: int, x) -> None:
+def _into_stack(stacked: dict, layers: tuple, param, i: int, x) -> None:
     """Copy layer ``i``'s gradient into its stack, made at the first one
     that arrives (in the backward, not before the forward), and note that
-    it arrived."""
+    it arrived.  Under a mesh the stack is laid out as the stacked
+    parameter ``param`` (each device its shard), where ``new_zeros`` would
+    make it whole on every device."""
     entry = stacked.get(id(layers))
     if entry is None:
         entry = stacked[id(layers)] = (
-            x.grad.new_zeros((len(layers), *x.shape)), set())
+            torch.zeros_like(param) if is_dtensor(param)
+            else x.grad.new_zeros((len(layers), *x.shape)), set())
     entry[0][i].copy_(x.grad)
     entry[1].add(i)
     x.grad = None

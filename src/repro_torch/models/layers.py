@@ -25,7 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import is_dtensor, local_by_axes, pspec, shard
+from ..distributed.sharding import (current_mesh, entry_dims, is_dtensor,
+                                    local_by_axes, mesh_dims, pspec, shard)
 from ..kernels import ops
 from ..kernels.ref import BLOCKED_ATTN_THRESHOLD
 from .config import ModelConfig
@@ -127,6 +128,18 @@ def _proj(x, w, heads: str):
         [(("batch", None, None, None), (*x.shape[:2], *w.shape[1:]))])
 
 
+def rows_matmul(x, w):
+    """``x @ w`` for a replicated ``w`` [d, n].  Under a mesh each device
+    multiplies only its own rows, its slice of the batch and of the
+    sequence (``local_map``: DTensor cannot fold the two sharded dims into
+    one), where DTensor would multiply every row of its batch slice."""
+    if not is_dtensor(x):
+        return x @ w
+    rows = ("batch", "seq", None)
+    return local_by_axes(torch.matmul, (x, w), [rows, (None, None)],
+                         [(rows, (*x.shape[:-1], w.shape[-1]))])
+
+
 def _head_sum(o, w):
     """einsum("bshk,hkd->bsd", o, w) as one matrix product."""
     return o.flatten(2) @ w.flatten(0, 1)
@@ -145,15 +158,50 @@ def _out_proj(out, wo):
         [(("batch", None, None), (*out.shape[:2], wo.shape[-1]))])
 
 
-def _qkv(cfg: ModelConfig, p, x, kv_x):
+def kv_repeats(n_heads: int, n_kv_heads: int) -> int:
+    """How many copies of each kv head a mesh needs: where its model dim
+    splits the query heads but not the kv heads (llama's 32 and 8 on 16),
+    each kv head is repeated so that the model dim splits the copies too,
+    and each device holds the one kv head its query heads read (GQA's
+    grouping of the copies is the original's).  1 without a mesh, or
+    where the kv heads split, or where the dim is not a multiple of
+    them."""
+    mesh = current_mesh()
+    if mesh is None:
+        return 1
+    on_q = pspec("heads", shape=(n_heads,))[0]
+    if not on_q or pspec("kv_heads", shape=(n_kv_heads,))[0]:
+        return 1
+    dims = mesh_dims(mesh)
+    n = int(np.prod([dims[a] for a in entry_dims(on_q)]))
+    return n // n_kv_heads if n % n_kv_heads == 0 else 1
+
+
+def _repeat_heads(w, reps: int, dim: int):
+    """Each head of ``w`` (its ``dim``) ``reps`` times in a row, the copies
+    laid out over the model dim with the kv heads'."""
+    w = w.unsqueeze(dim + 1).expand(*w.shape[:dim + 1], reps,
+                                    *w.shape[dim + 1:]).flatten(dim, dim + 1)
+    return shard(w, *[None] * dim, "kv_heads", *[None] * (w.dim() - dim - 1))
+
+
+def _qkv(cfg: ModelConfig, p, x, kv_x, reps: int = 1):
+    """The projections; ``reps`` > 1 (a mesh, no cache): each kv head
+    ``reps`` times (:func:`kv_repeats`)."""
     dt = adtype(cfg)
+    wk, wv = p["wk"].to(dt), p["wv"].to(dt)
+    if reps > 1:
+        wk, wv = _repeat_heads(wk, reps, 1), _repeat_heads(wv, reps, 1)
     q = _proj(x, p["wq"].to(dt), "heads")
-    k = _proj(kv_x, p["wk"].to(dt), "kv_heads")
-    v = _proj(kv_x, p["wv"].to(dt), "kv_heads")
+    k = _proj(kv_x, wk, "kv_heads")
+    v = _proj(kv_x, wv, "kv_heads")
     if cfg.qkv_bias:
+        bk, bv = p["bk"].to(dt), p["bv"].to(dt)
+        if reps > 1:
+            bk, bv = _repeat_heads(bk, reps, 0), _repeat_heads(bv, reps, 0)
         q = q + p["bq"].to(dt)
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
+        k = k + bk
+        v = v + bv
     return q, k, v
 
 
@@ -192,7 +240,12 @@ def attention_apply(cfg: ModelConfig, p, x, *, positions, window: int = 0,
     """
     b, s, _ = x.shape
     cross = kv_x is not None
-    q, k, v = _qkv(cfg, p, x, kv_x if cross else x)
+    # Under a mesh the attention of a whole sequence reads each kv head on
+    # the devices of its query heads (a decode step writes the cache's
+    # own heads).
+    reps = kv_repeats(cfg.n_heads, cfg.n_kv_heads) \
+        if cache is None and is_dtensor(x) else 1
+    q, k, v = _qkv(cfg, p, x, kv_x if cross else x, reps)
     if not cross:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)

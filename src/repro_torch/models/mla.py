@@ -15,7 +15,7 @@ over blocks of 512 query rows on the concatenated 192-wide q/k
 (``qk_nope_dim + qk_rope_dim``) against the 128-wide v, each block under a
 checkpoint so the backward recomputes it.  The flash kernel takes one head
 dim for q, k and v (and its backward at most 128), so it cannot run this
-attention: MLA layers launch no flash kernel (ROADMAP Queue 2 item 3).
+attention: MLA layers launch no flash kernel (ROADMAP H3).
 The scale is ``1/sqrt(qk_nope_dim + qk_rope_dim)``.  ``logit_softcap`` caps
 the logits of the blocked path alone, where the reference's
 ``_sdpa_blocked`` caps them; its dense and decode paths do not (ROADMAP
@@ -33,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.ref import BLOCKED_ATTN_THRESHOLD, Q_BLOCK
 from .config import ModelConfig
 from ..distributed.sharding import is_dtensor, local_by_axes, shard
-from .layers import adtype, rope, write_rows
+from .layers import adtype, rope, rows_matmul, write_rows
 from .params import ParamInfo
 
 
@@ -131,6 +131,20 @@ def _attend_dense(q_nope, k_nope, q_rope, k_rope, v, *, scale: float, dt):
     return torch.einsum("bhqs,bshv->bqhv", probs, v)
 
 
+def _attend_absorbed(q_nope, q_rope, ckv_all, kr_all, visible, wk_b, wv_b,
+                     *, scale: float, dt):
+    """Decode attention over the latent cache, wk_b absorbed into the
+    query (q_lat[b,q,h,k] = q_nope . wk_b^T) and wv_b applied to the
+    attended latents; ``visible`` [B or 1, L] masks the cache's rows."""
+    q_lat = _einsum_w("bqhn,khn->bqhk", q_nope, wk_b, dt)
+    logits = (torch.einsum("bqhk,bsk->bhqs", q_lat, ckv_all)
+              + torch.einsum("bqhr,bsr->bhqs", q_rope, kr_all))
+    probs = _softmax_rows(logits.float() * scale,
+                          visible[:, None, None, :], dt)
+    o_lat = torch.einsum("bhqs,bsk->bqhk", probs, ckv_all)
+    return _einsum_w("bqhk,khv->bqhv", o_lat, wv_b, dt)
+
+
 def _einsum_w(spec: str, x, w, dt):
     return torch.einsum(spec, x, w.to(dt))
 
@@ -153,15 +167,22 @@ def mla_apply(cfg: ModelConfig, p, x, *, positions,
     scale = 1.0 / math.sqrt(nope + cfg.qk_rope_dim)
 
     # --- queries ---
-    cq = _rms(_einsum_w("bsd,dq->bsq", x, p["wq_a"], dt), p["q_norm"],
-              cfg.norm_eps)
+    if is_dtensor(x):
+        # Under a mesh each device projects its own rows onto both latents
+        # (replicated weights), which are then gathered for the heads'
+        # projections (split over the heads).
+        cq = shard(rows_matmul(x, p["wq_a"].to(dt)), "batch", None, None)
+        kv_a = shard(rows_matmul(x, p["wkv_a"].to(dt)), "batch", None, None)
+    else:
+        cq = _einsum_w("bsd,dq->bsq", x, p["wq_a"], dt)
+        kv_a = _einsum_w("bsd,dk->bsk", x, p["wkv_a"], dt)
+    cq = _rms(cq, p["q_norm"], cfg.norm_eps)
     q = _einsum_w("bsq,qhk->bshk", cq, p["wq_b"], dt)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
     q_nope = shard(q_nope, "batch", None, "heads", None)
 
     # --- KV latent ---
-    kv_a = _einsum_w("bsd,dk->bsk", x, p["wkv_a"], dt)
     ckv = _rms(kv_a[..., :kl], p["kv_norm"], cfg.norm_eps)
     k_rope_new = rope(kv_a[..., kl:][:, :, None, :], positions,
                       cfg.rope_theta)[:, :, 0, :]
@@ -223,14 +244,22 @@ def mla_apply(cfg: ModelConfig, p, x, *, positions,
             visible = (torch.arange(length, device=x.device)[None, :]
                        <= pos[:, None])
         new_cache = {"ckv": ckv_all, "krope": kr_all, "pos": pos + 1}
-        # Absorb wk_b into the query: q_lat[b,q,h,k] = q_nope . wk_b^T.
-        q_lat = _einsum_w("bqhn,khn->bqhk", q_nope, p["wk_b"], dt)
-        logits = (torch.einsum("bqhk,bsk->bhqs", q_lat, ckv_all)
-                  + torch.einsum("bqhr,bsr->bhqs", q_rope, kr_all))
-        probs = _softmax_rows(logits.float() * scale,
-                              visible[:, None, None, :], dt)
-        o_lat = torch.einsum("bhqs,bsk->bqhk", probs, ckv_all)
-        out = _einsum_w("bqhk,khv->bqhv", o_lat, p["wv_b"], dt)
+        absorbed = partial(_attend_absorbed, scale=scale, dt=dt)
+        args = (q_nope, q_rope, ckv_all, kr_all, visible, p["wk_b"],
+                p["wv_b"])
+        if is_dtensor(ckv_all):
+            # Under a mesh each device attends for its rows and heads, over
+            # its rows' whole cache (gathered where the mesh splits the
+            # cache's sequence, as the flash op's strategies gather it).
+            head, rows = ("batch", None, "heads", None), ("batch", None,
+                                                          None)
+            out = local_by_axes(
+                absorbed, args, [head, head, rows, rows, ("batch", None),
+                                 (None, "heads", None), (None, "heads",
+                                                         None)],
+                [(head, (*q_nope.shape[:3], p["wv_b"].shape[-1]))])
+        else:
+            out = absorbed(*args)
 
     y = _einsum_w("bqhv,hvd->bqd", out, p["wo"], dt)
     return shard(y, "batch", None, "embed"), new_cache

@@ -200,6 +200,15 @@ def _norm(cfg: ModelConfig, p, x):
     return shard(L.rmsnorm_apply(cfg, p, x), "batch", None, "embed")
 
 
+def _to_stream(y):
+    """A branch's output laid out as the residual stream (no-op without a
+    mesh).  Under sequence parallelism DTensor would otherwise split the
+    branch inside the add, out of autograd's sight, and hand its backward
+    a gradient sharded over batch and sequence at once, which the
+    recurrent blocks' products cannot take."""
+    return shard(y, "batch", "seq", "embed")
+
+
 def block_apply(cfg: ModelConfig, kind: str, p, x, *, positions,
                 moe_layer: bool, cache=None, img_kv=None):
     """Pre-norm residual block; returns (x, new_cache).  The attention
@@ -211,18 +220,20 @@ def block_apply(cfg: ModelConfig, kind: str, p, x, *, positions,
         rec_cache = None if cache is None else cache.get("rec")
         h = _norm(cfg, p["norm1"], x)
         r, c2 = RG.rglru_apply(cfg, p["rec"], h, cache=rec_cache)
-        x = x + R.tag(r, "rec_out")
+        x = x + R.tag(_to_stream(r), "rec_out")
         h2 = _norm(cfg, p["norm2"], x)
-        x = x + R.tag(L.mlp_apply(cfg, p["ffn"], h2), "ffn_out")
+        x = x + R.tag(_to_stream(L.mlp_apply(cfg, p["ffn"], h2)), "ffn_out")
         return shard(x, "batch", "seq", "embed"), (None if c2 is None
                                                      else {"rec": c2})
     if kind == "rwkv":
         mix_cache = None if cache is None else cache.get("mix")
         h = _norm(cfg, p["norm1"], x)
         if mix_cache is None:
-            x = x + R.tag(RW.rwkv_time_mix(cfg, p["mix"], h), "attn_out")
+            x = x + R.tag(_to_stream(RW.rwkv_time_mix(cfg, p["mix"], h)),
+                          "attn_out")
             h2 = _norm(cfg, p["norm2"], x)
-            x = x + R.tag(RW.rwkv_channel_mix(cfg, p["mix"], h2), "ffn_out")
+            x = x + R.tag(_to_stream(RW.rwkv_channel_mix(cfg, p["mix"], h2)),
+                          "ffn_out")
             return shard(x, "batch", "seq", "embed"), None
         t, c2 = RW.rwkv_time_mix(cfg, p["mix"], h, cache=mix_cache)
         x = x + R.tag(t, "attn_out")

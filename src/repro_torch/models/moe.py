@@ -20,7 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import shard
+from ..distributed.sharding import (entry_dims, is_dtensor, local_by_axes,
+                                    pspec, shard)
 from ..kernels import ops
 from .config import ModelConfig
 from .layers import adtype, mlp_apply, mlp_defs
@@ -72,61 +73,105 @@ def _dispatch(e_flat: torch.Tensor, capacity: int, n_experts: int):
 def moe_apply(cfg: ModelConfig, p, x):
     """x: [B, S, d] -> [B, S, d] (decode is S = 1)."""
     dt = adtype(cfg)
+    w = (p["router"], p["wi"].to(dt), p["wg"].to(dt), p["wo"].to(dt))
+    if is_dtensor(x):
+        out = _moe_meshed(cfg, x, *w)
+    else:
+        out = _moe_local(cfg, 0, x, *w)
+    if cfg.n_shared_experts > 0:
+        out = out + mlp_apply(cfg, p["shared"], x)
+    return out
+
+
+def _moe_meshed(cfg: ModelConfig, x, router, wi, wg, wo):
+    """The routed experts under a mesh: the reference's layout.  Each
+    device routes its own batch rows (whole, as the vmapped dispatch of
+    the reference keeps every row on its device) and runs the expert FFN
+    on its shard of the weights: its experts where the experts divide the
+    model dim (deepseek's 256), else its slice of F (mixtral's 8 experts
+    keep ``expert`` unsharded, and ``wi``/``wg``/``wo`` split over
+    ``mlp``).  So no device holds another row's dispatch buffer or another
+    device's experts.  Each device's output is its share of the routed
+    sum (a partial sum over the mesh dims that split the experts or F),
+    reduced by the ``shard`` after it.  One ``local_map``: DTensor would
+    gather the scatter's index and buffer whole onto every device."""
+    w_axes, o_axes = ("expert", None, "mlp"), ("expert", "mlp", None)
+    spec = pspec(*w_axes, shape=tuple(wi.shape))
+    mesh = x.device_mesh
+    by_expert = entry_dims(spec[0])
+
+    def local(x, router, wi, wg, wo):
+        e0 = 0                    # this device's first expert
+        for m in by_expert:
+            i = mesh.mesh_dim_names.index(m)
+            e0 = e0 * mesh.size(i) + mesh.get_local_rank(i)
+        return _moe_local(cfg, e0 * wi.shape[0], x, router, wi, wg, wo)
+
+    rows = ("batch", None, None)
+    out = local_by_axes(
+        local, (x, router, wi, wg, wo),
+        [rows, (None, None), w_axes, w_axes, o_axes], [(rows, x.shape)],
+        partial=by_expert + entry_dims(spec[2]))
+    return shard(out, "batch", None, "embed")
+
+
+def _moe_local(cfg: ModelConfig, e0: int, x, router, wi, wg, wo):
+    """The routed experts on plain tensors: the rows x [b, S, d], the
+    whole router, and the experts ``e0 .. e0 + wi.shape[0]`` of
+    ``wi``/``wg`` [E_l, d, F_l] and ``wo`` [E_l, F_l, d] (a device's F
+    slice, if F is split over a mesh; all of it, with e0 = 0, on one
+    device).  Only the assignments to those experts fill the buffer
+    [b, E_l·C, d], and the output is their share of the combine."""
+    dt = adtype(cfg)
     b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
+    e, k, el = cfg.n_experts, cfg.top_k, wi.shape[0]
     cap = expert_capacity(cfg, s)
 
     # Router in f32: deepseek's sigmoid scores with shared experts,
     # mixtral's softmax without.
-    logits = x.float() @ p["router"].float()
+    logits = x.float() @ router.float()
     scores = torch.sigmoid(logits) if cfg.n_shared_experts > 0 \
         else torch.softmax(logits, dim=-1)
     topw, topi = _top_k(scores, k)                           # [B,S,k]
     topw = (topw / (topw.sum(dim=-1, keepdim=True) + 1e-9)).to(dt)
-
-    e_flat = topi.reshape(b, s * k)
-    w_flat = topw.reshape(b, s * k)
-    order, slot, keep = _dispatch(e_flat, cap, e)
+    order, slot, keep = _dispatch(topi.reshape(b, s * k), cap, e)
     src_tok = order // k                                     # [B, S*k]
+    mine = (slot >= e0 * cap) & (slot < (e0 + el) * cap)
+    kept = keep & mine
 
-    # Gather tokens into expert buffers [B, E*C, d].  JAX scatters every
+    # Gather tokens into expert buffers [B, E_l*C, d].  JAX scatters every
     # assignment with ``.at[slot].set``, and a dropped one lands, as a zero
     # row, on its expert's last slot C-1, where the CPU keeps the last of
     # duplicate writes: the token kept at rank C-1 of an overflowing expert
     # is overwritten with zeros.  torch's scatter gives duplicates no
     # order, so kept rows go to their (unique) slots and dropped ones to a
-    # spare row E*C, and then slot C-1 of every expert that overflowed is
+    # spare row E_l*C, and then slot C-1 of every expert that overflowed is
     # zeroed, as the reference does.  No boolean indexing: on the card that
     # would wait for the device.  Each row scatters within itself (no
-    # global row index), so a batch-sharded layout runs as it is.
+    # global row index).
+    spare = el * cap
+    local_slot = torch.where(kept, slot - e0 * cap, spare)
     gathered = torch.gather(x, 1, src_tok[..., None].expand(-1, -1, d))
-    gathered = gathered * keep[..., None].to(dt)
-    spare = e * cap
+    gathered = gathered * kept[..., None].to(dt)
     buf = x.new_zeros((b, spare + 1, d), dtype=dt).scatter_(
-        1, torch.where(keep, slot, spare)[..., None].expand(-1, -1, d),
-        gathered)
-    overflow = keep.new_zeros((b, spare + 1)).scatter_(
-        1, torch.where(keep, spare, slot), True)
+        1, local_slot[..., None].expand(-1, -1, d), gathered)
+    overflow = kept.new_zeros((b, spare + 1)).scatter_(
+        1, torch.where(mine & ~keep, slot - e0 * cap, spare), True)
     buf = buf[:, :spare].masked_fill(overflow[:, :spare, None], 0)
-    buf = shard(buf.reshape(b, e, cap, d), "batch", "expert", None, None)
+    buf = buf.reshape(b, el, cap, d)
 
     # Expert FFN: three grouped GEMMs, SwiGLU in between.
-    h = ops.expert_ffn(buf, p["wi"].to(dt))
-    g = ops.expert_ffn(buf, p["wg"].to(dt))
-    y = shard(ops.expert_ffn(F.silu(g) * h, p["wo"].to(dt)), "batch",
-              "expert", None, None)
-    y = ops.dense(y).reshape(b, spare, d)
+    h = ops.expert_ffn(buf, wi)
+    g = ops.expert_ffn(buf, wg)
+    y = ops.expert_ffn(F.silu(g) * h, wo).contiguous().reshape(b, spare, d)
 
     # Scatter back with the combine weights, in the activation dtype.
-    w_sorted = torch.gather(w_flat, 1, order)
-    contrib = torch.gather(y, 1, slot[..., None].expand(-1, -1, d))
-    contrib = contrib * (w_sorted * keep)[..., None].to(dt)
+    w_sorted = torch.gather(topw.reshape(b, s * k), 1, order)
+    contrib = torch.gather(
+        y, 1, torch.where(kept, local_slot, 0)[..., None].expand(-1, -1, d))
+    contrib = contrib * (w_sorted * kept)[..., None].to(dt)
     out = x.new_zeros((b, s, d), dtype=dt)
-    out = out.scatter_add(1, src_tok[..., None].expand(-1, -1, d), contrib)
-    out = shard(out, "batch", None, "embed")
-    if cfg.n_shared_experts > 0:
-        out = out + mlp_apply(cfg, p["shared"], x)
-    return out
+    return out.scatter_add(1, src_tok[..., None].expand(-1, -1, d), contrib)
 
 
 def _top_k(scores, k: int):

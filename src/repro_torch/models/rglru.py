@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import shard
+from ..distributed.sharding import is_dtensor, local_by_axes, shard
 from .config import ModelConfig
 from .layers import adtype, gelu
 from .params import ParamInfo
@@ -59,8 +59,13 @@ def rglru_cache_defs(cfg: ModelConfig, batch: int) -> dict:
 def _gates(p, u):
     """The decay ``a`` and input ``b`` of each step, f32."""
     dt = u.dtype
-    r = torch.sigmoid((u @ p["w_r"].to(dt)).float())
-    i = torch.sigmoid((u @ p["w_i"].to(dt)).float())
+    # Under a mesh the gates' products take whole rows of ``u`` (gathered
+    # over the lru dim) and give lru-sharded gates, so that the scan runs
+    # on each device's channels; else DTensor scatters their partial sums
+    # over the sequence and the scan runs whole on every device.
+    whole = shard(u, "batch", None, None)
+    r = torch.sigmoid((whole @ p["w_r"].to(dt)).float())
+    i = torch.sigmoid((whole @ p["w_i"].to(dt)).float())
     log_a = -_C * F.softplus(p["lam"].float()) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
@@ -71,6 +76,14 @@ def _gates(p, u):
 def _conv_full(p, u):
     """Causal temporal conv over [B,S,W] with kernel [CW,W], in u's
     dtype."""
+    if is_dtensor(u):
+        # Each device convolves its own rows and channels: torch 2.11's
+        # DTensor pads on a 1-D mesh only (its ``constant_pad_nd``
+        # strategy).
+        seq = ("batch", None, "lru")
+        return local_by_axes(lambda k, v: _conv_full({"conv": k}, v),
+                             (p["conv"], u), [("conv", "lru"), seq],
+                             [(seq, u.shape)])
     cw, s = p["conv"].shape[0], u.shape[1]
     pad = F.pad(u, (0, 0, cw - 1, 0))
     k = p["conv"].to(u.dtype)

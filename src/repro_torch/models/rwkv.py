@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from ..distributed.sharding import is_dtensor, local_by_axes, shard
 from ..kernels import ops
 from .config import ModelConfig
-from .layers import adtype
+from .layers import adtype, rows_matmul
 from .params import ParamInfo
 
 _LORA = 64
@@ -76,6 +76,11 @@ def _shift(x, prev=None):
     """x_{t-1} along the sequence; ``prev`` fills t = 0 (decode carries
     it), zeros without one."""
     if prev is None:
+        if is_dtensor(x):
+            # Each device shifts its own rows: torch 2.11's DTensor pads on
+            # a 1-D mesh only (its ``constant_pad_nd`` strategy).
+            rows = ("batch", None, None)
+            return local_by_axes(_shift, (x,), [rows], [(rows, x.shape)])
         return F.pad(x, (0, 0, 1, 0))[:, :-1]
     return torch.cat([prev[:, None, :], x[:, :-1]], dim=1)
 
@@ -154,8 +159,15 @@ def rwkv_channel_mix(cfg: ModelConfig, p, x, *,
     xs = _shift(x, None if cache is None else cache["x_ffn"])
     mu = p["mu_c"].to(dt)
     xk, xr = _mix(x, xs, mu[0]), _mix(x, xs, mu[1])
-    r = torch.sigmoid(xr @ p["wr_c"].to(dt))
+    r = torch.sigmoid(rows_matmul(xr, p["wr_c"].to(dt)))
     k = shard(torch.square(torch.relu(xk @ p["wk_c"].to(dt))), "batch", None,
               "mlp")
-    y = shard(r * (k @ p["wv_c"].to(dt)), "batch", None, "embed")
+    # The product's partial sums over the mesh's mlp shards are reduced
+    # before the gate (no-op without a mesh): DTensor's backward through a
+    # gate on a partial sum scatters its gradient over batch and sequence
+    # at once, which the gate's own matrix product cannot take.
+    # The gated output keeps the receptance's rows (its sequence slice
+    # under a mesh: the residual stream's layout).
+    kv = shard(k @ p["wv_c"].to(dt), "batch", None, "embed")
+    y = shard(r * kv, "batch", "seq", "embed")
     return y if cache is None else (y, {"x_ffn": x[:, -1]})

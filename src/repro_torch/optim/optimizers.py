@@ -17,6 +17,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..distributed.sharding import is_dtensor
 from ..models.params import tree_items, tree_map
 
 
@@ -104,6 +105,22 @@ def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8,
 # Adafactor (factored second moment; memory ~ O(n+m) per matrix)
 # ---------------------------------------------------------------------------
 
+def _laid_as(x, like):
+    """``x`` (broadcast against ``like``) as it is without a mesh; under
+    one, sharded as ``like`` on every dim where it is full size, so that
+    their product runs on each device's shard (DTensor would broadcast a
+    replicated factor whole: Adafactor's row-by-column product at a leaf's
+    full size on every device)."""
+    if not is_dtensor(like):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    off = like.dim() - x.dim()
+    return x.redistribute(x.device_mesh, [
+        Shard(p.dim - off) if p.is_shard() and p.dim >= off
+        and x.shape[p.dim - off] == like.shape[p.dim] else Replicate()
+        for p in like.placements])
+
+
 def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_threshold=1.0,
               weight_decay=0.0) -> Optimizer:
     """Adafactor: a leaf of two or more dims keeps f32 row and column means
@@ -136,7 +153,8 @@ def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_threshold=1.0,
                 s["vr"].mul_(beta).add_((1 - beta) * g2.mean(-1))
                 s["vc"].mul_(beta).add_((1 - beta) * g2.mean(-2))
                 rfac = (s["vr"] / s["vr"].mean(-1, keepdim=True))[..., None]
-                u = g32 * torch.rsqrt(rfac * s["vc"][..., None, :] + eps)
+                u = g32 * torch.rsqrt(_laid_as(rfac, g32) * _laid_as(
+                    s["vc"][..., None, :], g32) + eps)
             else:
                 s["v"].mul_(beta).add_((1 - beta) * g2)
                 u = g32 * torch.rsqrt(s["v"] + eps)

@@ -5,9 +5,10 @@ The fake group is process-wide state, so each cell runs in a subprocess
 (as ``tests/test_dryrun.py`` runs the reference's), with a 300 s limit:
 qwen2-0.5b ``decode_32k`` on both meshes, the reference test's cell, with
 its fields (``chips``, positive roofline terms, a known ``dominant``) and
-an H100's 80 GiB in place of 16.  Its argument bytes a device equal the
-bytes the reference's specs give on ``AbstractMesh`` (computed here from
-``param_pspec``, no compile).  The dry run's tables equal the reference's
+an H100's 80 GiB in place of 16, and the largest storages at its peak
+and the largest implicitly replicated tensor recorded.  Its argument bytes
+a device equal the bytes the reference's specs give on ``AbstractMesh``
+(computed here from ``param_pspec``, no compile).  The dry run's tables equal the reference's
 by value (read in a subprocess: importing ``repro.launch.dryrun`` forces
 jax's device count).
 """
@@ -62,6 +63,21 @@ def test_dryrun_single_cell(cells, mesh):
     assert r["compute_s"] > 0 and r["memory_s"] > 0
     assert r["dominant"] in ("compute", "memory", "collective")
     assert res["rule_overrides"] == {"kv_seq": "model"}
+
+
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+def test_peak_tensors_and_implicit_replication_recorded(cells, mesh):
+    """The largest storages live at the peak, largest first, none above
+    the peak, each with the op that made it; the largest plain tensor that
+    met a DTensor op is small (RoPE's angles, not a model tensor)."""
+    res = cells[mesh]
+    top = res["peak_tensors"]
+    sizes = [t["bytes"] for t in top]
+    assert len(top) == dryrun.PEAK_TENSORS and sizes == sorted(sizes,
+                                                              reverse=True)
+    assert sum(sizes) <= res["memory"]["peak_bytes_per_device"]
+    assert all(t["op"] and t["local_shape"] for t in top)
+    assert 0 < res["implicit_replication"]["max_bytes"] < 2**20
 
 
 @pytest.mark.parametrize("mesh", ["single", "multi"])
