@@ -248,7 +248,8 @@ Phases; any failure exits non-zero before the last line is printed:
     and the capped rows' times (``SOFTCAP_TIMED``: qwen2's and gemma3's
     train shapes and qwen2's decode shape) beside the same call uncapped,
     the plain version and ``flex_attention`` with a capping
-    ``score_mod``, compiled.  Then gemma3-1b at full width with
+    ``score_mod``, compiled (the backward's as its forward and backward
+    less its forward).  Then gemma3-1b at full width with
     ``logit_softcap`` ``SOFTCAP`` (Gemma 2's): phase 12's (b) parity at
     its cut (bf16 by the bf16 rule), the train launcher's loop for 3
     steps and 8 requests served over 4 slots, every bf16 launch on
@@ -257,12 +258,22 @@ Phases; any failure exits non-zero before the last line is printed:
     --seq-shard``: the same losses as without the flags (qwen2-0.5b
     smoke, 3 steps); ``--mesh production`` fails with the reference's
     assertion.
-16. The dry run (``repro_torch.launch.dryrun``) of qwen2-0.5b
-    ``decode_32k`` on both meshes, llama3.2-1b ``train_4k`` and
-    mixtral-8x7b ``train_4k`` on the single-pod mesh, each on a fake
-    256- or 512-rank process group in a subprocess of its own, the three
-    in parallel beside phases 7-10, read after phase 10: each must print
-    "all cells OK".
+16. The dry run (``repro_torch.launch.dryrun``) of ``DRYRUN_CELLS``,
+    each on a fake 256- or 512-rank process group in a subprocess of its
+    own, all in parallel beside phases 7-10, read after phase 10: each
+    must print "all cells OK", and each cell of ``DRYRUN_REFERENCE`` is
+    held to the reference's own dry run (peak, FLOPs; the
+    context-parallel cells' collective bytes, ``DRYRUN_REFERENCE_COLL``).
+17. Context-parallel decode: in phase 2 ``flash_attention_lse`` (decode
+    writing each row's LSE, its keys split over blocks, the combine
+    writing the merged row statistics) at ``SPLIT_LSE``'s shard shapes
+    against ``flash_reference_lse`` (rows past the shard's keys: zeros
+    and -inf, no NaN; bits repeat), timed in phase 5 beside the unsplit
+    call, ``simt``, the plain version and the efficient attention call
+    with its LSE; then ``CP_CACHES``, whole full-width decode caches cut
+    into 16 shards, each through the kernel, merged by log-sum-exp, the
+    launch counts zeroed just before and read just after, against the
+    unsplit kernel call and the plain version.
 
 Phase 4 also holds layer 0 alone in bf16 (attention output, MLP or MoE
 output), kernel against plain on the same inputs, to the kernels' own
@@ -277,7 +288,8 @@ launches, times, bound and SDPA's time, at head dim 256 under
 self-attention launches) and at phase 13's under
 ``vision_musicgen_shapes``, each with its ``simt`` time as
 ``previous_ms``; the grouped GEMM's rows at phase 11's shapes, and its
-backward's), the card line, and ``{"ok": true, "device": {...}}`` as the
+backward's; ``flash_attention_lse`` with phase 17's launches), the card
+line, and ``{"ok": true, "device": {...}}`` as the
 last line.
 """
 from __future__ import annotations
@@ -564,11 +576,56 @@ SOFTCAP_CASES = {  # name -> (b, hq, hkv, sq, skv, d, causal, window)
 # loop).
 SOFTCAP_TIMED = {"gemma3-1b global": FLASH_D256["gemma3-1b global"]}
 SOFTCAP_DECODE = "gemma3-1b global decode"
+# Context-parallel decode: each device attends its own shard of a
+# sequence-sharded KV cache with each row's LSE (``flash_attention_lse``:
+# the keys split over blocks as any decode call's, the combine writing the
+# merged row statistics), and the shards merge by log-sum-exp
+# (``ops.merge_attention``).  Phase 2 holds the kernel at qwen2-0.5b's
+# local shard of its decode_32k cache (8 of the 128 slots on a data shard,
+# 2048 of 32768 rows on a model shard; two slots whose position lies
+# before this shard: kv_len 0) and gemma3-1b's global shard at long_500k
+# (D 256), on ``wgmma`` with split keys, at 64 slots (128 blocks: no
+# split), at mixtral-8x7b's local shard at long_500k (D 128: its ring of
+# 4096 rows over 256 devices leaves each 16 keys, one tile, no split; a
+# device past the slot's position sees none) and in f32 on ``simt``;
+# phase 5 times the first.
+SPLIT_LSE = {
+    "qwen2-0.5b shard": dict(b=8, hq=14, hkv=2, sq=1, skv=2048, d=64,
+                             kv_len=(0, 1, 700, 2048, 0, 1500, 64, 2047)),
+    "gemma3-1b shard": dict(b=4, hq=4, hkv=1, sq=1, skv=2048, d=256,
+                            kv_len=(0, 1, 1000, 2048)),
+    "qwen2-0.5b shard unsplit": dict(b=64, hq=14, hkv=2, sq=1, skv=2048,
+                                     d=64, kv_len=(0, 1, 700, 2048) * 16),
+    "mixtral-8x7b shard unsplit": dict(b=1, hq=32, hkv=8, sq=1, skv=16,
+                                       d=128, kv_len=(16,)),
+    "mixtral-8x7b empty shard unsplit": dict(b=1, hq=32, hkv=8, sq=1,
+                                             skv=16, d=128, kv_len=(0,))}
+SPLIT_LSE_TIMED = "qwen2-0.5b shard"
+# Phase 17: whole decode caches at full width cut into the 16 shards of
+# decode_32k's model dim, each through the kernel, merged, against the
+# unsplit kernel call and the plain version: qwen2-0.5b's 8 slots x 32768
+# rows (slots at positions that leave up to 15 shards empty), gemma3-1b's
+# long_500k caches of one slot at position 299999: its global layers'
+# 524288 rows (shards 10-15 empty) and its local layers' full ring of 512.
+CP_SHARDS = 16
+CP_CACHES = {
+    "qwen2-0.5b decode_32k": dict(
+        b=8, hq=14, hkv=2, sq=1, skv=32768, d=64,
+        kv_len=(1, 2048, 5000, 16384, 20001, 30000, 32768, 777)),
+    "gemma3-1b long_500k global": dict(b=1, hq=4, hkv=1, sq=1, skv=524288,
+                                       d=256, kv_len=(300000,)),
+    "gemma3-1b long_500k local": dict(b=1, hq=4, hkv=1, sq=1, skv=512,
+                                      d=256, kv_len=(512,))}
 # Phase 16: dry-run cells, each in a subprocess of its own, one of each
 # group of cells that once failed on the card's torch or outgrew the
 # reference: rwkv6's and recurrentgemma's pads, the MoE's local shards, the
-# MoE's and vision's memory.
+# MoE's and vision's memory, and the context-parallel cells (a
+# sequence-sharded cache; mixtral's long_500k rows replicated over FSDP's
+# dims).
 DRYRUN_CELLS = (("qwen2-0.5b", "decode_32k", "both"),
+                ("llama3.2-1b", "decode_32k", "single"),
+                ("gemma3-1b", "long_500k", "single"),
+                ("mixtral-8x7b", "long_500k", "single"),
                 ("llama3.2-1b", "train_4k", "single"),
                 ("mixtral-8x7b", "train_4k", "single"),
                 ("rwkv6-1.6b", "train_4k", "single"),
@@ -589,7 +646,18 @@ DRYRUN_REFERENCE = {  # (arch, shape): (peak bytes, FLOPs)
     ("recurrentgemma-2b", "prefill_32k"): (6186151152, 202790093621792.0),
     ("mixtral-8x7b", "decode_32k"): (2651876076, 381451930226.0),
     ("deepseek-v3-671b", "decode_32k"): (24419606124, 5699662805738.0),
-    ("llama-3.2-vision-11b", "train_4k"): (14432328268, 421061556782779.0)}
+    ("llama-3.2-vision-11b", "train_4k"): (14432328268, 421061556782779.0),
+    ("qwen2-0.5b", "decode_32k"): (1050907036, 9348430077.0),
+    ("llama3.2-1b", "decode_32k"): (2460531732, 17410757622.0),
+    ("gemma3-1b", "long_500k"): (571441928, 717560727.0),
+    ("mixtral-8x7b", "long_500k"): (1223682504, 3768335853.0)}
+# The reference's collective bytes a device (its HLO collectives' result
+# bytes) on the context-parallel cells, which phase 16 holds within 4x.
+DRYRUN_REFERENCE_COLL = {
+    ("qwen2-0.5b", "decode_32k"): 1427456.0,
+    ("llama3.2-1b", "decode_32k"): 5473280.0,
+    ("gemma3-1b", "long_500k"): 231872.0,
+    ("mixtral-8x7b", "long_500k"): 221153476.0}
 # qwen2-0.5b training (phases 5, 6): full width, batch 4 x 2048.
 QWEN_BATCH, QWEN_SEQ = 4, 2048
 QWEN_PARITY_LAYERS = 2
@@ -852,10 +920,12 @@ def bound(nbytes, flops, dtype_name):
                                        else "operations")
 
 
-def attention_bound_ms(shape, causal, itemsize, dtype_name, window=0):
+def attention_bound_ms(shape, causal, itemsize, dtype_name, window=0,
+                       lse=False):
     """Least time for the attention function on this input: each input read
-    once and the output written once, over the memory rate; q.k and p.v
-    FLOPs of the visible (query, key) pairs only, over the peak rate."""
+    once and the output written once (with ``lse``, each row's f32 LSE
+    too), over the memory rate; q.k and p.v FLOPs of the visible (query,
+    key) pairs only, over the peak rate."""
     b, hq, hkv, sq, skv, d = (shape[k] for k in
                               ("b", "hq", "hkv", "sq", "skv", "d"))
     lens = shape["kv_len"] or (skv,) * b
@@ -864,7 +934,7 @@ def attention_bound_ms(shape, causal, itemsize, dtype_name, window=0):
         pairs += visible_pairs(1, sq, n, window) if causal else sq * n
     kv_rows = sum(lens)       # only the keys below kv_len are needed
     nbytes = (2 * b * hq * sq * d + 2 * kv_rows * hkv * d) * itemsize \
-        + (4 * b if shape["kv_len"] else 0)
+        + (4 * b if shape["kv_len"] else 0) + (4 * b * hq * sq if lse else 0)
     return bound(nbytes, 4 * hq * d * pairs, dtype_name)
 
 
@@ -1064,10 +1134,12 @@ def require_wgmma_backward(counts, what) -> None:
 
 def _wrappers():
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_bwd)
+                                                     flash_attention_bwd,
+                                                     flash_attention_lse)
     from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_bwd
     from repro_torch.kernels.rwkv6_chunk import rwkv6_bwd, rwkv6_fwd
     return {"flash_attention": flash_attention,
+            "flash_attention_lse": flash_attention_lse,
             "flash_attention_bwd": flash_attention_bwd, "moe_gemm": moe_gemm,
             "moe_gemm_bwd": moe_gemm_bwd, "rwkv6_fwd": rwkv6_fwd,
             "rwkv6_bwd": rwkv6_bwd}
@@ -4488,11 +4560,14 @@ def softcap_checks(torch, gen) -> dict:
     return errs
 
 
-def _flex(torch, q, k, v, causal, window, kv_len):
+def _flex(torch, q, k, v, causal, window, kv_len, do=None):
     """``flex_attention`` with the soft cap ``SOFTCAP`` as its
     ``score_mod`` and the flash kernels' mask as its block mask, compiled:
-    the one library call for the capped function (SDPA has no cap).  A
-    callable, or None (printed) where it does not compile."""
+    the one library call for the capped function (SDPA has no cap).  With
+    ``do``, the call also runs its backward against ``do`` (the compiled
+    backward kernel: the library's time of the capped backward is this
+    call's less the forward's).  A callable, or None (printed) where it
+    does not compile."""
     try:
         from torch.nn.attention.flex_attention import (create_block_mask,
                                                        flex_attention)
@@ -4515,10 +4590,17 @@ def _flex(torch, q, k, v, causal, window, kv_len):
             mask, B=None if kv_len is None else q.shape[0], H=None,
             Q_LEN=sq, KV_LEN=skv, device="cuda")
         fn = torch.compile(flex_attention)
+        if do is not None:
+            q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
 
         def call():
-            return fn(q, k, v, score_mod=cap, block_mask=block,
-                      enable_gqa=True)
+            out = fn(q, k, v, score_mod=cap, block_mask=block,
+                     enable_gqa=True)
+            if do is None:
+                return out
+            for t in (q, k, v):
+                t.grad = None
+            out.backward(do)
 
         call()
         torch.cuda.synchronize()
@@ -4533,7 +4615,8 @@ def softcap_times(torch, card, gen) -> dict:
     the forward with the LSE and the backward, at ``SOFTCAP_DECODE`` the
     decode forward, each capped at ``SOFTCAP`` beside the same call
     uncapped (the rows ``PERF.md`` measured before the cap), the plain
-    version and ``flex_attention`` compiled (forward only: its backward
+    version and ``flex_attention`` compiled: its forward, and its
+    backward as its forward and backward less its forward (the backward
     is no one call)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -4546,6 +4629,7 @@ def softcap_times(torch, card, gen) -> dict:
         do = torch.randn(q.shape, generator=g, device="cuda").to(
             torch.bfloat16)
         flex = _flex(torch, q, k, v, causal, window, None)
+        flex_bwd = _flex(torch, q, k, v, causal, window, None, do=do)
         label = f"soft cap {SOFTCAP}, {what} {list(case)} bf16"
         fwd = time_row(torch, (
             ("ms", lambda: fa._forward(q, k, v, causal, window, None, True,
@@ -4568,13 +4652,16 @@ def softcap_times(torch, card, gen) -> dict:
                 q, k, v, out0, lse0, do, causal=causal, window=window)),
             ("plain_ms", lambda: ref.flash_backward_reference(
                 q, k, v, out, lse, do, causal=causal, window=window,
-                softcap=SOFTCAP))), 10,
+                softcap=SOFTCAP)),
+            *((("library_fwd_bwd_ms", flex_bwd),) if flex_bwd else ())), 10,
             flash_bwd_bound_ms(case, 2), f"flash_attention_bwd, {label}",
             card)
         fwd.setdefault("library_ms", None)
-        bwd["library_ms"] = None
+        both = bwd.get("library_fwd_bwd_ms")
+        bwd["library_ms"] = (both - fwd["library_ms"] if both is not None
+                             and fwd["library_ms"] is not None else None)
         rows[what] = {"fwd": fwd, "bwd": bwd}
-        del q, k, v, do, out, lse, out0, lse0, flex
+        del q, k, v, do, out, lse, out0, lse0, flex, flex_bwd
         gc.collect()
         torch.cuda.empty_cache()
     shape = D256_DECODE[SOFTCAP_DECODE]
@@ -4656,6 +4743,209 @@ def launcher_mesh_phase(torch, card) -> dict:
     return {"losses": meshed.losses}
 
 
+# -- 17: context-parallel decode ---------------------------------------------
+
+def split_lse_checks(torch, gen) -> dict:
+    """Phase 2 for ``flash_attention_lse`` (a decode call whose LSE goes
+    to a merge) at ``SPLIT_LSE``'s shapes, uncapped and capped at
+    ``SOFTCAP_CHECK``, f32 (``simt``) and bf16 (``wgmma``, the keys split
+    over blocks but at 64 slots): out against ``flash_reference_lse``
+    within ``TOL`` and the LSE within ``LSE_TOL`` on the rows that see a
+    key; a row that sees none gives zeros and an LSE of -inf (no NaN
+    anywhere); a second call's bits equal.  Returns the bf16 uncapped max
+    abs errors by name."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    print("phase 2: flash_attention_lse (decode with each row's LSE, for a "
+          "merge) against flash_reference_lse")
+    errs = {}
+    for dtype_name, dtype in (("float32", torch.float32),
+                              ("bfloat16", torch.bfloat16)):
+        for what, shape in SPLIT_LSE.items():
+            dims = [shape[n] for n in ("b", "hq", "hkv", "sq", "skv", "d")]
+            p = fa.plan(*dims, dtype, save_lse=True, for_merge=True)
+            split = dtype == torch.bfloat16 and "unsplit" not in what
+            require(p["variant"] == ("wgmma" if dtype == torch.bfloat16
+                                     else "simt")
+                    and (p["kv_splits"] > 1) == split,
+                    f"{what} {dtype_name} planned {p}")
+            for cap in (0.0, SOFTCAP_CHECK):
+                q, k, v, kv_len = inputs(torch, shape, dtype, own_gen(
+                    torch, f"split lse {what}", gen, (f"split lse {what}",)))
+                before = dict(fa.flash_attention_lse.variant_launches)
+                out, lse = fa.flash_attention_lse(q, k, v, kv_len=kv_len,
+                                                  softcap=cap)
+                out2, lse2 = fa.flash_attention_lse(q, k, v, kv_len=kv_len,
+                                                    softcap=cap)
+                torch.cuda.synchronize()
+                ran = ran_variant({v_: n - before[v_] for v_, n in
+                                   fa.flash_attention_lse
+                                   .variant_launches.items()})
+                same = bool(torch.equal(out, out2) and torch.equal(lse, lse2))
+                want_out, want_lse = ref.flash_reference_lse(
+                    q, k, v, kv_len=kv_len, softcap=cap)
+                seen = kv_len > 0
+                out_err = (out[seen].float() - want_out[seen].float()).abs() \
+                    .max().item() if seen.any() else 0.0
+                lse_err = (lse[seen] - want_lse[seen]).abs().max().item() \
+                    if seen.any() else 0.0
+                empty_ok = bool((out[~seen] == 0).all()
+                                and torch.isneginf(lse[~seen]).all()
+                                and torch.isfinite(out).all()
+                                and not torch.isnan(lse).any())
+                ok = (ran == p["variant"] and same and empty_ok
+                      and out_err <= TOL[dtype_name] and lse_err <= LSE_TOL)
+                print(f"  {dtype_name} {what} {list(dims)} kv_len "
+                      f"{shape['kv_len'][:8]} cap {cap} [{ran}, "
+                      f"{p['kv_splits']} splits]: out max_abs_err="
+                      f"{out_err!r} (tol {TOL[dtype_name]}), lse max|d|="
+                      f"{lse_err!r} (tol {LSE_TOL}), empty rows 0 and -inf, "
+                      f"no NaN: {empty_ok}, second call same bits: {same} "
+                      f"{'ok' if ok else 'FAIL'}")
+                require(ok, f"flash_attention_lse against plain: "
+                        f"{dtype_name} {what} cap {cap}")
+                if dtype == torch.bfloat16 and not cap:
+                    errs[what] = out_err
+                del q, k, v, kv_len, out, lse, out2, lse2, want_out, want_lse
+    return errs
+
+
+def split_lse_times(torch, card, gen) -> dict:
+    """Phase 5 for ``flash_attention_lse`` at ``SPLIT_LSE_TIMED`` (bf16):
+    the kernel (``wgmma``, split keys), the same call saving its LSE for a
+    backward (which never splits: ``unsplit_ms``), forced onto ``simt``,
+    the plain version and one PyTorch call that returns the same pair,
+    ``aten._scaled_dot_product_efficient_attention`` with
+    ``compute_log_sumexp`` (no GQA: k and v repeated to the query heads
+    beforehand; ``kv_len`` as an additive -inf bias), beside the bound
+    (q, the visible K/V rows, out and the LSE once)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    shape = SPLIT_LSE[SPLIT_LSE_TIMED]
+    q, k, v, kv_len = inputs(torch, shape, torch.bfloat16, own_gen(
+        torch, "split lse times", gen, ("split lse times",)))
+    g = shape["hq"] // shape["hkv"]
+    kx, vx = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+    bias = torch.where(
+        torch.arange(shape["skv"], device="cuda")[None, :] < kv_len[:, None],
+        0.0, -math.inf).to(torch.bfloat16)[:, None, None, :].expand(
+        -1, shape["hq"], 1, -1).contiguous()
+
+    def library():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            q, kx, vx, bias, True)
+
+    try:
+        library()
+        torch.cuda.synchronize()
+        lib = (("library_ms", library),)
+    except Exception as e:            # the yardstick only, never the port
+        print(f"  the efficient attention call failed here: {e!r}"[:400])
+        lib = ()
+    kw = dict(kv_len=kv_len)
+    row = time_row(torch, (
+        ("ms", lambda: fa.flash_attention_lse(q, k, v, **kw)),
+        ("unsplit_ms", lambda: fa._forward(q, k, v, True, 0, kv_len, True)),
+        ("simt_ms", lambda: fa.flash_attention_lse(q, k, v, **kw)),
+        ("plain_ms", lambda: ref.flash_reference_lse(q, k, v, **kw)),
+        *lib), 200, attention_bound_ms(shape, True, 2, "bfloat16", lse=True),
+        f"flash_attention_lse, {SPLIT_LSE_TIMED} {shape} bf16, wgmma with "
+        f"split keys", card)
+    row.setdefault("library_ms", None)
+    return row
+
+
+def split_kv_phase(torch, card, gen) -> dict:
+    """Phase 17: context-parallel decode at full width on one card.  Each
+    cache of ``CP_CACHES`` (bf16, in the model's [B,L,KV,D] layout) is cut
+    into ``CP_SHARDS`` shards along its sequence; each shard goes through
+    ``ops.attention_lse`` with the ``kv_len`` a device of the mesh gives it
+    (``ops.shard_kv_len``), and ``ops.merge_attention`` merges them: the
+    functions ``ops.split_kv_attention`` runs on each device and over the
+    mesh.  The launch counts are zeroed just before and read just after:
+    ``CP_SHARDS`` launches of ``flash_attention_lse`` a cache, on
+    ``wgmma``, and no other.  The merged output is held against the
+    unsplit kernel call (``ops.attention``) and the plain version row by
+    row, each (slot, head) within ``TOL`` of its own max|plain| (a slot
+    that sees 300000 keys has values near 1e-2, so an absolute ``TOL``
+    could not fail there), the merged LSE against ``flash_reference_lse``'s
+    within ``LSE_TOL``.  The check is shown able to fail: the same merge
+    with shard 0's output zeroed (its LSE kept) must exceed ``TOL`` of the
+    row max on some row."""
+    from repro_torch.kernels import ops, ref
+    rows = {}
+    for what, shape in CP_CACHES.items():
+        q, k, v, kv_len = inputs(torch, shape, torch.bfloat16, own_gen(
+            torch, f"cp {what}", gen, (f"cp {what}",)))
+        qm, km, vm = (t.transpose(1, 2) for t in (q, k, v))
+        n = shape["skv"] // CP_SHARDS
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        parts = [ops.attention_lse(qm, km[:, r * n:(r + 1) * n],
+                                   vm[:, r * n:(r + 1) * n],
+                                   kv_len=ops.shard_kv_len(kv_len, r, n))
+                 for r in range(CP_SHARDS)]
+        out, lse = ops.merge_attention(torch.stack([o for o, _ in parts]),
+                                       torch.stack([l_ for _, l_ in parts]))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches, variants = read_launches(), read_variants()
+        whole = ops.attention(qm, km, vm, kv_len=kv_len)
+        plain, plain_lse = ref.flash_reference_lse(q, k, v, kv_len=kv_len)
+        plain = plain.transpose(1, 2).float()
+        scale = plain.abs().amax(-1).clamp(min=1e-30)
+
+        def of_row_max(got, want):
+            """max over (slot, head) rows of max|got - want| / max|plain|"""
+            return ((got.float() - want.float()).abs().amax(-1)
+                    / scale).max().item()
+
+        err_whole = (out.float() - whole.float()).abs().max().item()
+        err_plain = (out.float() - plain).abs().max().item()
+        ratio_whole, ratio_plain = of_row_max(out, whole), of_row_max(out,
+                                                                      plain)
+        lse_err = (lse - plain_lse.transpose(1, 2)).abs().max().item()
+        zeroed = torch.stack([o for o, _ in parts])
+        zeroed[0] = 0
+        ratio_zeroed = of_row_max(ops.merge_attention(
+            zeroed, torch.stack([l_ for _, l_ in parts]))[0], plain)
+        empty = int(sum(bool((ops.shard_kv_len(kv_len, r, n) == 0).any())
+                        for r in range(CP_SHARDS)))
+        ok = (launches["flash_attention_lse"] == CP_SHARDS
+              and sum(launches.values()) == CP_SHARDS
+              and variants["flash_attention_lse"]["simt"] == 0
+              and bool(torch.isfinite(out).all())
+              and ratio_whole <= TOL["bfloat16"]
+              and ratio_plain <= TOL["bfloat16"] and lse_err <= LSE_TOL
+              and ratio_zeroed > TOL["bfloat16"])
+        dims = [shape[n_] for n_ in ("b", "hq", "hkv", "sq", "skv", "d")]
+        print(f"phase 17: {what} {dims} bf16 in {CP_SHARDS} shards of {n} "
+              f"rows ({empty} with a slot that sees none of its keys): "
+              f"launches {launches}, per variant {variants['flash_attention_lse']}, wall "
+              f"{wall_ms!r} ms; merged vs the unsplit kernel call "
+              f"max_abs_err={err_whole!r} ({ratio_whole!r} of its row's "
+              f"max|plain|), vs plain {err_plain!r} ({ratio_plain!r} of the "
+              f"row's max; tol {TOL['bfloat16']} of the row's max), LSE vs "
+              f"plain {lse_err!r} (tol {LSE_TOL}); with shard 0's output "
+              f"zeroed {ratio_zeroed!r} of the row's max (must exceed the "
+              f"tol) {'ok' if ok else 'FAIL'} [{card}]")
+        require(ok, f"17: {what} split-KV decode")
+        rows[what] = {"shards": CP_SHARDS, "empty_shards": empty,
+                      "launches": launches["flash_attention_lse"],
+                      "variants": variants["flash_attention_lse"],
+                      "err_vs_unsplit": err_whole, "err_vs_plain": err_plain,
+                      "ratio_vs_unsplit": ratio_whole,
+                      "ratio_vs_plain": ratio_plain,
+                      "ratio_shard0_zeroed": ratio_zeroed,
+                      "lse_err": lse_err, "wall_ms": wall_ms}
+        del q, k, v, kv_len, qm, km, vm, parts, out, lse, whole, plain, \
+            zeroed
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 def start_dryrun() -> tuple:
     """Phase 16's cells, each a subprocess (the fake process group is
     process-wide), output to files in a temporary directory."""
@@ -4717,6 +5007,13 @@ def finish_dryrun(started, card) -> dict:
                     require(flops <= 1.5 * ref[1], f"16: {arch} {shape} "
                             f"FLOPs {flops} against the reference's "
                             f"{ref[1]}")
+                coll = DRYRUN_REFERENCE_COLL.get((arch, shape))
+                if coll is not None and m == "single":
+                    got = res["collectives"]["total_bytes"]
+                    print(f"  {arch} {shape}: collectives {got / 1e6:.3f} MB "
+                          f"a device (reference {coll / 1e6:.3f})")
+                    require(got <= 4 * coll, f"16: {arch} {shape} collective "
+                            f"bytes {got} against the reference's {coll}")
                 rows[f"{arch} {shape} {m}"] = {
                     "chips": res["chips"], "trace_s": res["compile_s"],
                     "memory": res["memory"], "flops": res["cost"]["flops"],
@@ -4811,6 +5108,8 @@ def main() -> int:
         **flash_decode_times(torch, card, gen, NEW_DECODE)}
     softcap_err = softcap_checks(torch, gen)
     softcap_times_ = softcap_times(torch, card, gen)
+    split_lse_err = split_lse_checks(torch, gen)
+    split_lse_row = split_lse_times(torch, card, gen)
 
     print("phase 2: moe_gemm against moe_gemm_reference")
     gemm_errs = {}
@@ -4940,6 +5239,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launcher_mesh = launcher_mesh_phase(torch, card)
+    # -- 17. context-parallel decode: a cache in 16 shards, merged -----------
+    split_kv = split_kv_phase(torch, card, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
     # Phase 16's cells trace on the host's other cores beside phases 7-10
     # (their host clocks vary more than that already; PERF.md §6).
     dry = start_dryrun()
@@ -4997,7 +5300,8 @@ def main() -> int:
     print(json.dumps({"gemma": gemma}, allow_nan=False))
     print(json.dumps({"vision_musicgen": new_models}, allow_nan=False))
     print(json.dumps({"softcap": softcap, "launcher_mesh": launcher_mesh,
-                      "dryrun": dryrun_rows}, allow_nan=False))
+                      "dryrun": dryrun_rows, "split_kv": split_kv},
+                     allow_nan=False))
 
     def flash_row(direction, row, shape, extra, launches, err):
         """One flash row at head dim 128 or 256: shape, launches, error
@@ -5218,7 +5522,26 @@ def main() -> int:
         "shapes": gemm_shape_rows({
             "mixtral train": mix["launches"]["moe_gemm_bwd"],
             "deepseek train": deepseek["train_launches"]["moe_gemm_bwd"]},
-            bwd=True)}] + [{
+            bwd=True)}, {
+        "name": "flash_attention_lse", "route": "cuda",
+        "variant": ran_variant({v_: sum(r["variants"][v_]
+                                        for r in split_kv.values())
+                                for v_ in ("simt", "wgmma")}),
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:97",
+        "note": ("the forward kernel's decode writing each row's LSE, its "
+                 "keys split over blocks (the combine writes the merged "
+                 "row statistics): one call a shard of a sequence-sharded "
+                 "KV cache, merged by ops.merge_attention; the reference "
+                 "lets XLA partition _sdpa over the sharded keys"),
+        "shape": [SPLIT_LSE[SPLIT_LSE_TIMED][n] for n in (
+            "b", "hq", "hkv", "sq", "skv", "d")],
+        "kv_len": list(SPLIT_LSE[SPLIT_LSE_TIMED]["kv_len"]),
+        "launches": sum(r["launches"] for r in split_kv.values()),
+        "max_abs_err": split_lse_err[SPLIT_LSE_TIMED],
+        **{k_: split_lse_row[k_] for k_ in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "unsplit_ms", "simt_ms")}}] + [{
         "name": name, "route": "cuda", "variant": row["variant"],
         "source": "src/repro_torch/kernels/csrc/rwkv6_chunked.cu",
         "replaces": "src/repro/kernels/rwkv6_chunk.py:81",

@@ -10,9 +10,12 @@ they come in otherwise.
 
 - flash forward and backward: replicated, or sharded alike over the batch
   (dim 0) or over the heads (dim 1) of q, k, v (and o, lse, dO), which
-  keeps each query head with its kv head.  There is no strategy for keys
-  split over devices (that needs an LSE-weighted combine, not a sum), so a
-  sharded KV sequence is gathered first.
+  keeps each query head with its kv head.  Keys split over devices take
+  no strategy here, since their outputs merge by their LSE, not by a sum:
+  a decode step over a sequence-sharded KV cache runs
+  ``kernels/ops.py::split_kv_attention``, where each device's flash call
+  gets its own keys as plain local tensors (``local_map``) and the shards'
+  outputs merge by log-sum-exp in DTensor ops (``merge_attention``).
 
 The grouped GEMM and WKV6 take no DTensor: under a mesh the MoE layer and
 the RWKV6 recurrence run on each device's shards (``local_map``), where
@@ -46,10 +49,10 @@ def register() -> None:
     R = Replicate()
 
     @register_sharding(ops.flash_fwd.default)
-    def _(q, k, v, kv_len, causal, window, softcap, save_lse):
+    def _(q, k, v, kv_len, causal, window, softcap, save_lse, for_merge):
         def case(p):
             kv = None if kv_len is None else (R if p == Shard(1) else p)
-            return [p, p], [p, p, p, kv, None, None, None, None]
+            return [p, p], [p, p, p, kv] + [None] * 5
         return [case(p) for p in (R, Shard(0), Shard(1))]
 
     @register_sharding(ops.flash_bwd.default)

@@ -179,6 +179,17 @@ def local_shape(shape: tuple, spec: Spec, mesh) -> tuple:
     return tuple(out)
 
 
+def mesh_index(mesh, dims) -> int:
+    """This device's index over the mesh dims ``dims`` (names), major
+    first: its shard of a tensor dim laid out over them."""
+    names = list(mesh.mesh_dim_names)
+    i = 0
+    for m in dims:
+        at = names.index(m)
+        i = i * mesh.size(at) + mesh.get_local_rank(at)
+    return i
+
+
 def is_dtensor(x) -> bool:
     """Whether ``x`` is a DTensor (the dry run's state; never on the card's
     one-device path, where no DTensor is made, nor before

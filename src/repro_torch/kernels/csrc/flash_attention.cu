@@ -19,8 +19,12 @@
 // per-slot decode needs.  A query row with no visible key writes zeros.
 // When the caller passes `lse` (f32 [B, Hq, Sq]), each row also writes the
 // natural log-sum-exp of its scaled logits, m + log(l), which the backward
-// kernels (flash_attention_bwd.cu) recompute the probabilities from; such a
-// call never splits the key range.
+// kernels (flash_attention_bwd.cu) recompute the probabilities from, or
+// which a split-KV decode over a sequence-sharded cache merges its shards'
+// outputs by (kernels/ops.py::merge_attention).  A row with no visible key
+// writes an LSE of -inf (and zeros), so that a merge weighs it 0.  A call
+// for the backward never splits the key range; a decode call may, and then
+// the combining block writes the merged row statistics.
 // The rows that share one (batch, kv head) are ordered (query position,
 // head within the group), so a decode step (Sq = 1) puts a whole GQA group
 // in one block and reads its K/V once, not once per query head.  Tiles that
@@ -330,7 +334,7 @@ struct FlashArgs {
   const __nv_bfloat16* q;
   const int* kv_len;          // may be null
   __nv_bfloat16* out;
-  float* lse;                 // [B, Hq, Sq] (splits == 1), may be null
+  float* lse;                 // [B, Hq, Sq], may be null
   float* part_o;              // split partials (splits > 1), else null
   float* part_ml;
   int* tickets;
@@ -682,9 +686,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
       }
     }
     const int row = row0 + r;
-    a.out[((static_cast<size_t>(b) * a.Hq + kvh * group + row % group) *
-               a.Sq + row / group) * a.D + col] =
-        __float2bfloat16(num / fmaxf(den, 1e-20f));
+    const size_t at_row = (static_cast<size_t>(b) * a.Hq + kvh * group +
+                           row % group) * a.Sq + row / group;
+    a.out[at_row * a.D + col] = __float2bfloat16(num / fmaxf(den, 1e-20f));
+    // The merged row statistics, in natural log: -inf where no split saw a
+    // key (mm = -inf, den = 0), never NaN.
+    if (a.lse && col == 0)
+      a.lse[at_row] = mm * static_cast<float>(LN2) + logf(fmaxf(den, 1e-20f));
   }
   if (threadIdx.x == 0) *ticket = 0;  // ready for the next launch
 }
@@ -722,7 +730,7 @@ cudaError_t launch_wgmma(const FlashArgs& args, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  kv_len and lse (f32 [B*Hq*Sq], the
-// rows' log-sum-exp, only with splits = 1) may be NULL.  variant: 0 =
+// rows' log-sum-exp; with splits > 1 the combine's) may be NULL.  variant: 0 =
 // simt; 1 = wgmma (bf16, D in {32, 64, 128, 256}, 16-byte-aligned
 // q/k/v/out) with `block_q` query rows a block (64; at D 256 also 128, two
 // consumer warpgroups; row_tiles = ceil(Hq / Hkv * Sq / block_q)) and the
@@ -742,7 +750,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                         float* part_ml, int* tickets, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0 || Hq % Hkv ||
       D <= 0 || D % 8 || D > MAX_D || window < 0 || B * Hkv > 65535 ||
-      (lse && splits != 1) || !(softcap >= 0.f))
+      !(softcap >= 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == 1) {

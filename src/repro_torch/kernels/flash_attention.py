@@ -17,6 +17,9 @@ and saves q, k, v, the output and the LSE; its backward launches
 has no backward kernel, it differentiates its attention through XLA), whose
 variant and tiles :func:`plan_backward` chooses.  ``.launches`` counts each
 wrapper's kernel launches, ``.variant_launches`` those of each variant.
+:func:`flash_attention_lse` is the forward with each row's log-sum-exp and
+no autograd, which a split-KV decode merges (``ops.split_kv_attention``);
+its launches count on it alone.
 Each launch is a dispatcher op (``repro_torch::flash_fwd``, ``::flash_bwd``)
 with a fake implementation, so that fake tensors and DTensors (the dry
 run, ``launch/dryrun.py``) reach the entry points the card runs.
@@ -31,7 +34,8 @@ import torch
 
 from . import _build
 from .ref import (BLOCKED_ATTN_THRESHOLD, flash_backward_reference,
-                  flash_reference, flash_reference_blocked)
+                  flash_reference, flash_reference_blocked,
+                  flash_reference_lse)
 
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -67,7 +71,7 @@ _TICKETS: dict = {}
 
 def plan(b: int, hq: int, hkv: int, sq: int, skv: int, d: int,
          dtype: torch.dtype, aligned: bool = True,
-         save_lse: bool = False) -> dict:
+         save_lse: bool = False, for_merge: bool = False) -> dict:
     """The kernel variant, tiles and kv splits for one call, from its shape.
 
     bf16 with D in (32, 64, 128, 256) and 16-byte-aligned bases goes to
@@ -82,7 +86,9 @@ def plan(b: int, hq: int, hkv: int, sq: int, skv: int, d: int,
     up to ``MAX_SPLITS`` blocks.  The rest (f32, whose products the tensor
     cores would round to TF32, other head dims, longer query ranges) goes to
     ``simt``: 8 rows a block, 32-key tiles.  A call that saves the LSE for
-    the backward (``save_lse``) never splits.
+    the backward (``save_lse``) never splits; one whose LSE goes to a merge
+    (``for_merge``: a decode call with no gradient) splits as any other,
+    and the combine writes the merged row statistics.
     """
     rows = (hq // hkv) * sq
     block_q = 128 if d == 256 and rows > 64 else 64
@@ -92,7 +98,8 @@ def plan(b: int, hq: int, hkv: int, sq: int, skv: int, d: int,
         blocks = b * hkv * row_tiles
         kv_tiles = -(-skv // 64)
         splits = 1
-        if 4 * blocks <= SMS and kv_tiles > 1 and not save_lse:
+        if 4 * blocks <= SMS and kv_tiles > 1 and (for_merge
+                                                   or not save_lse):
             splits = min(kv_tiles, SMS // blocks, MAX_SPLITS)
         return {"variant": "wgmma", "block_q": block_q, "block_kv": 64,
                 "row_tiles": row_tiles, "kv_splits": splits}
@@ -266,9 +273,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap=softcap)[0]
 
 
-def _forward(q, k, v, causal, window, kv_len, save_lse, softcap=0.0):
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        kv_len: Optional[torch.Tensor] = None,
+                        softcap: float = 0.0):
+    """:func:`flash_attention`'s output and each row's log-sum-exp of its
+    scaled (and capped) logits, f32 ``[B, Hq, Sq]``, with no autograd: what
+    a split-KV decode merges, one call a shard of the keys
+    (``ops.merge_attention``).  On the card the forward kernel, its keys
+    split over blocks as any decode call's (the combine writes the merged
+    row statistics); a row that sees no key gives zeros and an LSE of
+    -inf.  On the CPU ``ref.flash_reference_lse``, where such a row gives
+    mean(V) and an LSE of -1e30 + log(Skv): either weighs 0 in a merge
+    beside a shard that sees a key."""
+    softcap = float(softcap)
+    _check(q, k, v, kv_len, causal, window, softcap)
+    tensors = (q, k, v) if kv_len is None else (q, k, v, kv_len)
+    if _build.plain(tensors):
+        return flash_reference_lse(q, k, v, causal=causal, window=window,
+                                   kv_len=kv_len, softcap=softcap)
+    with torch.no_grad():
+        return _forward(q, k, v, causal, window, kv_len, save_lse=True,
+                        softcap=softcap, for_merge=True)
+
+
+def _forward(q, k, v, causal, window, kv_len, save_lse, softcap=0.0,
+             for_merge=False):
     """Launch the forward kernel; returns ``(out, lse)`` (lse None unless
-    ``save_lse``)."""
+    ``save_lse``; ``for_merge``: see :func:`plan`)."""
     tensors = (q, k, v) if kv_len is None else (q, k, v, kv_len)
     if not _build.sharded(q) and (any(t.device != q.device for t in tensors)
                                   or q.device.type != "cuda"):
@@ -277,25 +309,28 @@ def _forward(q, k, v, causal, window, kv_len, save_lse, softcap=0.0):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the kernel takes contiguous q/k/v/kv_len")
     out, lse = torch.ops.repro_torch.flash_fwd(q, k, v, kv_len, causal,
-                                               window, softcap, save_lse)
+                                               window, softcap, save_lse,
+                                               for_merge)
     return out, (lse if save_lse else None)
 
 
 @torch.library.custom_op("repro_torch::flash_fwd", mutates_args=())
 def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 kv_len: Optional[torch.Tensor], causal: bool, window: int,
-                softcap: float, save_lse: bool
+                softcap: float, save_lse: bool, for_merge: bool
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward launch, as a dispatcher op so that fake tensors (the
     dry run's) and DTensors reach it: ``(out, lse)``, lse empty unless
-    ``save_lse``."""
+    ``save_lse``; a ``for_merge`` launch counts on
+    :func:`flash_attention_lse`."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     out = torch.empty_like(q)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
            if save_lse else None)
     p = plan(b, hq, hkv, sq, skv, d, q.dtype, aligned=all(
-        t.data_ptr() % 16 == 0 for t in (q, k, v, out)), save_lse=save_lse)
+        t.data_ptr() % 16 == 0 for t in (q, k, v, out)), save_lse=save_lse,
+        for_merge=for_merge)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scratch = [None, None, None]
     if p["kv_splits"] > 1:
@@ -318,13 +353,14 @@ def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(window), VARIANTS[p["variant"]], p["kv_splits"],
             p["block_q"], softcap, *scratch, stream)
     _build.check(lib, err, f"flash_attention launch ({p['variant']})")
-    flash_attention.launches += 1
-    flash_attention.variant_launches[p["variant"]] += 1
+    counted = flash_attention_lse if for_merge else flash_attention
+    counted.launches += 1
+    counted.variant_launches[p["variant"]] += 1
     return out, lse if save_lse else out.new_empty(0, dtype=torch.float32)
 
 
 @_launch_fwd.register_fake
-def _(q, k, v, kv_len, causal, window, softcap, save_lse):
+def _(q, k, v, kv_len, causal, window, softcap, save_lse, for_merge):
     return (torch.empty_like(q), q.new_empty(
         q.shape[:3] if save_lse else (0,), dtype=torch.float32))
 
@@ -425,5 +461,7 @@ class _Flash(torch.autograd.Function):
 
 flash_attention.launches = 0
 flash_attention.variant_launches = dict.fromkeys(VARIANTS, 0)
+flash_attention_lse.launches = 0
+flash_attention_lse.variant_launches = dict.fromkeys(VARIANTS, 0)
 flash_attention_bwd.launches = 0
 flash_attention_bwd.variant_launches = dict.fromkeys(BWD_VARIANTS, 0)

@@ -219,6 +219,19 @@ def write_rows(cache, at, new, keep=None):
     return torch.where(hit, new[:, None].to(cache.dtype), cache)
 
 
+def _like_cache(new, cache):
+    """A step's new rows ``new`` [B,1,KV,D] laid out as the DTensor
+    ``cache`` [B,L,KV,D] is, replicated over the mesh dims its sequence is
+    split on, so that :func:`write_rows` selects rows where the cache lies
+    and moves none of it: where the rows split the kv heads and the cache
+    does not (musicgen's 32 on the model dim, which the cache's sequence
+    takes), DTensor would redistribute the whole cache to the rows'
+    layout."""
+    from torch.distributed.tensor import Replicate
+    return new.redistribute(cache.device_mesh, [
+        Replicate() if p.is_shard(1) else p for p in cache.placements])
+
+
 def attention_apply(cfg: ModelConfig, p, x, *, positions, window: int = 0,
                     cache: Optional[dict] = None, kv_x=None):
     """Causal self-attention; ``window`` > 0 limits each query to the last
@@ -274,8 +287,8 @@ def attention_apply(cfg: ModelConfig, p, x, *, positions, window: int = 0,
             else:
                 at = slot_pos.clamp(max=length - 1)
                 keep = None if pos.dim() == 0 else slot_pos < length
-            k_all = write_rows(k_all, at, k[:, 0], keep)
-            v_all = write_rows(v_all, at, v[:, 0], keep)
+            k_all = write_rows(k_all, at, _like_cache(k, k_all)[:, 0], keep)
+            v_all = write_rows(v_all, at, _like_cache(v, v_all)[:, 0], keep)
         elif window > 0:
             if length > window:
                 raise ValueError(f"a windowed cache is a ring of at most "
@@ -305,7 +318,14 @@ def attention_apply(cfg: ModelConfig, p, x, *, positions, window: int = 0,
         # window).  Softmax does not depend on the order of the keys, so
         # the ring needs no window inside the kernel.
         kv_len = (slot_pos + 1).clamp(max=length).to(torch.int32)
-        out = ops.attention(q, k_all, v_all, kv_len=kv_len, softcap=cap)
+        # A sequence-sharded cache (context parallelism): each device
+        # attends its own rows, merged by log-sum-exp.
+        out = ops.split_kv_attention(q, k_all, v_all, kv_len=kv_len,
+                                     softcap=cap)
+        if out is None:
+            out = ops.attention(q, k_all, v_all, kv_len=kv_len, softcap=cap)
+        else:
+            out = shard(out, "batch", None, "heads", None)
         new_cache = {"k": k_all, "v": v_all, "pos": pos + 1}
 
     y = _out_proj(out, p["wo"].to(adtype(cfg)))

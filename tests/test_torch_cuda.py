@@ -1145,3 +1145,65 @@ def test_softcap_model_on_card_matches_cpu(cuda):
     loss, _ = loss_and_grads(cfg, params, {"tokens": toks})
     loss_c, _ = loss_and_grads(cfg, on_card, {"tokens": toks.to(cuda)})
     torch.testing.assert_close(loss_c.cpu(), loss, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,skv,d,lens,softcap", [
+    # qwen2-0.5b's local shard of its decode_32k cache: split keys, slots
+    # past the shard (kv_len 0)
+    (8, 14, 2, 2048, 64, (0, 1, 700, 2048, 0, 1500, 64, 2047), 0.0),
+    # gemma3-1b's global shard, D 256, capped
+    (4, 4, 1, 2048, 256, (0, 1, 1000, 2048), 0.5),
+    # 64 slots: 128 blocks, no split
+    (64, 14, 2, 512, 64, (0, 1, 300, 512) * 16, 0.0),
+])
+def test_lse_decode_matches_plain_and_empty_rows_are_finite(
+        cuda, b, hq, hkv, skv, d, lens, softcap, dtype):
+    """``flash_attention_lse`` (a decode call whose LSE a split-KV merge
+    reads; its launches count on it alone): out and LSE as
+    ``flash_reference_lse``'s on the rows that see a key (LSE within
+    1e-4); a row that sees none gives zeros and -inf, no NaN; a second
+    call's bits equal."""
+    q, k, v = _qkv(b, hq, hkv, 1, skv, d, dtype, cuda)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = (fa.flash_attention.launches, fa.flash_attention_lse.launches)
+    out, lse = fa.flash_attention_lse(q, k, v, kv_len=kv_len,
+                                      softcap=softcap)
+    again = fa.flash_attention_lse(q, k, v, kv_len=kv_len, softcap=softcap)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches,
+            fa.flash_attention_lse.launches) == (before[0], before[1] + 2)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    want, want_lse = ref.flash_reference_lse(q, k, v, kv_len=kv_len,
+                                             softcap=softcap)
+    seen = kv_len > 0
+    np.testing.assert_allclose(out[seen].float().cpu().numpy(),
+                               want[seen].float().cpu().numpy(), **TOL[dtype])
+    np.testing.assert_allclose(lse[seen].cpu().numpy(),
+                               want_lse[seen].cpu().numpy(), rtol=0,
+                               atol=1e-4)
+    assert (out[~seen] == 0).all() and torch.isneginf(lse[~seen]).all()
+    assert torch.isfinite(out).all() and not torch.isnan(lse).any()
+
+
+def test_split_kv_merge_on_card_matches_the_whole_call(cuda):
+    """qwen2-0.5b's decode cache at 4096 rows cut into 8 shards, each
+    through the kernel and merged (``ops.merge_attention``), against the
+    unsplit kernel call, bf16."""
+    from repro_torch.kernels import ops
+    q, k, v = _qkv(8, 14, 2, 1, 4096, 64, torch.bfloat16, cuda)
+    kv_len = torch.tensor((1, 600, 1500, 2048, 3000, 4096, 100, 2500),
+                          dtype=torch.int32, device=cuda)
+    qm, km, vm = (t.transpose(1, 2) for t in (q, k, v))
+    n = 512
+    parts = [ops.attention_lse(qm, km[:, r * n:(r + 1) * n],
+                               vm[:, r * n:(r + 1) * n],
+                               kv_len=ops.shard_kv_len(kv_len, r, n))
+             for r in range(8)]
+    out, _ = ops.merge_attention(torch.stack([o for o, _ in parts]),
+                                 torch.stack([l_ for _, l_ in parts]))
+    whole = ops.attention(qm, km, vm, kv_len=kv_len)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               whole.float().cpu().numpy(),
+                               **TOL[torch.bfloat16])

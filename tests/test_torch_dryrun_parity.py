@@ -1,15 +1,18 @@
 """The port's dry run held to the reference's own dry run on the CPU.
 
 Each side runs in a subprocess, as ``tests/test_dryrun.py`` runs the
-reference: the reference compiles five cheap single-pod cells (XLA's CPU
+reference: the reference compiles nine cheap single-pod cells (XLA's CPU
 backend, 256 forced host devices), the port traces them on its fake
 256-rank process group (``--device cpu``).  The two run side by side.  For
 each cell the port's peak a device is at most twice the reference's (XLA's
 buffer assignment, arguments + temp) and under an H100's 80 GiB, and its
 FLOPs a device at most 1.5 times the reference's (loop-weighted, from the
-compiled HLO).  llama3.2-1b ``train_4k`` counts at most 0.6 of its
-single-pod FLOPs a device on the multi-pod mesh, which has twice the
-devices.
+compiled HLO).  On the four context-parallel cells (``decode_32k`` and
+``long_500k``, whose KV cache's sequence is sharded) its collective bytes
+a device are at most 4 times the reference's (its HLO's collectives'
+result bytes), and each device's flash call reads only its own keys.
+llama3.2-1b ``train_4k`` counts at most 0.6 of its single-pod FLOPs a
+device on the multi-pod mesh, which has twice the devices.
 
 Two faults that torch 2.11's DTensor raised on the card's host are held on
 smoke configs and a (2, 2) fake mesh, by what their repair guarantees
@@ -33,9 +36,14 @@ pytest.importorskip("torch")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GIB = 2**30
 
+# The cells whose KV cache's sequence is sharded over the mesh (each
+# device attends its own keys, merged by log-sum-exp) and whose MoE rows
+# are replicated over FSDP's dims (mixtral ``long_500k``).
+CONTEXT = [("qwen2-0.5b", "decode_32k"), ("llama3.2-1b", "decode_32k"),
+           ("gemma3-1b", "long_500k"), ("mixtral-8x7b", "long_500k")]
 CELLS = [("mixtral-8x7b", "prefill_32k"), ("mixtral-8x7b", "decode_32k"),
          ("deepseek-v3-671b", "decode_32k"), ("llama3.2-1b", "prefill_32k"),
-         ("llama-3.2-vision-11b", "prefill_32k")]
+         ("llama-3.2-vision-11b", "prefill_32k")] + CONTEXT
 TRAIN = ("llama3.2-1b", "train_4k")
 
 REFERENCE = """
@@ -46,18 +54,34 @@ out = {}
 for arch, shape in json.loads(sys.argv[1]):
     r = d.build_cell(arch, shape, make_production_mesh(multi_pod=False))
     out[arch + " " + shape] = [r["memory"]["peak_bytes_per_device"],
-                               r["cost"]["flops"]]
+                               r["cost"]["flops"],
+                               r["collectives"]["total_bytes"]]
 print(json.dumps(out))
 """
 
 PORT = """
 import json, sys
+from torch.distributed.tensor import DTensor
 from repro_torch.launch import dryrun as d
+keys = []
+base = d._Counts.__torch_dispatch__
+
+
+def record(self, func, types, args=(), kwargs=None):
+    if func._opname == "flash_fwd" and not d._PROPAGATING and not any(
+            issubclass(t, DTensor) for t in types):
+        keys.append(args[1].shape[2])
+    return base(self, func, types, args, kwargs)
+
+
+d._Counts.__torch_dispatch__ = record
 out = {}
 for arch, shape, multi in json.loads(sys.argv[1]):
+    keys.clear()
     r = d.run_cell(arch, shape, multi)
     out[arch + " " + shape + (" multi" if multi else "")] = [
-        r["memory"]["peak_bytes_per_device"], r["cost"]["flops"]]
+        r["memory"]["peak_bytes_per_device"], r["cost"]["flops"],
+        r["collectives"]["total_bytes"], max(keys, default=0)]
 print(json.dumps(out))
 """
 
@@ -167,6 +191,33 @@ def test_flops_within_one_and_a_half_the_reference(runs, arch, shape):
     ref, port = runs
     flops, want = port[f"{arch} {shape}"][1], ref[f"{arch} {shape}"][1]
     assert flops <= 1.5 * want, (flops / 1e12, want / 1e12)
+
+
+@pytest.mark.parametrize("arch,shape", CONTEXT)
+def test_collective_bytes_within_four_times_the_reference(runs, arch,
+                                                          shape):
+    """The sharded cache is not gathered: each device moves at most 4x the
+    bytes the reference's partitioner moves (a few MB; the gathered cache
+    was 10^3-10^6 times them)."""
+    ref, port = runs
+    got, want = port[f"{arch} {shape}"][2], ref[f"{arch} {shape}"][2]
+    assert got <= 4 * want, (got / 1e6, want / 1e6)
+
+
+# The most keys a device's flash call may read: its shard of the longest
+# cache, 32768 rows over the model dim's 16 (decode_32k), 524288 (gemma3's
+# global layers) or mixtral's ring of 4096 over all 256 devices
+# (long_500k).
+LOCAL_KEYS = {"qwen2-0.5b decode_32k": 2048, "llama3.2-1b decode_32k": 2048,
+              "gemma3-1b long_500k": 2048, "mixtral-8x7b long_500k": 16}
+
+
+@pytest.mark.parametrize("arch,shape", CONTEXT)
+def test_each_device_attends_only_its_keys(runs, arch, shape):
+    """No flash call reads a gathered cache: the longest key range any
+    device's call gets is its own shard of the cache."""
+    _, port = runs
+    assert port[f"{arch} {shape}"][3] == LOCAL_KEYS[f"{arch} {shape}"]
 
 
 def test_multi_pod_train_flops_fall(runs):

@@ -31,7 +31,8 @@ SPLIT_TOL = dict(rtol=2e-5, atol=2e-5)
 
 def split_reference(q, k, v, *, causal: bool = True, window: int = 0,
                     kv_len: Optional[torch.Tensor] = None, splits: int = 1,
-                    block_q: int = 64, block_kv: int = 64) -> torch.Tensor:
+                    block_q: int = 64, block_kv: int = 64,
+                    with_lse: bool = False):
     """The split-kv schedule of the ``wgmma`` flash kernel, in plain
     PyTorch: the function of ``ref.flash_reference``, computed as the
     kernel's blocks compute it.
@@ -44,6 +45,9 @@ def split_reference(q, k, v, *, causal: bool = True, window: int = 0,
     sees no key), the row sum ``l`` and the unnormalised output, and the
     combine weighs each chunk by ``exp(m - max m)``.  P is rounded to v's
     dtype before P.V, as the kernel and the Pallas kernel round it.
+    ``with_lse``: also each row's log-sum-exp as the combine writes it,
+    ``max m + log(sum of the weighted l)`` (-inf where no chunk saw a
+    key), f32 ``[B,Hq,Sq]``.
     """
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
@@ -51,6 +55,7 @@ def split_reference(q, k, v, *, causal: bool = True, window: int = 0,
     rows = g * sq
     scale = 1.0 / math.sqrt(d)
     out = torch.zeros(b, hkv, rows, d, dtype=torch.float32, device=q.device)
+    lse = torch.zeros(b, hkv, rows, dtype=torch.float32, device=q.device)
     for bi in range(b):
         length = skv if kv_len is None else min(max(int(kv_len[bi]), 0), skv)
         offs = length - sq
@@ -103,8 +108,12 @@ def split_reference(q, k, v, *, causal: bool = True, window: int = 0,
                           for w, (_, _, acc) in zip(wts, parts))
                 den = sum(w * l for w, (_, l, _) in zip(wts, parts))
                 out[bi, kh, r0:r1] = num / den.clamp_min(1e-20)[:, None]
+                lse[bi, kh, r0:r1] = top + torch.log(den.clamp_min(1e-20))
     out = out.reshape(b, hkv, sq, g, d).transpose(2, 3)
-    return out.reshape(b, hq, sq, d).to(q.dtype)
+    out = out.reshape(b, hq, sq, d).to(q.dtype)
+    if not with_lse:
+        return out
+    return out, lse.reshape(b, hkv, sq, g).transpose(2, 3).reshape(b, hq, sq)
 
 
 @pytest.mark.parametrize("shape,dtype,aligned,expect", [
@@ -278,6 +287,38 @@ def test_split_kv_chunk_with_no_key_has_no_nan():
     torch.testing.assert_close(out[0], v[0, :, :1].expand(2, 1, 16),
                                rtol=0, atol=0)
     assert (out[1] == 0).all()
+
+
+@pytest.mark.parametrize("shape,lens,splits", [
+    # qwen2-0.5b's local shard of a decode_32k cache: 8 slots, 2048 keys,
+    # some slots past this shard's first row (kv_len 0)
+    ((8, 14, 2, 1, 2048, 64), (0, 1, 700, 2048, 0, 1500, 64, 0), 8),
+    # gemma3-1b's global shard, D 256
+    ((2, 4, 1, 1, 2048, 256), (0, 1999), 8),
+    # mixtral-8x7b's local shard at long_500k (its 4096-row ring over 256
+    # devices: 16 keys, one tile, no split), full and past the slot
+    ((1, 32, 8, 1, 16, 128), (16,), 1),
+    ((1, 32, 8, 1, 16, 128), (0,), 1),
+])
+def test_split_kv_combine_writes_the_lse(shape, lens, splits):
+    """A merge call's plan (keys split as any decode call's, LSE written by
+    the combine; a call saving the LSE for the backward never splits) as
+    the card runs it: its LSE is ``flash_reference_lse``'s where a row sees
+    a key and -inf where it sees none (zeros out, never NaN)."""
+    p = fa.plan(*shape, BF16, save_lse=True, for_merge=True)
+    assert p["variant"] == "wgmma" and p["kv_splits"] == splits
+    assert fa.plan(*shape, BF16)["kv_splits"] == splits
+    assert fa.plan(*shape, BF16, save_lse=True)["kv_splits"] == 1
+    q, k, v = map(torch.from_numpy, _qkv(*shape, seed=10))
+    kv_len = torch.tensor(lens, dtype=torch.int32)
+    out, lse = split_reference(q, k, v, kv_len=kv_len,
+                               splits=p["kv_splits"], block_q=p["block_q"],
+                               block_kv=p["block_kv"], with_lse=True)
+    want, want_lse = ref.flash_reference_lse(q, k, v, kv_len=kv_len)
+    seen = kv_len > 0
+    torch.testing.assert_close(out[seen], want[seen], **SPLIT_TOL)
+    torch.testing.assert_close(lse[seen], want_lse[seen], **SPLIT_TOL)
+    assert torch.isneginf(lse[~seen]).all() and (out[~seen] == 0).all()
 
 
 def test_split_kv_main_path_plan_matches_one_block():

@@ -14,7 +14,18 @@ the same f32 inputs:
 - blocks that reach no flash call: mixtral's MoE with 3 experts (F split
   over the model dim), recurrentgemma's RG-LRU block (its conv and gates),
   and llama's projections with one kv head, repeated over the model dim
-  (against the plain projections' kv heads repeated).
+  (against the plain projections' kv heads repeated);
+- context-parallel decode, whose flash calls each device makes on plain
+  local tensors (so the plain version runs): a qwen2 smoke decode step
+  with the KV cache's sequence over ``model`` (``decode_32k``'s rule), a
+  llama one whose kv heads the model dim would split (the step's new rows
+  are laid out as the cache is, which is not moved), and a gemma3 smoke
+  one with the sequence over both dims and the rows replicated
+  (``long_500k``'s), per-slot positions that leave whole shards of a slot
+  empty, its ring caches wrapped: logits, and every attention layer on
+  the split path (``unsplit`` counts those that were not);
+- mixtral's MoE with ``long_500k``'s replicated rows and FSDP on (the
+  weights' ``d`` over ``data``, F over ``model``): values and gradients.
 
 Values within 1e-5 of their max, gradients within 5e-4 and Adafactor's
 update within 3e-3 (summation orders differ over the shards; the update
@@ -35,9 +46,11 @@ torch = pytest.importorskip("torch")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASES = ["deepseek-v3-671b", "rwkv6-1.6b", "mixtral-8x7b moe",
-         "recurrentgemma-2b rglru", "llama3.2-1b kv heads"]
+         "recurrentgemma-2b rglru", "llama3.2-1b kv heads",
+         "qwen2-0.5b decode kv_seq", "llama3.2-1b decode kv_seq",
+         "gemma3-1b decode kv_seq", "mixtral-8x7b moe fsdp"]
 TOL = {"logits": 1e-5, "loss": 1e-5, "out": 1e-5, "grads": 5e-4,
-       "update": 3e-3}
+       "update": 3e-3, "unsplit": 0}
 
 _SCRIPT = textwrap.dedent('''
     import json, sys
@@ -51,14 +64,15 @@ _SCRIPT = textwrap.dedent('''
         dist.init_process_group("gloo", rank=rank, world_size=4,
                                 init_method=f"tcp://localhost:{{port}}")
         from torch.distributed.device_mesh import init_device_mesh
-        from torch.distributed.tensor import distribute_tensor
+        from torch.distributed.tensor import Replicate, distribute_tensor
         from torch.distributed.tensor.experimental import (
             implicit_replication)
         from repro_torch import configs
         from repro_torch.distributed.sharding import (
             mesh_context, param_pspec, placements, pspec)
         from repro_torch.launch.steps import (
-            batch_shardings, batch_spec, loss_and_grads, state_shardings)
+            batch_shardings, batch_spec, cache_shardings, loss_and_grads,
+            state_shardings)
         from repro_torch.models import layers as L, model as M, moe as MOE
         from repro_torch.models.params import tree_items, tree_map
         from repro_torch.optim import adafactor
@@ -151,6 +165,61 @@ _SCRIPT = textwrap.dedent('''
                                          allow_unused=True)
             res[name] = {{"out": rel(got, want), "grads": max(
                 rel(a, b) for a, b in zip(gg, wg) if b is not None)}}
+
+        # mixtral's MoE with its rows replicated and FSDP on.
+        cfg = configs.get_smoke("mixtral-8x7b").replace(n_experts=3)
+        defs = MOE.moe_defs(cfg)
+        p = tree_map(lambda i: (torch.randn(i.shape, generator=gen(4))
+                                * 0.1).requires_grad_(), defs)
+        want = MOE.moe_apply(cfg, p, x)
+        wg = torch.autograd.grad((want * want).sum(), leaves(p))
+        with mesh_context(mesh, overrides={{"batch": None}}, fsdp=True), \\
+                implicit_replication():
+            dp = tree_map(lambda t: t.requires_grad_(), laid_out(p, defs))
+            dx = distribute_tensor(x, mesh, [Replicate()] * 2)
+            got = MOE.moe_apply(cfg, dp, dx)
+            gg = torch.autograd.grad((got * got).sum(), leaves(dp))
+        res["mixtral-8x7b moe fsdp"] = {{
+            "out": rel(got, want), "grads": max(map(rel, gg, wg))}}
+
+        # Decode over a KV cache whose sequence is sharded: 4 slots
+        # behind 32 rows, gemma3's local layers a ring of 8 (wrapped).
+        pos = torch.tensor([3, 17, 30, 9], dtype=torch.int32)
+        split, calls = L.ops.split_kv_attention, []
+
+        def counted(*a, **kw):
+            out = split(*a, **kw)
+            if out is not None:
+                calls.append(1)
+            return out
+
+        L.ops.split_kv_attention = counted
+        for name, arch, cp_rules in (
+                ("qwen2-0.5b decode kv_seq", "qwen2-0.5b",
+                 {{"kv_seq": "model"}}),
+                ("llama3.2-1b decode kv_seq", "llama3.2-1b",
+                 {{"kv_seq": "model"}}),
+                ("gemma3-1b decode kv_seq", "gemma3-1b",
+                 {{"batch": None, "kv_seq": ("data", "model")}})):
+            cfg = configs.get_smoke(arch)
+            params = M.init_params(cfg, gen(5))
+            cache = tree_map(lambda i: torch.randn(i.shape, generator=gen(6)),
+                             M.cache_defs(cfg, 4, 32))
+            tok = torch.randint(0, cfg.vocab, (4, 1), generator=gen(7))
+            want, _ = M.decode_step(cfg, params, tok,
+                                    tree_map(torch.clone, cache), pos)
+            with mesh_context(mesh, overrides=cp_rules), \\
+                    implicit_replication():
+                dp = laid_out(params, M.param_defs(cfg))
+                dc = tree_map(lambda t, pl: distribute_tensor(t, mesh, pl),
+                              cache, cache_shardings(cfg, mesh, 4, 32))
+                dtok = distribute_tensor(tok, mesh, placements(
+                    pspec("batch", None, mesh=mesh), mesh))
+                dpos = distribute_tensor(pos, mesh, [Replicate()] * 2)
+                calls.clear()
+                got, _ = M.decode_step(cfg, dp, dtok, dc, dpos)
+            res[name] = {{"logits": rel(got, want),
+                         "unsplit": cfg.n_layers - len(calls)}}
         if rank == 0:
             with open(out, "w") as f:
                 json.dump(res, f)
