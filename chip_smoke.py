@@ -122,7 +122,8 @@ Phases; any failure exits non-zero before the last line is printed:
    printed).  (a) The train launcher at its defaults (llama3.2-1b, remat
    dtr, AdamW) at full width: 16 layers, batch 4 x 2048, bf16 activations,
    3 steps through ``train_loop`` without a checkpoint manager; flash
-   launches 32 + 16 a step, all on ``wgmma``; the step's wall, device
+   launches 32 + 16 a step, all on ``wgmma``; the fused AdamW pass's two
+   a step, over every leaf, none per leaf; the step's wall, device
    busy, idle share, tokens/s and the flash kernels inside it;
    ``max_memory_allocated`` and the ``MemoryMonitor`` summary (the caching
    allocator's largest free block); one loss-and-grads call under remat
@@ -171,7 +172,8 @@ Phases; any failure exits non-zero before the last line is printed:
     leaf within 1e-3) and with bf16 activations (within the plain path's own
     bf16-against-f32 distance).  (b) 3 AdamW steps (f32 parameters, bf16
     activations): launches a step per variant (grouped GEMMs 3 + 6 a layer,
-    flash forward and its D 128 backward, all ``wgmma``), losses,
+    flash forward and its D 128 backward, all ``wgmma``; the fused AdamW
+    pass's two, over every leaf, none per leaf), losses,
     ``max_memory_allocated``; then one step's wall,
     device busy, idle share, tokens/s and the kernels' device time inside
     it; one loss-and-grads call at phase 3's 4 layers (finite gradients,
@@ -206,7 +208,8 @@ Phases; any failure exits non-zero before the last line is printed:
     (c) the train
     launcher's loop (remat dtr, AdamW, batch 2 x 2048, 3 steps) at full
     depth (recurrentgemma at 8 layers): flash launches per step by variant,
-    all ``wgmma``, finite losses, step wall, device busy, idle share,
+    all ``wgmma``, the fused AdamW pass's launches and leaves per step
+    (two, every leaf, none per leaf), finite losses, step wall, device busy, idle share,
     tokens/s and peak; (d) the full-depth model serves 8 requests over 4
     slots, 16 tokens each, every flash launch on ``wgmma``, and one decode
     step's wall and busy.
@@ -230,7 +233,8 @@ Phases; any failure exits non-zero before the last line is printed:
     vision at that cut trains 3 steps at batch 2 x 2048 through
     ``make_train_step`` (remat dtr, AdamW), musicgen whole (48 layers)
     through the train launcher's loop: flash launches per step by
-    variant, all ``wgmma`` (vision's also by mask, self and cross), finite
+    variant, all ``wgmma`` (vision's also by mask, self and cross), the
+    fused AdamW pass's as in phase 12's (c), finite
     losses, wall, busy, idle share,
     tokens/s, peak; (d) the whole model decodes 32 greedy steps for 4
     slots (vision against a [4,1601,7680] image): tokens, launches (every
@@ -274,6 +278,14 @@ Phases; any failure exits non-zero before the last line is printed:
     into 16 shards, each through the kernel, merged by log-sum-exp, the
     launch counts zeroed just before and read just after, against the
     unsplit kernel call and the plain version.
+18. The fused clip-and-AdamW pass (``csrc/fused_adamw.cu``) over
+    mixtral-8x7b-2l's 3.165 B f32 parameters: one pass bit for bit against
+    the per-leaf path (given the kernel's clip scale) on a sample of every
+    leaf, its norm within 1e-5 of ``clip_by_global_norm``'s and its
+    scale that function's formula of the norm bit for bit; its two
+    launches' times beside the bound (32 bytes a parameter), the
+    per-leaf path's wall and peak, and ``clip_grad_norm_`` with
+    ``torch.optim.AdamW(fused=True)`` as a yardstick.
 
 Phase 4 also holds layer 0 alone in bf16 (attention output, MLP or MoE
 output), kernel against plain on the same inputs, to the kernels' own
@@ -314,6 +326,8 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM, dense (NVIDIA's data sheet): memory rate and peak rates by type.
 MEM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
+# Phase 18: elements of each leaf held bit for bit to the per-leaf path.
+FUSED_SAMPLE = 4099
 ARCH = "qwen2-0.5b"
 MOE_ARCH = "mixtral-8x7b"
 # Full width; 4 layers hold 24.3 GB of f32 weights and a 12.1 GB bf16 copy.
@@ -1136,13 +1150,19 @@ def _wrappers():
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd,
                                                      flash_attention_lse)
+    from repro_torch.kernels.fused_adamw import fused_adamw
     from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_bwd
     from repro_torch.kernels.rwkv6_chunk import rwkv6_bwd, rwkv6_fwd
     return {"flash_attention": flash_attention,
             "flash_attention_lse": flash_attention_lse,
             "flash_attention_bwd": flash_attention_bwd, "moe_gemm": moe_gemm,
             "moe_gemm_bwd": moe_gemm_bwd, "rwkv6_fwd": rwkv6_fwd,
-            "rwkv6_bwd": rwkv6_bwd}
+            "rwkv6_bwd": rwkv6_bwd, "fused_adamw": fused_adamw}
+
+
+# The fused AdamW wrapper's counts beside its launches: leaves it updated,
+# AdamW leaves on the card that took the per-leaf path.
+LEAF_COUNTS = ("leaves", "fallback_leaves")
 
 
 def reset_launches():
@@ -1150,10 +1170,20 @@ def reset_launches():
         fn.launches = 0
         if hasattr(fn, "variant_launches"):
             fn.variant_launches = dict.fromkeys(fn.variant_launches, 0)
+        for count in LEAF_COUNTS:
+            if hasattr(fn, count):
+                setattr(fn, count, 0)
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Each wrapper's launches, and the fused AdamW pass's leaf counts as
+    ``fused_adamw.leaves`` and ``fused_adamw.fallback_leaves``."""
+    out = {}
+    for name, fn in _wrappers().items():
+        out[name] = fn.launches
+        out.update({f"{name}.{c}": getattr(fn, c) for c in LEAF_COUNTS
+                    if hasattr(fn, c)})
+    return out
 
 
 def read_variants() -> dict:
@@ -1177,6 +1207,20 @@ def counting_steps(per_step, hook=None):
         if hook is not None:
             hook(step)
     return on_step
+
+
+def require_fused_steps(per_step, params, what) -> list:
+    """Every step of an AdamW loop on the card took the fused pass whole:
+    two launches (the norm, the update), every leaf of ``params`` updated,
+    none sent to the per-leaf path.  Returns the counts a step."""
+    from repro_torch.models.params import tree_items
+    n_leaves = len(list(tree_items(params)))
+    counts = [(c["fused_adamw"], c["fused_adamw.leaves"],
+               c["fused_adamw.fallback_leaves"]) for c, _ in per_step]
+    require(counts and all(c == (2, n_leaves, 0) for c in counts),
+            f"{what}: fused AdamW (launches, leaves, fallback leaves) per "
+            f"step {counts}, want (2, {n_leaves}, 0)")
+    return counts
 
 
 def ran_variant(counts) -> str:
@@ -2627,6 +2671,7 @@ def launcher_phase(torch, card) -> dict:
     end = time.perf_counter()
     per_step.append((read_launches(), read_variants()))
     launches = check_flash_steps(per_step, cfg, 2, "phase 9a, train loop")
+    fused = require_fused_steps(per_step, params, "phase 9a, train loop")
     mem = res.memory
     walls = loop_walls_ms(stamps, end)
     print(f"phase 9a: {cfg.name} train loop: losses {res.losses}, grad "
@@ -2636,7 +2681,8 @@ def launcher_phase(torch, card) -> dict:
           f"({end - t0:.1f} s with set-up), flash launches per step "
           f"{[(c['flash_attention'], c['flash_attention_bwd']) for c, _ in per_step]}"
           f" per variant {[(v['flash_attention'], v['flash_attention_bwd']) for _, v in per_step]}"
-          f", max_memory_allocated {res.peak_bytes / 2**30:.3f} GiB; "
+          f", fused AdamW (launches, leaves, fallback leaves) per step "
+          f"{fused}, max_memory_allocated {res.peak_bytes / 2**30:.3f} GiB; "
           f"MemoryMonitor summary {mem} [{card}]")
     require(all(math.isfinite(x) for x in res.losses)
             and res.actions == ["ok"] * LLAMA_STEPS, "9a: finite steps")
@@ -3440,10 +3486,12 @@ def moe_train_phase(torch, card) -> dict:
     peak = torch.cuda.max_memory_allocated()
     for n, v in per_step:
         require_moe_step(n, v, cut, "bfloat16", "phase 11b")
+    fused = require_fused_steps(per_step, params, "phase 11b")
     print(f"phase 11b: {MOE_ARCH} ({cut.n_layers} layers) AdamW, bf16 "
           f"activations, f32 parameters, batch {MIX_BATCH}x{MIX_SEQ}: losses "
           f"{losses}, step ms {[round(t, 1) for t in walls]}, launches per "
-          f"step {[n for n, _ in per_step]}, per variant (last step) "
+          f"step {[n for n, _ in per_step]}, fused AdamW (launches, leaves, "
+          f"fallback leaves) per step {fused}, per variant (last step) "
           f"{per_step[-1][1]}, max_memory_allocated "
           f"{peak / 2**30:.3f} GiB [{card}]")
     require(all(math.isfinite(x) for x in losses), f"losses {losses}")
@@ -4215,6 +4263,7 @@ def launcher_train_phase(torch, card, arch, phase="12c",
                 and counts["flash_attention_bwd"] == bwd["wgmma"] == n_attn,
                 f"{phase} {arch}: flash launches per step {counts} "
                 f"{variants}")
+    fused = require_fused_steps(per_step, params, f"{phase} {arch}")
     require(all(math.isfinite(x) for x in res.losses)
             and res.actions == ["ok"] * GEMMA_STEPS,
             f"{phase} {arch} finite")
@@ -4244,7 +4293,8 @@ def launcher_train_phase(torch, card, arch, phase="12c",
           f"{row['tokens_per_s']!r} tokens/s; flash launches per step "
           f"(fwd, bwd) {[(c['flash_attention'], c['flash_attention_bwd']) for c, _ in per_step]}"
           f", per variant {[(v['flash_attention'], v['flash_attention_bwd']) for _, v in per_step]}"
-          f"; max_memory_allocated {peak / 2**30:.3f} GiB [{card}]")
+          f"; fused AdamW (launches, leaves, fallback leaves) per step "
+          f"{fused}; max_memory_allocated {peak / 2**30:.3f} GiB [{card}]")
     del params, res, one, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -4373,6 +4423,7 @@ def vision_train_phase(torch, card) -> dict:
         require(counts["flash_attention"] == fwd["wgmma"] == 2 * calls
                 and counts["flash_attention_bwd"] == bwd["wgmma"] == calls,
                 f"13a: flash launches per step {counts} {variants}")
+    fused = require_fused_steps(per_step, params, "13a train")
     mask = {kind: {d: by_mask[d, kind] for d in ("fwd", "bwd")}
             for kind in ("self", "cross")}
     require(mask["cross"] == {"fwd": 2 * n_cross * NEW_STEPS,
@@ -4405,7 +4456,8 @@ def vision_train_phase(torch, card) -> dict:
           f"tokens/s; flash launches per step (fwd, bwd) "
           f"{[(c['flash_attention'], c['flash_attention_bwd']) for c, _ in per_step]}"
           f", per variant {[(v['flash_attention'], v['flash_attention_bwd']) for _, v in per_step]}"
-          f", over the {NEW_STEPS} steps by mask {mask}; "
+          f", over the {NEW_STEPS} steps by mask {mask}; fused AdamW "
+          f"(launches, leaves, fallback leaves) per step {fused}; "
           f"max_memory_allocated {peak / 2**30:.3f} GiB [{card}]")
     del params, state, step_fn, batches
     gc.collect()
@@ -4946,6 +4998,151 @@ def split_kv_phase(torch, card, gen) -> dict:
     return rows
 
 
+def fused_adamw_phase(torch, card) -> dict:
+    """Phase 18: the fused clip-and-AdamW pass (``kernels/fused_adamw.py``)
+    over mixtral-8x7b-2l's leaves, the benchmark's configuration (3.165 B
+    f32 parameters, gradients of norm ~5.6, so the clip acts), at the
+    launcher's AdamW and schedule.  One pass held bit for bit to the
+    per-leaf path given the kernel's scale on a sample of every leaf (its
+    last ``FUSED_SAMPLE`` elements, and as many past its first 2 GiB where
+    it has them), its norm within 1e-5 of ``clip_by_global_norm``'s and
+    its scale, bit for bit, that function's formula of the norm; then
+    the time of each of its two launches (CUDA events) beside the bound (32
+    bytes a parameter), the per-leaf path's wall (clip, update, apply; the
+    gradients dropped once clipped, as the train step drops them) and, as a
+    yardstick only, ``clip_grad_norm_`` with ``torch.optim.AdamW(fused=
+    True)`` (decoupled weight decay: not the reference's function)."""
+    from repro_torch import configs
+    from repro_torch.kernels import fused_adamw as fa
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_items
+    from repro_torch.optim import (OptState, adamw, apply_updates,
+                                   clip_by_global_norm, cosine_schedule)
+    cfg = configs.get("mixtral-8x7b").replace(n_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    shapes = {k: i.shape for k, i in tree_items(M.param_defs(cfg))}
+    n = sum(math.prod(s) for s in shapes.values())
+
+    def draw(scale):
+        return {k: torch.randn(s, generator=gen, device="cuda") * scale
+                for k, s in shapes.items()}
+
+    def make_opt():
+        return adamw(lr=cosine_schedule(3e-4, warmup=20, total=10 ** 9))
+
+    params, grads = draw(0.02), draw(1e-4)
+    opt = make_opt()
+    state = opt.init(params)
+
+    # -- one pass against the per-leaf path on a sample of every leaf --------
+    def sample(t):
+        flat = t.view(-1)
+        far = 2 ** 29              # elements: 2 GiB into the leaf
+        parts = [flat[-FUSED_SAMPLE:]]
+        if flat.numel() > far + FUSED_SAMPLE:
+            parts.append(flat[far:far + FUSED_SAMPLE])
+        return torch.cat(parts)
+
+    before = {k: {"p": sample(params[k]), "g": sample(grads[k]),
+                  "m": sample(state.inner["m"][k]),
+                  "v": sample(state.inner["v"][k])} for k in shapes}
+    counts = (fa.fused_adamw.launches, fa.fused_adamw.leaves)
+    fused = opt.fused(grads, state, params)
+    require(fused is not None, "phase 18: the fused pass takes mixtral's "
+            "f32 leaves")
+    got = fused.norm(1.0)
+    norm = float(got)
+    ref_norm = float(clip_by_global_norm(grads, 1.0)[1])
+    # the scale is clip_by_global_norm's formula of the fused norm
+    scale_ok = torch.equal(fused.scale,
+                           torch.clamp(1.0 / (got + 1e-9), max=1.0))
+    state = fused.update()
+    torch.cuda.synchronize()
+    require(fa.fused_adamw.launches - counts[0] == 2
+            and fa.fused_adamw.leaves - counts[1] == len(shapes),
+            "phase 18: two launches over every leaf")
+    ref = make_opt()
+    p = {k: b["p"].clone() for k, b in before.items()}
+    updates, _ = ref.update(
+        {k: b["g"] * fused.scale for k, b in before.items()},
+        OptState(0, {"m": {k: b["m"] for k, b in before.items()},
+                     "v": {k: b["v"] for k, b in before.items()}}), p)
+    apply_updates(p, updates)
+    bad = [k for k in shapes if not (
+        torch.equal(sample(params[k]), p[k])
+        and torch.equal(sample(state.inner["m"][k]), before[k]["m"])
+        and torch.equal(sample(state.inner["v"][k]), before[k]["v"]))]
+    rel = abs(norm / ref_norm - 1)
+    print(f"phase 18: fused AdamW over {len(shapes)} leaves, {n} "
+          f"parameters: norm {norm!r} (per-leaf {ref_norm!r}, rel "
+          f"{rel!r}), scale {float(fused.scale)!r} (min(1, 1 / (norm + "
+          f"1e-9)) bit for bit: {scale_ok}), sampled p, m, v "
+          f"{'bit-equal' if not bad else 'DIFFER in ' + str(bad)}")
+    require(not bad and rel <= 1e-5 and scale_ok, "phase 18: fused pass "
+            "against the per-leaf path")
+    del before, p, updates
+
+    # -- times: CUDA events, not the profiler, which has come back empty in
+    # all three of its attempts at this point of a full run (after phases
+    # 15 and 17); each launch runs for milliseconds, so back to back the
+    # events read its device time ------------------------------------------
+    def fused_step():
+        f = opt.fused(grads, state, params)
+        f.norm(1.0)
+        f.update()
+
+    fused = opt.fused(grads, state, params)
+    row = {"passes_ms": {"norm_kernel": event_ms(
+        torch, lambda: fused.norm(1.0), 3),
+        "update_kernel": event_ms(torch, fused.update, 3)}}
+    row["ms"] = sum(row["passes_ms"].values())
+    row["wall_ms"] = event_ms(torch, fused_step, 3)
+    row["bound_ms"], row["bound_by"] = bound(32 * n, 0, "float32")
+
+    def per_leaf():
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        g = draw(1e-4)
+        start.record()
+        g, _ = clip_by_global_norm(g, 1.0)      # the original freed
+        updates, _ = ref.update(g, state, params)
+        apply_updates(params, updates)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    del grads
+    gc.collect()
+    per_leaf()
+    torch.cuda.reset_peak_memory_stats()
+    walls = [per_leaf() for _ in range(3)]
+    row["plain_ms"] = statistics.median(walls)
+    row["plain_walls_ms"] = walls
+    row["plain_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    del state, opt, fused
+    gc.collect()
+    torch.cuda.empty_cache()
+    leaves = list(params.values())
+    for t, g in zip(leaves, draw(1e-4).values()):
+        t.grad = g
+    lib = torch.optim.AdamW(leaves, lr=3e-4, betas=(0.9, 0.95), eps=1e-8,
+                            weight_decay=0.1, fused=True)
+
+    def library_step():
+        torch.nn.utils.clip_grad_norm_(leaves, 1.0, foreach=True)
+        lib.step()
+
+    row["library_ms"] = event_ms(torch, library_step, 3)
+    row.update(parameters=n, leaves=len(shapes), norm=norm)
+    print("phase 18: fused AdamW at mixtral-8x7b-2l: " + ", ".join(
+        f"{k}={v!r}" for k, v in row.items()) + f" [{card}]")
+    del lib, leaves, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
 def start_dryrun() -> tuple:
     """Phase 16's cells, each a subprocess (the fake process group is
     process-wide), output to files in a temporary directory."""
@@ -5243,6 +5440,8 @@ def main() -> int:
     split_kv = split_kv_phase(torch, card, gen)
     gc.collect()
     torch.cuda.empty_cache()
+    # -- 18. the fused clip-and-AdamW pass at mixtral-8x7b-2l's leaves ------
+    fused_adamw = fused_adamw_phase(torch, card)
     # Phase 16's cells trace on the host's other cores beside phases 7-10
     # (their host clocks vary more than that already; PERF.md §6).
     dry = start_dryrun()
@@ -5553,7 +5752,14 @@ def main() -> int:
             ("rwkv6_fwd", "fwd", wkv["rwkv6_fwd"], {}),
             ("rwkv6_bwd", "bwd", wkv["rwkv6_bwd"], {"note": (
                 "no TPU counterpart: the JAX package differentiates the "
-                "model's _chunked_wkv through XLA")}))]},
+                "model's _chunked_wkv through XLA")}))] + [{
+        "name": "fused_adamw", "route": "cuda", "variant": "simt",
+        "source": "src/repro_torch/kernels/csrc/fused_adamw.cu",
+        "replaces": None,
+        "note": ("no TPU counterpart: the JAX package leaves the clip and "
+                 "AdamW to XLA; the plain version is the per-leaf path "
+                 "(clip_by_global_norm, update, apply_updates)"),
+        **fused_adamw}]},
         allow_nan=False))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

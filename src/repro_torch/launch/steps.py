@@ -124,14 +124,24 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, grad_accum: int = 1,
         else:
             loss, grads = loss_and_grads(cfg, params, batch)
 
-        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        # The norm, the guard's verdict, then the update: on the card as
+        # two launches of the fused pass where the optimizer has one and
+        # every leaf suits it, else per leaf.
+        fused = opt.fused(grads, opt_state, params) if opt.fused else None
+        if fused is None:
+            grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        else:
+            gnorm = fused.norm(max_grad_norm)
         metrics = {"loss": loss.float(), "grad_norm": gnorm, "action": "ok"}
         if guard is not None:
             metrics["action"] = guard.check(float(loss), float(gnorm))
             if metrics["action"] != "ok":
                 return params, opt_state, metrics
-        updates, opt_state = opt.update(grads, opt_state, params)
-        params = apply_updates(params, updates)
+        if fused is None:
+            updates, opt_state = opt.update(grads, opt_state, params)
+            params = apply_updates(params, updates)
+        else:
+            opt_state = fused.update()
         return params, opt_state, metrics
 
     return train_step

@@ -12,12 +12,13 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import partial
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..distributed.sharding import is_dtensor
+from ..kernels import fused_adamw as fa
 from ..models.params import tree_items, tree_map
 
 
@@ -30,6 +31,12 @@ class OptState(NamedTuple):
 class Optimizer:
     init: Callable[[Any], OptState]
     update: Callable[[Any, OptState, Any], tuple[Any, OptState]]
+    # ``fused(grads, state, params)``: the step's clip and update as one
+    # pass on the card (:class:`FusedStep`), or None where the tree takes
+    # the per-leaf path (``clip_by_global_norm``, ``update``,
+    # ``apply_updates``).  AdamW has one; the others are per-leaf only.
+    fused: Optional[Callable[[Any, OptState, Any],
+                             Optional["FusedStep"]]] = None
 
 
 # ---------------------------------------------------------------------------
@@ -72,8 +79,18 @@ def clip_by_global_norm(grads, max_norm: float):
 
 def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8,
           weight_decay=0.1) -> Optimizer:
-    """AdamW with f32 moments ``{"m": tree, "v": tree}``."""
+    """AdamW with f32 moments ``{"m": tree, "v": tree}``.  On the card a
+    tree whose every leaf ``kernels.fused_adamw.takes`` is clipped and
+    updated by the fused pass (:attr:`Optimizer.fused`), with the same
+    arithmetic as ``update``."""
     lr_fn = lr if callable(lr) else (lambda _: lr)
+    table = fa.LeafTable()
+
+    def scalars(step: int) -> tuple[float, float, float]:
+        """The step's learning rate and bias corrections, f32 values."""
+        return (float(np.float32(lr_fn(step))),
+                float(np.float32(1) - np.float32(b1) ** np.float32(step)),
+                float(np.float32(1) - np.float32(b2) ** np.float32(step)))
 
     def init(params):
         z = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
@@ -82,9 +99,7 @@ def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8,
 
     def update(grads, state, params):
         step = state.step + 1
-        lr_t = float(np.float32(lr_fn(step)))
-        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(step))
-        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(step))
+        lr_t, bc1, bc2 = scalars(step)
 
         def upd(g, m, v, p):
             g32 = g.float()
@@ -98,7 +113,43 @@ def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8,
                            params)
         return updates, OptState(step, state.inner)
 
-    return Optimizer(init, update)
+    def fused(grads, state, params):
+        leaves = [(p, g, m, v) for (_, p), (_, g), (_, m), (_, v) in zip(
+            tree_items(params), tree_items(grads),
+            tree_items(state.inner["m"]), tree_items(state.inner["v"]))]
+        if all(fa.takes(*q) for q in leaves):
+            lr_t, bc1, bc2 = scalars(state.step + 1)
+            return FusedStep(table.bind(leaves), state, dict(
+                lr_t=lr_t, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+                bc1=bc1, bc2=bc2))
+        fa.fused_adamw.fallback_leaves += sum(
+            1 for q in leaves if q[0].device.type == "cuda")
+        return None
+
+    return Optimizer(init, update, fused)
+
+
+class FusedStep:
+    """One step of the fused pass (``kernels/fused_adamw.py``), in two
+    launches with the divergence guard's verdict between them: :meth:`norm`
+    computes the gradients' global norm and the clip scale on the card,
+    :meth:`update` clips and updates every leaf in place.  Until
+    :meth:`update`, parameters and state are as they were."""
+
+    def __init__(self, table: "fa.LeafTable", state: OptState, hyper: dict):
+        self.table, self.state, self.hyper = table, state, hyper
+        self.scale = None
+
+    def norm(self, max_norm: float) -> torch.Tensor:
+        """The global norm (an f32 0-dim tensor on the card)."""
+        out = fa.fused_norm(self.table, max_norm)
+        self.scale = out[1]
+        return out[0]
+
+    def update(self) -> OptState:
+        """Clip and update every leaf in place; the state after the step."""
+        fa.fused_adamw(self.table, self.scale, **self.hyper)
+        return OptState(self.state.step + 1, self.state.inner)
 
 
 # ---------------------------------------------------------------------------
